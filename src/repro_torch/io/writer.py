@@ -1,0 +1,408 @@
+"""TACZ writer: level serialization + a streaming, double-buffered writer.
+
+* :func:`write` — one-shot: serialize an ``AMRCompressionResult`` (from
+  ``repro_torch.core.hybrid.compress_amr``) or compress-and-write an
+  ``AMRDataset``.
+* :class:`TACZWriter` — streaming: ``add_level(data, mask)`` hands raw
+  levels to a background encoder thread (bounded queue → double
+  buffering); ``close()`` writes the index and publishes the file
+  atomically (tmp file + ``os.replace``).
+
+The bytes are the reference writer's for the same compressed state: the
+payloads of a level are packed on the device in one batched pass
+(``entropy.TorchEngine``); framing, CRCs and the optional zlib/zstd byte
+pass run on the host.  Only SHE levels (per-sub-block payloads under one
+shared codebook) are written; gsp/global levels are not yet ported.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import weakref
+import zlib
+
+import numpy as np
+import torch
+
+from ..core import entropy, huffman
+from ..core.amr import AMRDataset
+from ..core.compat import HAVE_ZSTD, zstd_compress
+from ..core.hybrid import AMRCompressionResult, LevelResult, compress_level
+from ..core.sz import SZResult
+from ..device import resolve_device
+from . import format as fmt
+from . import frontier as frt
+
+__all__ = ["TACZWriter", "build_container", "pack_level", "write"]
+
+
+def resolve_payload_codec(codec: str) -> int:
+    """Map a payload-codec name to its COMPRESSOR_* wire code: ``"auto"``
+    is zstd when ``zstandard`` is importable, else zlib; ``"none"`` writes
+    v1-style raw packed-bits payloads."""
+    if codec == "none":
+        return fmt.COMPRESSOR_NONE
+    if codec == "zlib":
+        return fmt.COMPRESSOR_ZLIB
+    if codec == "zstd":
+        if not HAVE_ZSTD:
+            raise ModuleNotFoundError(
+                "payload_codec='zstd' but zstandard is not installed "
+                "(use 'auto' to fall back to zlib)")
+        return fmt.COMPRESSOR_ZSTD
+    if codec == "auto":
+        return fmt.COMPRESSOR_ZSTD if HAVE_ZSTD else fmt.COMPRESSOR_ZLIB
+    raise ValueError(f"unknown payload codec {codec!r}")
+
+
+def _lossless_pass(buf: bytes, compressor: int) -> tuple[bytes, int]:
+    """The configured byte pass over one payload's code bytes, kept only
+    when strictly smaller (else stored raw as ``COMPRESSOR_NONE``)."""
+    if compressor == fmt.COMPRESSOR_NONE or len(buf) < 16:
+        return buf, fmt.COMPRESSOR_NONE
+    if compressor == fmt.COMPRESSOR_ZSTD:
+        comp = zstd_compress(buf)
+    else:
+        comp = zlib.compress(buf, 6)
+    if len(comp) < len(buf):
+        return comp, compressor
+    return buf, fmt.COMPRESSOR_NONE
+
+
+def _branch_code(r: SZResult) -> int:
+    b = (r.extras or {}).get("branch")
+    if b == "reg":
+        return fmt.BRANCH_REG
+    if b == "lorenzo":
+        return fmt.BRANCH_LORENZO
+    raise ValueError(f"cannot serialize SZ method {r.method!r}")
+
+
+def _betas_bytes(results: list[SZResult]) -> list[bytes]:
+    """Little-endian float32 betas prefix per result (b"" for Lorenzo
+    bricks), copied off the device in one transfer."""
+    reg = [i for i, r in enumerate(results)
+           if (r.extras or {}).get("branch") == "reg"]
+    out = [b""] * len(results)
+    if not reg:
+        return out
+    flat = torch.cat([results[i].extras["betas"].reshape(-1).float()
+                      for i in reg]).cpu().numpy().astype("<f4")
+    pos = 0
+    for i in reg:
+        n = results[i].extras["betas"].numel()
+        out[i] = flat[pos:pos + n].tobytes()
+        pos += n
+    return out
+
+
+def pack_level(lr: LevelResult, *, payload_codec: str = "auto",
+               ) -> tuple[bytes, fmt.LevelEntry]:
+    """Serialize one compressed level into (section blob, index entry)
+    with blob-relative offsets; the caller places the blob and calls
+    ``entry.shift_offsets(base)``.
+
+    ``payload_codec`` selects the lossless byte pass over each payload's
+    packed-Huffman bytes (betas prefixes stay raw).
+    """
+    art = lr.artifacts
+    if art is None:
+        raise ValueError("level has no serialization artifacts; compress "
+                         "with keep_artifacts=True")
+    if art.results and not art.subblocks:
+        raise NotImplementedError("gsp/global levels are not yet ported")
+    if lr.strategy not in fmt.STRATEGY_CODES:
+        raise ValueError(f"unknown strategy {lr.strategy!r}")
+
+    blob = bytearray()
+
+    def append(section: bytes) -> tuple[int, int]:
+        off = len(blob)
+        blob.extend(section)
+        return off, len(section)
+
+    entry = fmt.LevelEntry(
+        shape=tuple(int(s) for s in art.orig_shape),
+        grid_shape=tuple(int(s) for s in art.grid_shape),
+        strategy=fmt.STRATEGY_CODES[lr.strategy],
+        algorithm=fmt.ALGO_CODES[lr.algorithm],
+        unit=int(art.unit), sz_block=int(art.sz_block), ratio=int(lr.ratio),
+        eb=float(lr.eb), n_values=int(lr.n_values), density=float(lr.density))
+
+    # shared codebook section (omitted when the level holds no payloads)
+    if art.results:
+        cb_bytes = huffman.serialize_codebook(art.codebook)
+        entry.codebook_off, entry.codebook_len = append(cb_bytes)
+        entry.codebook_crc = zlib.crc32(cb_bytes)
+
+    # validity mask section (packbits + zlib; omitted when all-True)
+    mask = np.asarray(art.mask, dtype=bool)
+    if not mask.all():
+        mask_bytes = zlib.compress(np.packbits(mask.ravel()).tobytes(), 6)
+        entry.mask_off, entry.mask_len = append(mask_bytes)
+        entry.mask_crc = zlib.crc32(mask_bytes)
+        entry.mask_compressor = fmt.COMPRESSOR_ZLIB
+
+    level_comp = resolve_payload_codec(payload_codec)
+    entry.payload_compressor = level_comp
+    if not art.results:
+        return bytes(blob), entry
+    results = art.results
+    device = results[0].codes.device
+    payloads = entropy.TorchEngine(device).encode_payloads(
+        art.codebook, [r.codes for r in results])
+    for r, sb, (packed, nbits), betas in zip(results, art.subblocks, payloads,
+                                             _betas_bytes(results)):
+        stored, comp = _lossless_pass(packed, level_comp)
+        payload = betas + stored
+        off, length = append(payload)
+        entry.subblocks.append(fmt.SubBlockEntry(
+            origin=tuple(int(o) for o in sb.cell_origin(art.unit)),
+            size=tuple(int(s) for s in sb.cell_size(art.unit)),
+            branch=_branch_code(r), codec=fmt.CODEC_HUFFMAN,
+            compressor=comp, payload_off=off, payload_len=length,
+            nbits=int(nbits), n_codes=int(r.codes.numel()),
+            betas_len=len(betas), crc=zlib.crc32(payload)))
+    return bytes(blob), entry
+
+
+def build_container(packed: list[tuple[bytes, fmt.LevelEntry]], *,
+                    version: int = fmt.TACZ_VERSION) -> bytes:
+    """Assemble header + level blobs + index + footer into one buffer."""
+    out = bytearray(fmt.pack_header(version=version))
+    entries = []
+    for blob, entry in packed:
+        entry.shift_offsets(len(out))
+        out.extend(blob)
+        entries.append(entry)
+    index = fmt.pack_index(entries, version=version)
+    index_off = len(out)
+    out.extend(index)
+    out.extend(fmt.pack_footer(index_off, len(index), fmt.index_crc(index)))
+    return bytes(out)
+
+
+_SENTINEL = object()
+
+
+def _nudge(q: queue.Queue) -> None:
+    """GC finalizer: wake the encoder thread of an abandoned writer."""
+    try:
+        q.put_nowait(_SENTINEL)
+    except queue.Full:   # worker is mid-item; it re-checks liveness next get
+        pass
+
+
+def _worker_loop(wref, q: queue.Queue, f, tmp: str) -> None:
+    """Encoder-thread body.  Holds only a weakref to the writer, so an
+    abandoned writer is collected; the thread then closes the fd, drops
+    the tmp file and exits."""
+    while True:
+        item = q.get()
+        w = wref()
+        try:
+            if item is _SENTINEL or w is None:
+                if w is None:
+                    f.close()
+                    try:
+                        os.remove(tmp)
+                    except OSError:
+                        pass
+                return
+            if w._err is None and not w._aborted:
+                w._append_level(w._encode(item))
+        except BaseException as exc:  # propagate to the producer thread
+            if w is not None:
+                w._err = exc
+        finally:
+            del w
+            q.task_done()
+
+
+class TACZWriter:
+    """Streaming TACZ writer with a background encoder thread.
+
+    ``add_level`` snapshots a raw level and returns; a worker thread runs
+    the TAC+ pipeline on ``device`` and appends the level's sections.
+    The bounded queue (``queue_depth``) double-buffers producer and
+    encoder.  The file is written to ``<path>.tmp`` and moved into place
+    by :meth:`close`; readers never observe a partial file.
+
+    :param path: destination ``.tacz`` path.
+    :param eb: default absolute error bound for :meth:`add_level`.
+    :param unit: finest unit-block edge; level units follow
+        ``max(2, unit // ratio)`` as in ``compress_amr``.
+    :param sz_block: Lor/Reg regression block edge.
+    :param payload_codec: ``"auto"`` (zstd, zlib fallback), ``"zstd"``,
+        ``"zlib"`` or ``"none"``.
+    :param queue_depth: bounded encode queue length (≥1).
+    :param device: where levels compress (default ``"cuda"``).
+    :raises ValueError: on an unknown ``payload_codec``.
+    :raises RuntimeError: for ``device="cuda"`` without a card.
+    """
+
+    def __init__(self, path: str, *, eb: float | None = None, unit: int = 8,
+                 sz_block: int = 6, payload_codec: str = "auto",
+                 queue_depth: int = 2,
+                 device: str | torch.device = "cuda"):
+        resolve_payload_codec(payload_codec)   # fail fast on bad names
+        self.device = resolve_device(device)
+        self.path = str(path)
+        self._tmp = self.path + ".tmp"
+        self._payload_codec = payload_codec
+        self._defaults = dict(eb=eb, unit=unit, sz_block=sz_block)
+        self._f = open(self._tmp, "wb")
+        self._f.write(fmt.pack_header())
+        self._off = fmt.HEADER_SIZE
+        self._entries: list[fmt.LevelEntry] = []
+        self._frontier: frt.Frontier | None = None
+        #: index CRC of the published file (set by :meth:`close`)
+        self.index_crc: int | None = None
+        self._err: BaseException | None = None
+        self._finalized = False
+        self._aborted = False
+        self._sentinel_sent = False
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, queue_depth))
+        self._thread = threading.Thread(
+            target=_worker_loop,
+            args=(weakref.ref(self), self._queue, self._f, self._tmp),
+            daemon=True)
+        self._thread.start()
+        self._reaper = weakref.finalize(self, _nudge, self._queue)
+
+    def add_level(self, data: np.ndarray, mask: np.ndarray | None = None, *,
+                  eb: float | None = None, ratio: int = 1,
+                  unit: int | None = None) -> None:
+        """Queue one raw level for encoding (snapshot taken now)."""
+        self._check_live()
+        eb = self._defaults["eb"] if eb is None else eb
+        if eb is None:
+            raise ValueError("no error bound: pass eb= here or to the writer")
+        if unit is None:
+            unit = max(2, int(self._defaults["unit"]) // max(int(ratio), 1))
+        data = np.array(data, dtype=np.float32, copy=True)
+        mask = (data != 0) if mask is None else np.array(mask, dtype=bool,
+                                                         copy=True)
+        self._queue.put(("raw", data, mask, float(eb), int(ratio), int(unit)))
+
+    def add_compressed(self, lr: LevelResult) -> None:
+        """Queue an already-compressed level (needs ``artifacts``)."""
+        self._check_live()
+        if lr.artifacts is None:
+            raise ValueError("LevelResult has no serialization artifacts; "
+                             "compress with keep_artifacts=True")
+        self._queue.put(("level", lr))
+
+    def set_frontier(self, frontier: frt.Frontier | None) -> None:
+        """Attach a rate–distortion frontier, written by :meth:`close` as
+        the optional ``TACF`` section between index and footer."""
+        self._check_live()
+        self._frontier = frontier
+
+    def close(self) -> str:
+        """Drain the queue, write index + footer, publish atomically.
+
+        Raises the encoder's error, if any, after dropping the tmp file.
+        """
+        if self._finalized:
+            return self.path
+        self._stop_worker()
+        if self._aborted:
+            raise ValueError("writer was aborted")
+        try:
+            if self._err is not None:
+                raise self._err
+            index = fmt.pack_index(self._entries)
+            self._f.write(index)
+            self.index_crc = fmt.index_crc(index)
+            if self._frontier is not None:
+                self._f.write(frt.pack_section(self._frontier))
+            self._f.write(fmt.pack_footer(self._off, len(index),
+                                          self.index_crc))
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self._f.close()
+            os.replace(self._tmp, self.path)
+        except BaseException:
+            self.abort()
+            raise
+        self._finalized = True
+        return self.path
+
+    def abort(self) -> None:
+        """Drop the partial file (used on error paths)."""
+        self._aborted = True
+        self._stop_worker()
+        self._f.close()
+        try:
+            os.remove(self._tmp)
+        except OSError:
+            pass
+
+    def __enter__(self) -> "TACZWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
+
+    def _stop_worker(self) -> None:
+        if not self._sentinel_sent:
+            self._sentinel_sent = True
+            self._reaper.detach()   # orderly shutdown owns cleanup now
+            self._queue.put(_SENTINEL)
+        self._thread.join()
+
+    def _check_live(self) -> None:
+        if self._finalized or self._aborted or self._sentinel_sent:
+            raise ValueError("writer is closed")
+        if self._err is not None:
+            raise self._err
+
+    def _encode(self, item) -> LevelResult:
+        if item[0] == "level":
+            return item[1]
+        _, data, mask, eb, ratio, unit = item
+        return compress_level(data, mask, eb=eb, unit=unit,
+                              sz_block=self._defaults["sz_block"],
+                              ratio=ratio, keep_artifacts=True,
+                              device=self.device)
+
+    def _append_level(self, lr: LevelResult) -> None:
+        blob, entry = pack_level(lr, payload_codec=self._payload_codec)
+        entry.shift_offsets(self._off)
+        self._f.write(blob)
+        self._off += len(blob)
+        self._entries.append(entry)
+
+
+def write(path: str, obj, *, eb: float | list[float] | None = None,
+          frontier: frt.Frontier | None = None, **kwargs) -> str:
+    """Write ``obj`` — an ``AMRCompressionResult`` (compressed with
+    ``keep_artifacts=True``) or an ``AMRDataset`` (compressed here level by
+    level; ``eb`` required, scalar or per level) — to ``path``.
+    ``kwargs`` go to :class:`TACZWriter` (``device``, ``payload_codec``,
+    ...).  Returns ``path``."""
+    if isinstance(obj, AMRCompressionResult):
+        with TACZWriter(path, **kwargs) as w:
+            for lr in obj.levels:
+                w.add_compressed(lr)
+            if frontier is not None:
+                w.set_frontier(frontier)
+        return path
+    if isinstance(obj, AMRDataset):
+        if eb is None:
+            raise ValueError("writing a raw AMRDataset needs eb=")
+        ebs = eb if isinstance(eb, (list, tuple)) else [eb] * obj.n_levels
+        if len(ebs) != obj.n_levels:
+            raise ValueError("need one error bound per level")
+        with TACZWriter(path, **kwargs) as w:
+            for lvl, e in zip(obj.levels, ebs):
+                w.add_level(lvl.data, lvl.mask, eb=float(e), ratio=lvl.ratio)
+            if frontier is not None:
+                w.set_frontier(frontier)
+        return path
+    raise TypeError(f"cannot write {type(obj).__name__} as TACZ")
