@@ -17,14 +17,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    them, and ``max|recon − orig|`` over each mask must stay within
    ``eb + 2⁻²²·max|orig|``.  Kernel launch counts are reset just before
    and read just after; every kernel must have launched;
-3. each kernel against its plain PyTorch version on the card, at the
+3. kernels 1-4 against their plain PyTorch versions on the card, at the
    main path's shapes (exact agreement required), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
-   the same function, that call (``library_ms``, a yardstick only).
+   the same function, that call (``library_ms``, a yardstick only).  The
+   plain Huffman decoder walks the finest level's payloads of at most
+   16,384 symbols (plus a truncated copy of one); the kernel is timed on
+   the whole level;
+4. the TAC path (``she=False``), through the user entry points: the
+   ``run2_t3`` structure (Nyx Run2_T3, three levels 2/6/92 %, seed 3) at
+   512³ with ``eb = 1e-3 · range`` of the finest level, compressed with
+   each of ``lorenzo``, ``lor_reg`` and ``interp``.  The 92 % coarse level
+   must take GSP, every level must hold the error bound, and that level
+   streamed through ``TACZWriter(strategy="gsp")`` must read back
+   (``read``, ``read_roi``, ``verify``) equal to the compress-time recon.
+   Launch counts are reset before and read after; kernels 5 and 6 must
+   have launched.  Kernels 5 and 6 are then held against their plain
+   versions, and timed, on the grid that path gives them: the GSP-padded
+   128³ coarse level.  There a launch is about as short as the host's
+   cost per call, so they are also timed from a CUDA graph of 100 calls;
+5. kernels 5 and 6 against their plain versions on the GSP-padded finest
+   level of phase 2's snapshot (512³), at ``tile = shape`` and at the
+   reference's default tile ``(8, 128, 128)``.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-outside a checkout, it exits non-zero and prints no result.
+Prints the card's name and power limit, the script's wall time, a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -40,7 +59,10 @@ SRC = os.path.join(HERE, "src")
 
 SHAPE = (512, 512, 512)
 DENSITIES = [0.23, 0.77]
+TAC_DENSITIES = [0.0202, 0.0556, 0.9242]     # run2_t3: fine → coarse
+TAC_ALGORITHMS = ("lorenzo", "lor_reg", "interp")
 ROI_BOX = ((100, 228), (200, 264), (0, 512))
+PLAIN_K4_MAX_SYMBOLS = 16384
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 
@@ -53,6 +75,10 @@ KERNELS = {
              "src/repro/kernels/hist.py:41"),
     "huffdec": ("src/repro_torch/kernels/csrc/huffdec.cu",
                 "src/repro/kernels/huffdec.py:48"),
+    "lorenzo3d_codes": ("src/repro_torch/kernels/csrc/lorenzo3d.cu",
+                        "src/repro/kernels/lorenzo3d.py:64"),
+    "lorenzo3d_recon": ("src/repro_torch/kernels/csrc/lorenzo3d.cu",
+                        "src/repro/kernels/lorenzo3d.py:82"),
 }
 
 
@@ -80,6 +106,30 @@ def cuda_ms(fn, reps: int, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int, torch) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls captured in one
+    CUDA graph, so the host's cost per launch, which exceeds a small
+    kernel's own time, drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -87,6 +137,7 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         return fail("run from a checkout: src/repro_torch is missing")
     import torch
@@ -96,7 +147,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import io as tio
-    from repro_torch.core import amr, hybrid
+    from repro_torch.core import amr, gsp, hybrid
     from repro_torch.core.entropy import TorchEngine
     from repro_torch.kernels import build, ops, ref
 
@@ -178,17 +229,21 @@ def main() -> int:
         "compression_ratio_file": raw_bytes / file_bytes,
         "file_bytes": file_bytes, "peak_device_bytes": peak,
         "launches": launches}))
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in ("lorenzo3d_codes_batched", "lorenzo3d_recon_batched",
+                 "hist", "huffdec"):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the main path")
 
     # ------------------------------------------------- 3. kernels vs plain
     rows = []
 
-    def row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms):
+    def row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
+            n_launches=None):
         b_ms, b_by = bound(bytes_moved, ops_count)
         rows.append({"name": name, "route": "cuda",
                      "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-                     "launches": launches[name], "max_abs_err": err,
+                     "launches": (launches[name] if n_launches is None
+                                  else n_launches), "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": library_ms})
         print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -242,20 +297,26 @@ def main() -> int:
     print(f"K3 input: {pooled.numel()} codes, span {span}")
     del pooled, shifted, counts
 
-    # K4 on the finest level's payloads plus a truncated one ...
+    # K4 against its plain version on the finest level's payloads of at
+    # most PLAIN_K4_MAX_SYMBOLS symbols plus a truncated copy of the longest
+    # of them (the plain lockstep decoder runs one step per symbol of the
+    # longest payload); the whole level is checked by phase 2's read
     eng = TorchEngine(dev)
-    trunc = payloads0[0]
-    payloads = payloads0 + [(trunc[0], trunc[1] // 2, trunc[2])]
-    args = eng.huffdec_args(codebook0, payloads)
-    out_k, err_k = ops.huffdec(*args)
+    short = [p for p in payloads0 if p[2] <= PLAIN_K4_MAX_SYMBOLS]
+    trunc = max(short, key=lambda p: p[2])
+    short = short + [(trunc[0], trunc[1] // 2, trunc[2])]
+    sargs = eng.huffdec_args(codebook0, short)
+    out_k, err_k = ops.huffdec(*sargs)
     t0 = time.perf_counter()
-    out_p, err_p = ref.huffdec(*args)
+    out_p, err_p = ref.huffdec(*sargs)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(torch.equal(out_k, out_p) and torch.equal(err_k, err_p),
           "K4 != plain on the level's payloads")
     check(int(err_k[-1]) == 1 and not bool(err_k[:-1].any()),
           "K4 error kinds on the level's payloads")
+    print(f"K4 plain check: {len(short)} payloads, {sargs[5]} symbols, "
+          f"max {trunc[2]} per payload, plain {plain_ms:.1f} ms")
     # ... and an incomplete codebook with valid, corrupt and truncated ones
     from repro_torch.core import huffman
     cb_gap = huffman._canonicalize(np.array([5, -3], np.int64),
@@ -268,6 +329,10 @@ def main() -> int:
     gp, ep = ref.huffdec(*gargs)
     check(torch.equal(gk, gp) and torch.equal(ek, ep), "K4 != plain (gap)")
     check(ek.tolist() == [0, 2, 1], f"K4 gap error kinds {ek.tolist()}")
+    # K4 timed on the whole level's payloads plus a truncated one
+    payloads = payloads0 + [(payloads0[0][0], payloads0[0][1] // 2,
+                             payloads0[0][2])]
+    args = eng.huffdec_args(codebook0, payloads)
     n_out = args[5]
     walked_bits = sum(min(nb, 8 * len(b)) for b, nb, _ in payloads)
     row("huffdec", 0, cuda_ms(lambda: ops.huffdec(*args), 3, torch), plain_ms,
@@ -276,6 +341,151 @@ def main() -> int:
     print(f"K4 input: {len(payloads)} payloads, {n_out} symbols, "
           f"max {max(p[2] for p in payloads)} per payload")
 
+    del payloads0, payloads, args, sargs, res, levels, roi
+
+    # ---------------------------------------------------------- 4. TAC path
+    t0 = time.perf_counter()
+    ds4 = amr.synthetic_amr(SHAPE, densities=TAC_DENSITIES, refine_block=16,
+                            lognormal_sigma=2.6, seed=3)
+    vals = ds4.levels[0].data[ds4.levels[0].mask]
+    eb4 = 1e-3 * float(vals.max() - vals.min())
+    coarse_li = ds4.n_levels - 1
+    coarse = ds4.levels[coarse_li]
+    print(f"TAC data: {SHAPE} levels={ds4.n_levels} "
+          f"densities={[round(l.density, 4) for l in ds4.levels]} "
+          f"eb={eb4:.6g} gen {time.perf_counter() - t0:.1f} s")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tac = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for alg in TAC_ALGORITHMS:
+            st = {}
+            t0 = time.perf_counter()
+            res4 = hybrid.compress_amr(ds4, eb=eb4, algorithm=alg, she=False,
+                                       device="cuda")
+            torch.cuda.synchronize()
+            st["compress_s"] = time.perf_counter() - t0
+            check(res4.method == f"tac/{alg}", f"{alg}: method {res4.method}")
+            for li, lr in enumerate(res4.levels):
+                lvl = ds4.levels[li]
+                orig = torch.from_numpy(lvl.data).to(dev)
+                mask = torch.from_numpy(lvl.mask).to(dev)
+                err = float((lr.recon - orig).abs()[mask].max())
+                limit = lr.eb + 2.0 ** -22 * float(orig.abs().max())
+                check(err <= limit, f"{alg} level {li}: max err {err} > "
+                                    f"{limit}")
+                print(f"{alg} level {li}: strategy={lr.strategy} "
+                      f"density={lr.density:.4f} subblocks={lr.n_subblocks} "
+                      f"bits={lr.total_bits} max_err={err:.6g} "
+                      f"limit={limit:.6g}")
+                del orig, mask
+            check(res4.levels[coarse_li].strategy == "gsp",
+                  f"{alg}: coarse level took "
+                  f"{res4.levels[coarse_li].strategy}, not gsp")
+            recon_c = res4.levels[coarse_li].recon
+            path = os.path.join(tmp, f"{alg}.tacz")
+            t0 = time.perf_counter()
+            with tio.TACZWriter(path, eb=eb4, algorithm=alg, she=False,
+                                strategy="gsp", device="cuda") as w:
+                w.add_level(coarse.data, coarse.mask, ratio=coarse.ratio)
+            st["write_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got, = tio.read(path, device="cuda")
+            torch.cuda.synchronize()
+            st["read_s"] = time.perf_counter() - t0
+            check(torch.equal(got, recon_c), f"{alg}: read != recon")
+            t0 = time.perf_counter()
+            crop, = tio.read_roi(path, ROI_BOX, device="cuda")
+            torch.cuda.synchronize()
+            st["read_roi_s"] = time.perf_counter() - t0
+            check(torch.equal(crop.data, got[tuple(
+                slice(lo, hi) for lo, hi in crop.box)]), f"{alg}: roi")
+            with tio.TACZReader(path, device="cuda") as rd:
+                check(rd.verify(), f"{alg}: container CRCs")
+            st["compression_ratio_bits"] = res4.compression_ratio()
+            st["coarse_file_bytes"] = os.path.getsize(path)
+            tac[alg] = (st, path)
+            del res4, recon_c, got, crop
+        launches4 = dict(ops.launches)
+        peak4 = torch.cuda.max_memory_allocated()
+        for alg, (st, path) in tac.items():
+            # K4 on the level's one GSP payload (after the counts were read)
+            with tio.TACZReader(path, device="cuda") as rd:
+                sb = rd.levels[0].subblocks[0]
+                code_bytes, _ = rd._payload_parts(0, sb, rd.subblock_shape(0, 0))
+                gargs = eng.huffdec_args(rd._codebook(0),
+                                         [(code_bytes, sb.nbits, sb.n_codes)])
+            st["k4_gsp_payload_ms"] = cuda_ms(lambda: ops.huffdec(*gargs), 2,
+                                              torch)
+            st["gsp_payload_symbols"] = sb.n_codes
+            print(f"TAC {alg}: " + json.dumps({"card": smi, **{
+                k: (round(v, 4) if isinstance(v, float) else v)
+                for k, v in st.items()}}))
+    print("TAC path: " + json.dumps({"peak_device_bytes": peak4,
+                                     "launches": launches4}))
+    for name in ("lorenzo3d_codes", "lorenzo3d_recon"):
+        check(launches4[name] > 0,
+              f"kernel {name} never launched on the TAC path")
+
+    # K5/K6 against their plain versions on the grid the TAC path gives
+    # them: the GSP-padded coarse level, at the path's tile = shape
+    padded, _ = gsp.gsp_pad(coarse.data, coarse.mask,
+                            unit=max(2, 8 // coarse.ratio), device=dev)
+    gshape = tuple(padded.shape)
+    for tile in (gshape, (8, 128, 128)):
+        codes = ops.lorenzo3d_codes(padded, eb4, tile)
+        check(torch.equal(codes, ref.lorenzo3d_codes(padded, eb4, tile)),
+              f"K5 != plain on the TAC path's grid at tile {tile}")
+        recon = ops.lorenzo3d_recon(codes, eb4, tile)
+        check(torch.equal(recon, ref.lorenzo3d_recon(codes, eb4, tile)),
+              f"K6 != plain on the TAC path's grid at tile {tile}")
+    n_el = padded.numel()
+    tac_grid = {"card": smi, "shape": gshape, "values": n_el,
+                "zero_share": float((padded == 0).sum()) / n_el}
+    tac_grid["bound_ms"] = bound(12 * n_el, 12 * n_el)[0]
+    tac_grid["k5_ms"] = cuda_ms(
+        lambda: ops.lorenzo3d_codes(padded, eb4, gshape), 200, torch)
+    tac_grid["k5_plain_ms"] = cuda_ms(
+        lambda: ref.lorenzo3d_codes(padded, eb4, gshape), 20, torch)
+    tac_grid["k6_ms"] = cuda_ms(
+        lambda: ops.lorenzo3d_recon(codes, eb4, gshape), 200, torch)
+    tac_grid["k6_plain_ms"] = cuda_ms(
+        lambda: ref.lorenzo3d_recon(codes, eb4, gshape), 20, torch)
+    tac_grid["k5_graph_ms"] = graph_ms(
+        lambda: ops.lorenzo3d_codes(padded, eb4, gshape), 100, torch)
+    tac_grid["k6_graph_ms"] = graph_ms(
+        lambda: ops.lorenzo3d_recon(codes, eb4, gshape), 100, torch)
+    print("K5/K6 == plain on the TAC path's GSP grid at both tiles: "
+          + json.dumps(tac_grid))
+    del padded, codes, recon
+
+    # ------------------------------------------------- 5. K5/K6 vs plain
+    padded, _ = gsp.gsp_pad(fine.data, fine.mask, unit=8, device=dev)
+    n_el = padded.numel()
+    print(f"K5/K6 input: GSP-padded finest level of phase 2, "
+          f"{tuple(padded.shape)}, {n_el} values, zero share "
+          f"{float((padded == 0).sum()) / n_el}")
+    for tile in (SHAPE, (8, 128, 128)):
+        codes = ops.lorenzo3d_codes(padded, eb, tile)
+        check(torch.equal(codes, ref.lorenzo3d_codes(padded, eb, tile)),
+              f"K5 != plain at tile {tile}")
+        recon = ops.lorenzo3d_recon(codes, eb, tile)
+        check(torch.equal(recon, ref.lorenzo3d_recon(codes, eb, tile)),
+              f"K6 != plain at tile {tile}")
+        print(f"K5/K6 == plain at tile {tile}")
+        del codes, recon
+    codes = ops.lorenzo3d_codes(padded, eb, SHAPE)
+    row("lorenzo3d_codes", 0,
+        cuda_ms(lambda: ops.lorenzo3d_codes(padded, eb, SHAPE), 20, torch),
+        cuda_ms(lambda: ref.lorenzo3d_codes(padded, eb, SHAPE), 3, torch),
+        12 * n_el, 12 * n_el, None, launches4["lorenzo3d_codes"])
+    row("lorenzo3d_recon", 0,
+        cuda_ms(lambda: ops.lorenzo3d_recon(codes, eb, SHAPE), 20, torch),
+        cuda_ms(lambda: ref.lorenzo3d_recon(codes, eb, SHAPE), 3, torch),
+        12 * n_el, 5 * n_el, None, launches4["lorenzo3d_recon"])
+    del padded, codes
+
+    print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,11 @@ def _sz_result(r, device: torch.device) -> SZResult:
     if branch == "reg":
         extras["betas"] = _tensor(np.asarray(r.extras["betas"],
                                              dtype=np.float32), device)
+    ent = (r.extras or {}).get("entropy")
+    if ent is not None:
+        extras["entropy"] = {"codebook": _codebook(ent["codebook"]),
+                             "packed": bytes(ent["packed"]),
+                             "nbits": int(ent["nbits"])}
     return SZResult(recon=_tensor(np.asarray(r.recon, dtype=np.float32),
                                   device),
                     codes=_tensor(np.asarray(r.codes, dtype=np.int64)
@@ -62,8 +67,8 @@ def _sz_result(r, device: torch.device) -> SZResult:
 def result_from_reference(res, *, device: str | torch.device = "cuda",
                           ) -> AMRCompressionResult:
     """The port's ``AMRCompressionResult`` from the reference's: strategy,
-    sub-blocks, codes, branches, betas, codebook and recon, with arrays
-    moved to ``device``."""
+    sub-blocks, codes, branches, betas, codebook, the packed payload of
+    gsp/global levels and recon, with arrays moved to ``device``."""
     device = resolve_device(device)
     levels = []
     for lr in res.levels:

@@ -1,2 +1,3 @@
-"""Compression core of the port: AMR data model, partitioning, SZ
-Lor/Reg prediction, Huffman/entropy coding, SHE and the level-wise hybrid compressor."""
+"""Compression core of the port: AMR data model, partitioning (OpST,
+AKDTree, NaST, GSP padding), SZ prediction (Lor/Reg, Lorenzo, Interp),
+Huffman/entropy coding, SHE and the level-wise hybrid compressor."""

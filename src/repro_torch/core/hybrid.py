@@ -1,14 +1,24 @@
-"""Hybrid level-wise AMR compression — the TAC+ path (paper §III-E).
+"""Hybrid level-wise AMR compression — the TAC and TAC+ drivers (paper
+§III-E).
 
-Per AMR level the unit-block density picks the partition (OpST+ below
-T0 = 50 %, AKDTree+ above); the sub-blocks go through SHE (per-block
-Lor/Reg prediction + one shared Huffman codebook) on the device, and the
-level reconstruction is scattered back on the device, exact zeros
-outside the mask.  Partitioning is integer host logic (numpy).
+Per AMR level the unit-block density picks the pre-process strategy:
 
-Only the default TAC+ path (``she=True``, ``algorithm="lor_reg"``,
-``batched=True``, strategy opst or akdtree) is ported; GSP, NaST, the
-merged-4D TAC path and the sequential path raise
+* **Lor/Reg + SHE (TAC+)**: OpST+ below T0 = 50 %, AKDTree+ above;
+* **Interp, Lorenzo, or Lor/Reg without SHE (TAC)**: OpST below
+  T1 = 50 % ≤ AKDTree below T2 = 85 % ≤ GSP.
+
+The strategy feeds the matching SZ path, on the device:
+
+* GSP → the padded full grid → one global compression;
+* OpST/AKDTree/NaST with SHE → per-sub-block Lor/Reg prediction and one
+  shared Huffman codebook;
+* OpST/AKDTree/NaST without SHE → same-size sub-blocks merged into 4D
+  arrays, each compressed globally (prediction crosses sub-block
+  boundaries — the artifact SHE removes).
+
+Level reconstructions are scattered back on the device, exact zeros
+outside the mask.  Partitioning is integer host logic (numpy).  The
+sequential SHE path (``batched=False``) is not ported and raises
 :class:`NotImplementedError`.
 """
 from __future__ import annotations
@@ -23,9 +33,10 @@ from . import huffman
 from .akdtree import akdtree_partition
 from .amr import AMRDataset
 from .blocks import BlockGrid, SubBlock, extract_subblock, make_block_grid
+from .gsp import gsp_meta_bits, gsp_pad, gsp_unpad
 from .opst import opst_partition
 from .she import she_encode
-from .sz import SZResult
+from .sz import SZResult, compress_interp, compress_lor_reg, compress_lorenzo
 
 __all__ = ["LevelArtifacts", "LevelResult", "AMRCompressionResult",
            "compress_level", "compress_amr", "choose_strategy",
@@ -46,9 +57,9 @@ class LevelArtifacts:
     grid_shape: tuple[int, ...]   # padded block-grid data shape
     unit: int                     # unit-block edge (cells)
     sz_block: int                 # Lor/Reg regression block edge
-    subblocks: list[SubBlock]     # placement
+    subblocks: list[SubBlock]     # placement (empty for gsp/global levels)
     results: list[SZResult]       # per-sub-block codes/branch/betas
-    codebook: huffman.Codebook | None  # shared Huffman codebook
+    codebook: huffman.Codebook | None  # shared Huffman codebook (SHE levels)
 
 
 @dataclass
@@ -103,14 +114,44 @@ def choose_strategy(density: float, *, algorithm: str, she: bool) -> str:
     return "gsp"
 
 
+def _global_compress(x: torch.Tensor, eb: float, algorithm: str,
+                     sz_block: int = 6) -> SZResult:
+    if algorithm == "interp":
+        return compress_interp(x, eb)
+    if algorithm == "lorenzo":
+        return compress_lorenzo(x, eb)
+    if algorithm == "lor_reg":
+        # the block edge must match what the level records (the TACZ index
+        # stores sz_block and the decoder rebuilds the betas grid from it)
+        return compress_lor_reg(x, eb, block=sz_block)
+    raise ValueError(f"unknown algorithm {algorithm!r}")
+
+
+def _merged_compress(groups: dict[tuple[int, ...], torch.Tensor], eb: float,
+                     algorithm: str,
+                     ) -> tuple[list[SZResult], dict[tuple[int, ...],
+                                                     torch.Tensor]]:
+    """TAC path: one global compression per same-size 4D group.  Lor/Reg
+    without SHE compresses each group with the global Lorenzo predictor,
+    which runs across the block-stacking axis (the paper's boundary
+    artifact)."""
+    alg = "lorenzo" if algorithm == "lor_reg" else algorithm
+    results, recon = [], {}
+    for shape, arr in groups.items():
+        r = _global_compress(arr, eb, alg)
+        results.append(r)
+        recon[shape] = r.recon
+    return results, recon
+
+
 def partition_level(data: np.ndarray, mask: np.ndarray, *, unit: int = 8,
                     algorithm: str = "lor_reg", she: bool = True,
                     strategy: str | None = None,
                     ) -> tuple[BlockGrid, str, float, list[SubBlock]]:
     """One level's unit-block grid, strategy, density and sub-blocks
-    (``subblocks`` is empty for ``"gsp"``), without compressing.
+    (``subblocks`` is empty for ``"gsp"``; one unit sub-block per
+    non-empty block for ``"nast"``), without compressing.
 
-    :raises NotImplementedError: for ``strategy="nast"``.
     :raises ValueError: on an unknown ``strategy``.
     """
     grid = make_block_grid(data, mask, unit=unit)
@@ -124,7 +165,8 @@ def partition_level(data: np.ndarray, mask: np.ndarray, *, unit: int = 8,
     elif strategy == "akdtree":
         subblocks = akdtree_partition(grid)
     elif strategy == "nast":
-        raise NotImplementedError("the nast strategy is not yet ported")
+        subblocks = [SubBlock(origin=tuple(int(v) for v in c),
+                              bsize=(1, 1, 1)) for c in np.argwhere(grid.occ)]
     else:
         raise ValueError(f"unknown strategy {strategy!r}")
     return grid, strategy, density, subblocks
@@ -136,50 +178,100 @@ def compress_level(data: np.ndarray, mask: np.ndarray, *, eb: float,
                    sz_block: int = 6, batched: bool = True,
                    ratio: int = 1, keep_artifacts: bool = True,
                    device: str | torch.device = "cuda") -> LevelResult:
-    """One level end to end on ``device``; ``recon`` is a device tensor."""
+    """One level end to end on ``device``; ``recon`` is a device tensor.
+
+    :raises NotImplementedError: for the sequential SHE path
+        (``batched=False`` on a TAC+ level).
+    """
     device = resolve_device(device)
-    if not she or algorithm != "lor_reg":
-        raise NotImplementedError("only TAC+ (she=True, algorithm='lor_reg') "
-                                  "is ported; the merged-4D TAC path and the "
-                                  "interp/lorenzo algorithms are not yet "
-                                  "ported")
-    if not batched:
-        raise NotImplementedError("the sequential batched=False path is not "
-                                  "yet ported")
+    if algorithm not in ("lor_reg", "lorenzo", "interp"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
     grid, strategy, density, subblocks = partition_level(
         data, mask, unit=unit, algorithm=algorithm, she=she,
         strategy=strategy)
-    if strategy == "gsp":
-        raise NotImplementedError("the gsp strategy is not yet ported")
     orig_shape = tuple(data.shape)
+    crop = tuple(slice(0, s) for s in orig_shape)
+    mask_np = np.asarray(mask, dtype=bool)
+    n_values = int(mask_np.sum())
+
+    if strategy == "gsp":
+        padded, grid = gsp_pad(data, mask, unit=unit, device=device)
+        r = _global_compress(padded, eb, algorithm, sz_block)
+        art = None
+        if keep_artifacts:
+            art = LevelArtifacts(mask=mask_np, orig_shape=orig_shape,
+                                 grid_shape=tuple(grid.data.shape),
+                                 unit=unit, sz_block=sz_block,
+                                 subblocks=[], results=[r], codebook=None)
+        return LevelResult(strategy="gsp", algorithm=algorithm, she=False,
+                           payload_bits=r.payload_bits,
+                           codebook_bits=r.codebook_bits,
+                           meta_bits=r.meta_bits + gsp_meta_bits(grid),
+                           recon=gsp_unpad(r.recon, grid)[crop],
+                           n_values=n_values, density=density, eb=eb,
+                           ratio=ratio, artifacts=art)
+
     u = grid.unit
-    enc = she_encode([extract_subblock(grid, sb) for sb in subblocks], eb,
-                     block=sz_block, device=device)
-    recon = torch.zeros(grid.data.shape, dtype=torch.float32, device=device)
-    for sb, r in zip(subblocks, enc.results):
-        ox, oy, oz = sb.cell_origin(u)
-        sx, sy, sz = sb.cell_size(u)
-        recon[ox:ox + sx, oy:oy + sy, oz:oz + sz] = r.recon
-    recon = recon[tuple(slice(0, s) for s in orig_shape)]
-    mask_t = torch.from_numpy(np.asarray(mask, dtype=bool)).to(device)
-    recon = torch.where(mask_t, recon, 0.0)
-    art = None
-    if keep_artifacts:
-        art = LevelArtifacts(mask=np.asarray(mask, dtype=bool),
-                             orig_shape=orig_shape,
-                             grid_shape=tuple(grid.data.shape),
-                             unit=grid.unit, sz_block=sz_block,
-                             subblocks=subblocks, results=enc.results,
-                             codebook=enc.codebook)
     sb_meta = sum(sb.meta_bits() for sb in subblocks)
-    return LevelResult(strategy=strategy, algorithm=algorithm, she=True,
-                       payload_bits=enc.payload_bits,
-                       codebook_bits=enc.codebook_bits,
-                       meta_bits=enc.meta_bits + sb_meta,
-                       recon=recon, n_values=int(np.asarray(mask).sum()),
-                       density=density, eb=eb,
-                       n_subblocks=len(subblocks), ratio=ratio,
-                       artifacts=art)
+    mask_t = torch.from_numpy(mask_np).to(device)
+    recon = torch.zeros(grid.data.shape, dtype=torch.float32, device=device)
+
+    def place(sb: SubBlock, brick: torch.Tensor) -> None:
+        recon[tuple(slice(o, o + s) for o, s
+                    in zip(sb.cell_origin(u), sb.cell_size(u)))] = brick
+
+    if she and algorithm == "lor_reg":
+        if not batched:
+            raise NotImplementedError("the sequential batched=False path is "
+                                      "not yet ported")
+        enc = she_encode([extract_subblock(grid, sb) for sb in subblocks],
+                         eb, block=sz_block, device=device)
+        for sb, r in zip(subblocks, enc.results):
+            place(sb, r.recon)
+        art = None
+        if keep_artifacts:
+            art = LevelArtifacts(mask=mask_np, orig_shape=orig_shape,
+                                 grid_shape=tuple(grid.data.shape),
+                                 unit=grid.unit, sz_block=sz_block,
+                                 subblocks=subblocks, results=enc.results,
+                                 codebook=enc.codebook)
+        return LevelResult(strategy=strategy, algorithm=algorithm, she=True,
+                           payload_bits=enc.payload_bits,
+                           codebook_bits=enc.codebook_bits,
+                           meta_bits=enc.meta_bits + sb_meta,
+                           recon=torch.where(mask_t, recon[crop], 0.0),
+                           n_values=n_values, density=density, eb=eb,
+                           n_subblocks=len(subblocks), ratio=ratio,
+                           artifacts=art)
+
+    # TAC path: merge same-size sub-blocks into 4D arrays, largest edge
+    # first; the permutation is numpy's argsort, whose tie order the
+    # reference's group keys depend on
+    grid_t = torch.from_numpy(np.ascontiguousarray(grid.data)).to(device)
+    members: dict[tuple[int, ...], list] = {}
+    for sb in subblocks:
+        size = sb.cell_size(u)
+        order = tuple(int(a) for a in np.argsort(size)[::-1])
+        brick = grid_t[tuple(slice(o, o + s) for o, s
+                             in zip(sb.cell_origin(u), size))]
+        members.setdefault(tuple(size[a] for a in order), []).append(
+            (sb, order, brick.permute(order)))
+    results, recons = _merged_compress(
+        {shape: torch.stack([b for _, _, b in items])
+         for shape, items in members.items()}, eb, algorithm)
+    for shape, items in members.items():
+        for i, (sb, order, _) in enumerate(items):
+            place(sb, recons[shape][i].permute(
+                tuple(int(a) for a in np.argsort(order))))
+    # merged groups interleave many sub-blocks into one code stream, so
+    # no per-sub-block payload exists and the level has no artifacts
+    return LevelResult(strategy=strategy, algorithm=algorithm, she=False,
+                       payload_bits=sum(r.payload_bits for r in results),
+                       codebook_bits=sum(r.codebook_bits for r in results),
+                       meta_bits=sb_meta + len(results) * 64,
+                       recon=torch.where(mask_t, recon[crop], 0.0),
+                       n_values=n_values, density=density, eb=eb,
+                       n_subblocks=len(subblocks), ratio=ratio)
 
 
 def compress_amr(ds: AMRDataset, *, eb: float | list[float],
@@ -188,7 +280,7 @@ def compress_amr(ds: AMRDataset, *, eb: float | list[float],
                  sz_block: int = 6, batched: bool = True,
                  keep_artifacts: bool = True,
                  device: str | torch.device = "cuda") -> AMRCompressionResult:
-    """Level-wise TAC+ over a whole AMR dataset on ``device``.
+    """Level-wise TAC/TAC+ over a whole AMR dataset on ``device``.
 
     ``eb`` may be a scalar or one bound per level.  ``unit`` is the
     finest level's unit-block edge; coarser levels use
@@ -206,4 +298,5 @@ def compress_amr(ds: AMRDataset, *, eb: float | list[float],
             algorithm=algorithm, she=she, strategy=strategy,
             sz_block=sz_block, batched=batched, ratio=lvl.ratio,
             keep_artifacts=keep_artifacts, device=device))
-    return AMRCompressionResult(levels=levels, method=f"tac+/{algorithm}")
+    name = "tac+" if (she and algorithm == "lor_reg") else "tac"
+    return AMRCompressionResult(levels=levels, method=f"{name}/{algorithm}")

@@ -1,21 +1,34 @@
-"""SZ Lor/Reg prediction core (paper §II-A) on torch tensors.
+"""SZ prediction core (paper §II-A) on torch tensors.
 
 Dual quantization: ``q = rint(x / 2eb)`` first (so ``|x − 2eb·q| ≤ eb``),
-then prediction on the exact integer grid.  This module holds the parts of
-the reference's ``sz`` module that the TAC+ path runs: prequant/dequant,
-N-D Lorenzo codes and recon, the per-block regression fit, the batched
-Lor/Reg compressor and the batched decoder.  Every function works on the
-device of the tensors it is given; the Lorenzo codes and the Lorenzo
-recon of a brick stack run on kernels 1 and 2 (``kernels.ops``).
+then prediction on the exact integer grid.  Three compressors share one
+result type:
+
+* :func:`compress_lorenzo` — global N-D Lorenzo (GSP grids, merged 4D
+  groups); a 3D array runs on kernels 5 and 6 with one tile covering the
+  array, a 4D stack on kernels 1 and 2 plus a difference along axis 0;
+* :func:`compress_lor_reg` — Lorenzo against per-block regression, one
+  choice per array; :func:`compress_lor_reg_batched` does the same for a
+  stack of same-shape bricks (the SHE path) on kernels 1 and 2;
+* :func:`compress_interp` — global multi-level interpolation (SZ3), in
+  torch on the device (the reference has no TPU kernel for it).
+
+:func:`entropy_stage` prices a code stream with a real Huffman bitstream
+(histogram on kernel 3, packing on the device).  :func:`decode_codes` and
+:func:`decode_codes_batched` replay any of them from serialized codes.
+Every function works on the device of the tensors it is given.
 
 Arithmetic follows the reference's float64/int64 host path bit for bit.
-Two places need care:
+Places that need care:
 
 * the regression fit's float32 block mean and its float64 block sums
   reproduce numpy's summation order (:func:`_block_sum`);
-* the branch score (:func:`_code_cost_bits_rows`) sums in torch's order
-  and torch's ``log2``, which may round differently from numpy's in the
-  last bits; only a near-tie between the branches could then flip.
+* the whole-array branch score (:func:`_code_cost_bits`) sums in numpy's
+  order (:func:`_numpy_sum`); the batched per-brick score
+  (:func:`_code_cost_bits_rows`) sums in torch's order;
+* both scores use torch's ``log2``, which may round differently from
+  numpy's in the last bit; only a near-tie between the branches could
+  then flip.
 """
 from __future__ import annotations
 
@@ -26,11 +39,16 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import entropy, huffman
+from .compat import zstd_size_bits
 
 __all__ = [
     "SZResult", "prequant", "dequant", "lorenzo_nd_codes",
-    "lorenzo_nd_recon", "reg_block_grid", "compress_lor_reg_batched",
-    "decode_codes", "decode_codes_batched",
+    "lorenzo_nd_recon", "lorenzo_codes", "lorenzo_decode",
+    "interp_nd_codes", "interp_nd_recon",
+    "compress_lorenzo", "compress_lor_reg", "compress_lor_reg_batched",
+    "compress_interp", "decode_codes", "decode_codes_batched",
+    "entropy_bits", "entropy_stage", "reg_block_grid",
 ]
 
 
@@ -81,7 +99,196 @@ def lorenzo_nd_recon(codes: torch.Tensor, axes: tuple[int, ...] | None = None
     return q
 
 
+def lorenzo_codes(x: torch.Tensor, eb: float) -> torch.Tensor:
+    """Global dual-quant Lorenzo codes of ``x`` (any rank), int64.
+
+    A 3D float32 array runs on kernel 5 with one tile covering it.  A 4D
+    stack runs kernel 1 on its 3D bricks, then differences along axis 0:
+    the Lorenzo codes are first differences along every axis, and integer
+    differences along different axes commute, so this is exact.  Other
+    ranks and dtypes take the plain integer Lorenzo of :func:`prequant`.
+    """
+    if x.dtype == torch.float32 and x.dim() == 3:
+        return ops.lorenzo3d_codes(x.contiguous(), eb, tuple(x.shape))
+    if x.dtype == torch.float32 and x.dim() == 4:
+        c = ops.lorenzo3d_codes_batched(x.contiguous(), eb)
+        return torch.diff(c, dim=0, prepend=torch.zeros_like(c[:1]))
+    return lorenzo_nd_codes(prequant(x, eb))
+
+
+def lorenzo_decode(codes: torch.Tensor, eb: float) -> torch.Tensor:
+    """Inverse of :func:`lorenzo_codes` for codes shaped like the array:
+    kernel 6 for 3D, an int64 prefix sum along axis 0 then kernel 2 for
+    4D (exact, as the differences commute), the plain recon otherwise."""
+    codes = codes.long().contiguous()
+    if codes.dim() == 3:
+        return ops.lorenzo3d_recon(codes, eb, tuple(codes.shape))
+    if codes.dim() == 4:
+        return ops.lorenzo3d_recon_batched(
+            torch.cumsum(codes, dim=0).contiguous(), eb)
+    return dequant(lorenzo_nd_recon(codes), eb)
+
+
+# --------------------------------------------------------------------------
+# N-D multi-level interpolation on the integer grid (SZ3 "Interp")
+# --------------------------------------------------------------------------
+
+
+def _interp_schedule(shape: tuple[int, ...]) -> list[tuple[int, int]]:
+    """(axis, stride) stages, coarsest level first, axis by axis."""
+    max_dim = max(shape)
+    s = 1
+    while s < max_dim:
+        s *= 2
+    stages = []
+    while s >= 2:
+        for ax in range(len(shape)):
+            stages.append((ax, s))
+        s //= 2
+    return stages
+
+
+def _interp_stage_indices(dim: int, stride: int, device):
+    """Midpoint + 4-point stencil indices of one axis stage, as int64
+    device tensors ``(mids, left, right, left2, right2, cubic_ok)``:
+    cubic where the stencil fits, linear at the edges, copy-left where
+    no right neighbour exists."""
+    half = stride // 2
+    mids = np.arange(half, dim, stride)
+    left = mids - half
+    right_raw = mids + half
+    has_right = right_raw < dim
+    right = np.where(has_right, np.minimum(right_raw, dim - 1), left)
+    left2_raw = mids - 3 * half
+    right2_raw = mids + 3 * half
+    cubic_ok = (left2_raw >= 0) & (right2_raw < dim) & has_right
+    left2 = np.where(cubic_ok, np.maximum(left2_raw, 0), left)
+    right2 = np.where(cubic_ok, np.minimum(right2_raw, dim - 1), right)
+    return tuple(torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+                 for a in (mids, left, right, left2, right2)) + (
+        torch.from_numpy(cubic_ok).to(device),)
+
+
+def _interp_predict(q: torch.Tensor, ax: int, left, right, left2, right2,
+                    cubic_ok) -> torch.Tensor:
+    """Integer prediction, identical on encoder and decoder: the rounded
+    cubic ``(−a + 9b + 9c − d + 8) >> 4`` where the stencil fits, else
+    the floor average ``(b + c) >> 1``.  torch's ``>>`` on int64 is the
+    arithmetic shift, so it floors negative values as numpy does."""
+    ql = q.index_select(ax, left)
+    qr = q.index_select(ax, right)
+    lin = (ql + qr) >> 1
+    qa = q.index_select(ax, left2)
+    qd = q.index_select(ax, right2)
+    cub = (-qa + 9 * ql + 9 * qr - qd + 8) >> 4
+    shape = [1] * q.dim()
+    shape[ax] = cubic_ok.numel()
+    return torch.where(cubic_ok.reshape(shape), cub, lin)
+
+
+def interp_nd_codes(q: torch.Tensor) -> torch.Tensor:
+    """Residual codes of global multi-level interpolation on the integer
+    grid: every stage predicts from true ``q`` values, which the decoder
+    has recovered exactly by then; anchors keep ``code = q``."""
+    q = q.long()
+    codes = q.clone()
+    for ax, stride in _interp_schedule(tuple(q.shape)):
+        mids, left, right, left2, right2, ok = _interp_stage_indices(
+            q.shape[ax], stride, q.device)
+        if mids.numel() == 0:
+            continue
+        pred = _interp_predict(q, ax, left, right, left2, right2, ok)
+        codes.index_copy_(ax, mids, q.index_select(ax, mids) - pred)
+    return codes
+
+
+def interp_nd_recon(codes: torch.Tensor) -> torch.Tensor:
+    """Decoder replay of :func:`interp_nd_codes` (exact)."""
+    codes = codes.long()
+    q = codes.clone()
+    for ax, stride in _interp_schedule(tuple(codes.shape)):
+        mids, left, right, left2, right2, ok = _interp_stage_indices(
+            codes.shape[ax], stride, codes.device)
+        if mids.numel() == 0:
+            continue
+        pred = _interp_predict(q, ax, left, right, left2, right2, ok)
+        q.index_copy_(ax, mids, pred + codes.index_select(ax, mids))
+    return q
+
+
+# --------------------------------------------------------------------------
+# entropy stage: Huffman (+ optional zstd), real bitstreams
+# --------------------------------------------------------------------------
+
+
+def entropy_stage(codes: torch.Tensor, *, use_zstd: bool = True,
+                  codebook: huffman.Codebook | None = None,
+                  ) -> tuple[int, int, dict]:
+    """(payload_bits, codebook_bits, artifacts) of one code stream, from
+    a materialized bitstream: one histogram (kernel 3), one codebook, one
+    device packing pass, and the zstd pass priced when ``zstandard`` is
+    installed.  ``artifacts`` is ``{"codebook", "packed", "nbits"}``,
+    which the TACZ writer reuses for gsp/global levels."""
+    from .she import aggregate_histogram
+
+    codes = codes.reshape(-1)
+    if codes.numel() == 0:
+        return 0, 0, {"codebook": None, "packed": b"", "nbits": 0}
+    cb = codebook
+    if cb is None:
+        symbols, freqs = aggregate_histogram(codes)
+        cb = huffman.build_codebook(symbols=symbols, freqs=freqs)
+    (blob, nbits), = entropy.TorchEngine(codes.device).encode_payloads(
+        cb, [codes])
+    payload = nbits
+    if use_zstd:
+        zbits = zstd_size_bits(blob)
+        if zbits is not None:
+            payload = min(payload, zbits)
+    cb_bits = 0 if codebook is not None else huffman.codebook_size_bits(cb)
+    return int(payload), int(cb_bits), {"codebook": cb, "packed": blob,
+                                        "nbits": int(nbits)}
+
+
+def entropy_bits(codes: torch.Tensor, *, use_zstd: bool = True,
+                 codebook: huffman.Codebook | None = None) -> tuple[int, int]:
+    """(payload_bits, codebook_bits) of one code stream."""
+    payload, cb_bits, _ = entropy_stage(codes, use_zstd=use_zstd,
+                                        codebook=codebook)
+    return payload, cb_bits
+
+
 _DIM_META_BITS = 3 * 32 + 64  # dims + eb
+
+
+def _global_result(x: torch.Tensor, eb: float, codes: torch.Tensor,
+                   recon: torch.Tensor, method: str, use_zstd: bool,
+                   codebook: huffman.Codebook | None) -> SZResult:
+    payload, cb_bits, ent = entropy_stage(codes, use_zstd=use_zstd,
+                                          codebook=codebook)
+    return SZResult(recon=recon.reshape(x.shape), codes=codes.reshape(-1),
+                    payload_bits=payload, codebook_bits=cb_bits,
+                    meta_bits=_DIM_META_BITS, eb=eb, method=method,
+                    extras={"entropy": ent})
+
+
+def compress_lorenzo(x: torch.Tensor, eb: float, *, use_zstd: bool = True,
+                     codebook: huffman.Codebook | None = None) -> SZResult:
+    """Global N-D dual-quant Lorenzo of ``x`` (kernels 5/6 for 3D, 1/2
+    for 4D; see :func:`lorenzo_codes`)."""
+    if eb <= 0:
+        raise ValueError("error bound must be positive")
+    codes = lorenzo_codes(x, eb)
+    return _global_result(x, eb, codes, lorenzo_decode(codes, eb), "lorenzo",
+                          use_zstd, codebook)
+
+
+def compress_interp(x: torch.Tensor, eb: float, *, use_zstd: bool = True,
+                    codebook: huffman.Codebook | None = None) -> SZResult:
+    """Global multi-level interpolation (the SZ3 'Interp' analogue)."""
+    codes = interp_nd_codes(prequant(x, eb))
+    return _global_result(x, eb, codes, dequant(interp_nd_recon(codes), eb),
+                          "interp", use_zstd, codebook)
 
 
 def reg_block_grid(shape: tuple[int, ...], block: int
@@ -194,6 +401,36 @@ def _code_cost_bits_rows(codes: torch.Tensor) -> torch.Tensor:
     return mag.reshape(mag.shape[0], -1).sum(dim=1) + 1.0
 
 
+_NUMPY_BUFSIZE = 8192
+
+
+def _numpy_sum(t: torch.Tensor) -> float:
+    """``np.sum`` of a float64 array in numpy's order: the flattened
+    array is cut into chunks of numpy's buffer size (8192), each chunk is
+    summed pairwise, and the chunk sums are added one by one to 0.  The
+    chunks are summed as one batch on ``t``'s device; the last additions
+    run in float64 on the host, which rounds as the device does."""
+    t = t.reshape(-1)
+    n = t.numel()
+    full = n - n % _NUMPY_BUFSIZE
+    parts = []
+    if full:
+        parts.append(_pairwise_sum(t[:full].reshape(-1, _NUMPY_BUFSIZE)))
+    if n > full:
+        parts.append(_pairwise_sum(t[full:])[None])
+    acc = 0.0
+    if parts:
+        for v in torch.cat(parts).tolist():
+            acc += v
+    return acc
+
+
+def _code_cost_bits(codes: torch.Tensor) -> float:
+    """Whole-array Huffman-size proxy Σ log2(1 + 2|code|) + 1, summed over
+    ``codes`` in C order as numpy sums it (:func:`_numpy_sum`)."""
+    return _numpy_sum(torch.log2(1.0 + 2.0 * codes.abs().double())) + 1.0
+
+
 def _unblock(rr: torch.Tensor, b: int, bgrid, bshape) -> torch.Tensor:
     """(n, bx,by,bz, b,b,b) blocks → (n, X,Y,Z) bricks, padding cropped."""
     bx, by, bz = bgrid
@@ -202,6 +439,93 @@ def _unblock(rr: torch.Tensor, b: int, bgrid, bshape) -> torch.Tensor:
             .permute(0, 1, 4, 2, 5, 3, 6)
             .reshape(n, bx * b, by * b, bz * b))
     return rr[(slice(None),) + tuple(slice(0, s) for s in bshape)]
+
+
+def _block_view(a: torch.Tensor, b: int
+                ) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """(X,Y,Z) → (bx,by,bz, b,b,b) view after edge-replication padding."""
+    xb, bgrid = _block_view_batched(a[None], b)
+    return xb[0], bgrid
+
+
+def _reg_recon(betas: torch.Tensor, codes_reg: torch.Tensor, b: int,
+               bgrid: tuple[int, int, int], orig_shape: tuple[int, ...],
+               eb: float) -> torch.Tensor:
+    """Regression-branch reconstruction of one 3D array from its float32
+    betas (bx,by,bz,4) and blocked codes — the encoder's recon and the
+    container's decode path."""
+    fit = _fit_from_betas(betas, b)
+    rr = (fit + codes_reg.reshape(fit.shape).double() * (2.0 * eb)).float()
+    return _unblock(rr[None], b, bgrid, orig_shape)[0]
+
+
+def compress_lor_reg(x: torch.Tensor, eb: float, *, block: int = 6,
+                     use_zstd: bool = True,
+                     codebook: huffman.Codebook | None = None,
+                     count_entropy: bool = True) -> SZResult:
+    """SZ2 Lor/Reg on one array: the global Lorenzo of the whole array
+    (:func:`lorenzo_codes`: kernel 5, recon on kernel 6, for float32)
+    against per-``block``³ plane fits; the cheaper branch by the bit
+    proxy wins, with one branch bit.
+
+    A rank above 3 runs on its trailing 3D bricks, one by one, and prices
+    their codes as one stream.  ``count_entropy=False`` skips the entropy
+    stage (payload 0).
+    """
+    if x.dim() < 3:
+        raise ValueError("compress_lor_reg needs an array of rank 3 or more")
+    if eb <= 0:
+        raise ValueError("error bound must be positive")
+    x = x.contiguous()
+    orig_shape = tuple(x.shape)
+    if x.dim() != 3:
+        x3 = x.reshape((-1,) + orig_shape[-3:])
+        parts = [compress_lor_reg(x3[i], eb, block=block, use_zstd=False,
+                                  codebook=codebook, count_entropy=False)
+                 for i in range(x3.shape[0])]
+        codes = torch.cat([p.codes for p in parts])
+        payload = cb_bits = 0
+        extras: dict = {}
+        if count_entropy:
+            payload, cb_bits, extras["entropy"] = entropy_stage(
+                codes, use_zstd=use_zstd, codebook=codebook)
+        return SZResult(recon=torch.stack([p.recon for p in parts])
+                        .reshape(orig_shape), codes=codes,
+                        payload_bits=payload, codebook_bits=cb_bits,
+                        meta_bits=sum(p.meta_bits for p in parts), eb=eb,
+                        method="lor_reg", extras=extras)
+
+    b, _ = reg_block_grid(orig_shape, block)
+    codes_lor = lorenzo_codes(x, eb)
+    cost_lor = _code_cost_bits(codes_lor)
+    use_reg = False
+    if b >= 2:
+        xb, bgrid = _block_view(x, b)
+        betas, fit = _regression_fit(xb, b)
+        codes_reg = torch.round((xb.double() - fit) / (2.0 * eb)).long()
+        n_blocks = int(np.prod(bgrid))
+        cost_reg = _code_cost_bits(codes_reg) + n_blocks * 4 * 32
+        use_reg = cost_reg < cost_lor
+
+    if use_reg:
+        recon = _reg_recon(betas, codes_reg, b, bgrid, orig_shape, eb)
+        codes = codes_reg
+        meta = _DIM_META_BITS + 1 + n_blocks * 4 * 32
+        method = "lor_reg/reg"
+        extras = {"betas": betas, "branch": "reg"}
+    else:
+        recon = lorenzo_decode(codes_lor, eb)
+        codes = codes_lor
+        meta = _DIM_META_BITS + 1
+        method = "lor_reg/lorenzo"
+        extras = {"branch": "lorenzo"}
+    payload = cb_bits = 0
+    if count_entropy:
+        payload, cb_bits, extras["entropy"] = entropy_stage(
+            codes, use_zstd=use_zstd, codebook=codebook)
+    return SZResult(recon=recon, codes=codes.reshape(-1),
+                    payload_bits=payload, codebook_bits=cb_bits,
+                    meta_bits=meta, eb=eb, method=method, extras=extras)
 
 
 def compress_lor_reg_batched(x: torch.Tensor, eb: float, *, block: int = 6
@@ -281,36 +605,53 @@ def decode_codes_batched(codes: torch.Tensor, shape: tuple[int, ...],
                          eb: float, *, branch: str, block: int = 6,
                          betas: torch.Tensor | None = None) -> torch.Tensor:
     """Reconstruct an (N, \\*shape) float32 stack from (N, n_codes) code
-    streams of same-shape 3D bricks — bit-identical to the encoder's
-    recon.  ``branch="lorenzo"`` runs kernel 2; ``branch="reg"`` replays
-    the plane fits from the (N, bx, by, bz, 4) float32 ``betas``."""
+    streams of same-shape arrays — bit-identical to the encoder's recon.
+    ``branch="lorenzo"`` runs kernel 2 on 3D bricks (the plain recon for
+    other ranks); ``"reg"`` replays the plane fits of 3D bricks from the
+    (N, bx, by, bz, 4) float32 ``betas``; ``"interp"`` replays each item."""
     shape = tuple(int(s) for s in shape)
     if codes.dim() != 2:
         raise ValueError("expected a (N, n_codes) stack of code streams")
-    if len(shape) != 3:
-        raise NotImplementedError("decoding non-3D payloads is not yet ported")
     n = codes.shape[0]
     codes = codes.long()
     if branch == "lorenzo":
-        return ops.lorenzo3d_recon_batched(
-            codes.reshape((n,) + shape).contiguous(), eb)
+        stacked = codes.reshape((n,) + shape).contiguous()
+        if len(shape) == 3:
+            return ops.lorenzo3d_recon_batched(stacked, eb)
+        return dequant(lorenzo_nd_recon(
+            stacked, axes=tuple(range(1, len(shape) + 1))), eb)
+    if branch == "interp":
+        if n == 0:
+            return torch.zeros((0,) + shape, dtype=torch.float32,
+                               device=codes.device)
+        return torch.stack([dequant(interp_nd_recon(c.reshape(shape)), eb)
+                            for c in codes])
     if branch == "reg":
         if betas is None:
             raise ValueError("regression branch needs betas")
+        if len(shape) != 3:
+            raise ValueError("regression branch decodes 3D bricks only")
         b, bgrid = reg_block_grid(shape, block)
         codes_reg = codes.reshape((n,) + tuple(bgrid) + (b, b, b))
         fit = _fit_from_betas(betas, b)
         rr = (fit + codes_reg.double() * (2.0 * eb)).float()
         return _unblock(rr, b, bgrid, shape)
-    if branch == "interp":
-        raise NotImplementedError("the interp branch is not yet ported")
     raise ValueError(f"unknown branch {branch!r}")
 
 
 def decode_codes(codes: torch.Tensor, shape: tuple[int, ...], eb: float, *,
                  branch: str, block: int = 6,
                  betas: torch.Tensor | None = None) -> torch.Tensor:
-    """Single-brick :func:`decode_codes_batched`."""
+    """Reconstruct one array of ``shape`` from its code stream (the read
+    path of gsp/global levels): ``"lorenzo"`` inverts
+    :func:`compress_lorenzo` for any rank (kernel 6 for 3D, kernel 2 for
+    4D), ``"interp"`` inverts :func:`compress_interp`, ``"reg"`` replays
+    the regression branch of a 3D array from its (bx, by, bz, 4) betas."""
+    shape = tuple(int(s) for s in shape)
+    if branch == "lorenzo":
+        return lorenzo_decode(codes.reshape(shape), eb)
+    if branch == "interp":
+        return dequant(interp_nd_recon(codes.reshape(shape)), eb)
     return decode_codes_batched(
         codes.reshape(1, -1), shape, eb, branch=branch, block=block,
         betas=None if betas is None else betas[None])[0]

@@ -6,10 +6,10 @@ Huffman payloads of one level that a call needs are decoded in one launch
 of kernel 4 on the reader's device, and each (shape, branch) group of
 bricks is reconstructed in one batch (Lorenzo bricks on kernel 2).
 Levels and crops come back as float32 tensors on that device,
-bit-identical to the compress-time reconstruction.
-
-Only SHE levels (opst/akdtree/nast placement) are ported; gsp and global
-levels raise :class:`NotImplementedError`, as do multi-part snapshots.
+bit-identical to the compress-time reconstruction.  A gsp or global level
+is one payload of the whole grid: it decodes as a unit (region reads
+decode it fully, then crop).  Multi-part snapshots raise
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from ..core import entropy, huffman, sz
+from ..core.blocks import make_block_grid
 from ..core.compat import HAVE_ZSTD, zstd_decompress
+from ..core.gsp import gsp_unpad
 from ..device import resolve_device
 from . import format as fmt
 from . import frontier as frt
@@ -182,13 +184,6 @@ class TACZReader:
                     bits.astype(bool).reshape(e.shape)).to(self.device)
         return self._masks[li]
 
-    def _require_she(self, li: int) -> fmt.LevelEntry:
-        e = self.levels[li]
-        if e.strategy not in self._SHE_STRATEGIES:
-            name = fmt.STRATEGY_NAMES.get(e.strategy, str(e.strategy))
-            raise NotImplementedError(f"{name} levels are not yet ported")
-        return e
-
     # ------------------------------ decoding -------------------------------
 
     @staticmethod
@@ -197,7 +192,8 @@ class TACZReader:
         """Leading codes needed to reconstruct every brick-local cell
         below ``hi``: Lorenzo recon of (i,j,k) sums the code rectangle
         [0..i]×[0..j]×[0..k], all at C-order flat index ≤ flat(i,j,k); the
-        regression branch is block-local with blocks in C order."""
+        regression branch is block-local with blocks in C order; interp
+        is global, with no partial decode."""
         corner = tuple(h - 1 for h in hi)
         if sb.branch == fmt.BRANCH_REG:
             b, bgrid = sz.reg_block_grid(shape, sz_block)
@@ -265,15 +261,22 @@ class TACZReader:
         return result
 
     def subblock_shape(self, li: int, sbi: int) -> tuple[int, ...]:
-        """Decode shape of one sub-block payload of a SHE level."""
-        return tuple(int(s) for s in self._require_she(li).subblocks[sbi].size)
+        """Decode shape of one sub-block payload: the brick for SHE
+        levels, the padded grid (gsp) or the level shape (global) for
+        single-payload levels."""
+        e = self.levels[li]
+        if e.strategy in self._SHE_STRATEGIES:
+            return tuple(int(s) for s in e.subblocks[sbi].size)
+        if e.strategy == fmt.STRATEGY_GSP:
+            return tuple(int(s) for s in e.grid_shape)
+        return tuple(int(s) for s in e.shape)
 
     def decode_subblocks(self, li: int, sbis, limits=None,
                          ) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
         """(codes, betas) device tensors for many sub-blocks of one level,
         in input order; every Huffman payload of the batch decodes in one
         launch.  ``limits`` gives optional per-entry prefix limits."""
-        e = self._require_she(li)
+        e = self.levels[li]
         jobs = [(e.subblocks[sbi], self.subblock_shape(li, sbi),
                  None if limits is None else limits[pos])
                 for pos, sbi in enumerate(sbis)]
@@ -285,7 +288,7 @@ class TACZReader:
         """Reconstructed bricks for many ``(sbi, limit)`` jobs of one SHE
         level: one entropy launch over every payload, then one batched
         reconstruction per (shape, branch) group."""
-        e = self._require_she(li)
+        e = self.levels[li]
         sbis = [sbi for sbi, _ in jobs]
         decoded = self._decode_payloads(
             li, [(e.subblocks[sbi], self.subblock_shape(li, sbi), lim)
@@ -313,18 +316,36 @@ class TACZReader:
         shape, bit-identical to the compress-time recon.
 
         :raises IOError: if a section or payload fails its CRC check.
-        :raises NotImplementedError: for gsp/global levels.
         """
-        e = self._require_she(li)
-        acc = torch.zeros(e.grid_shape, dtype=torch.float32,
-                          device=self.device)
-        bricks = self._decode_bricks(
-            li, [(sbi, None) for sbi in range(len(e.subblocks))])
-        for sb, brick in zip(e.subblocks, bricks):
-            acc[tuple(slice(o, o + s) for o, s in zip(sb.origin, sb.size))] \
-                = brick
-        recon = acc[tuple(slice(0, s) for s in e.shape)]
+        e = self.levels[li]
         mask = self._mask(li)
+        if e.strategy in self._SHE_STRATEGIES:
+            acc = torch.zeros(e.grid_shape, dtype=torch.float32,
+                              device=self.device)
+            bricks = self._decode_bricks(
+                li, [(sbi, None) for sbi in range(len(e.subblocks))])
+            for sb, brick in zip(e.subblocks, bricks):
+                acc[tuple(slice(o, o + s)
+                          for o, s in zip(sb.origin, sb.size))] = brick
+            recon = acc[tuple(slice(0, s) for s in e.shape)]
+            if mask is not None:
+                recon = torch.where(mask, recon, 0.0)
+            return recon.contiguous()
+        if e.strategy not in (fmt.STRATEGY_GSP, fmt.STRATEGY_GLOBAL):
+            raise ValueError(f"unknown strategy {e.strategy}")
+        shape = self.subblock_shape(li, 0)
+        (codes, betas), = self.decode_subblocks(li, [0])
+        recon = sz.decode_codes(
+            codes, shape, e.eb, branch=fmt.BRANCH_NAMES[e.subblocks[0].branch],
+            block=e.sz_block, betas=betas)
+        if e.strategy == fmt.STRATEGY_GSP:
+            # the occupancy of the unit blocks comes back from the mask
+            m = (np.ones(e.shape, dtype=bool) if mask is None
+                 else mask.cpu().numpy())
+            grid = make_block_grid(np.zeros(e.shape, dtype=np.float32), m,
+                                   unit=e.unit)
+            return gsp_unpad(recon, grid)[
+                tuple(slice(0, s) for s in e.shape)].contiguous()
         if mask is not None:
             recon = torch.where(mask, recon, 0.0)
         return recon.contiguous()
@@ -362,7 +383,8 @@ class TACZReader:
     def read_level_box(self, li: int, lbox: Box) -> torch.Tensor:
         """Decode one level's crop of a box given in *level* cells
         (clipped to the level), decoding only the prefix of each
-        intersecting sub-block that the box needs."""
+        intersecting sub-block that the box needs (gsp/global levels
+        decode whole, then crop)."""
         if len(lbox) != 3:
             raise ValueError("box must be ((x0,x1),(y0,y1),(z0,z1))")
         e = self.levels[li]
@@ -375,7 +397,12 @@ class TACZReader:
         if 0 in bshape:
             return torch.zeros(bshape, dtype=torch.float32,
                                device=self.device)
-        e = self._require_she(li)
+        e = self.levels[li]
+        if e.strategy not in self._SHE_STRATEGIES:
+            # one global payload: decode fully, then crop (interpolation
+            # and padding are not block-local)
+            return self.read_level(li)[
+                tuple(slice(lo, hi) for lo, hi in lbox)].contiguous()
         tasks = self.intersecting_subblocks(li, lbox)
         acc = torch.zeros(bshape, dtype=torch.float32, device=self.device)
         if not tasks:

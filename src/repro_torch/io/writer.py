@@ -11,8 +11,11 @@
 The bytes are the reference writer's for the same compressed state: the
 payloads of a level are packed on the device in one batched pass
 (``entropy.TorchEngine``); framing, CRCs and the optional zlib/zstd byte
-pass run on the host.  Only SHE levels (per-sub-block payloads under one
-shared codebook) are written; gsp/global levels are not yet ported.
+pass run on the host.  Serializable levels are SHE levels (per-sub-block
+payloads under one shared codebook) and gsp/global levels (one payload
+covering the grid).  Merged-4D levels (TAC without SHE) interleave
+sub-blocks inside shared code streams, so they have nothing to index and
+raise :class:`ValueError`.
 """
 from __future__ import annotations
 
@@ -74,8 +77,10 @@ def _branch_code(r: SZResult) -> int:
     b = (r.extras or {}).get("branch")
     if b == "reg":
         return fmt.BRANCH_REG
-    if b == "lorenzo":
+    if b == "lorenzo" or r.method == "lorenzo":
         return fmt.BRANCH_LORENZO
+    if r.method == "interp":
+        return fmt.BRANCH_INTERP
     raise ValueError(f"cannot serialize SZ method {r.method!r}")
 
 
@@ -104,14 +109,16 @@ def pack_level(lr: LevelResult, *, payload_codec: str = "auto",
     ``entry.shift_offsets(base)``.
 
     ``payload_codec`` selects the lossless byte pass over each payload's
-    packed-Huffman bytes (betas prefixes stay raw).
+    packed-Huffman bytes (betas prefixes stay raw).  A gsp/global level
+    reuses the codebook and packed payload its compress-time entropy
+    stage made (``SZResult.extras["entropy"]``).
     """
     art = lr.artifacts
     if art is None:
-        raise ValueError("level has no serialization artifacts; compress "
-                         "with keep_artifacts=True")
-    if art.results and not art.subblocks:
-        raise NotImplementedError("gsp/global levels are not yet ported")
+        raise ValueError(
+            "level has no serialization artifacts — the merged-4D non-SHE "
+            "path is not indexable; compress with she=True (TAC+) or "
+            "strategy='gsp', and keep_artifacts=True")
     if lr.strategy not in fmt.STRATEGY_CODES:
         raise ValueError(f"unknown strategy {lr.strategy!r}")
 
@@ -131,8 +138,17 @@ def pack_level(lr: LevelResult, *, payload_codec: str = "auto",
         eb=float(lr.eb), n_values=int(lr.n_values), density=float(lr.density))
 
     # shared codebook section (omitted when the level holds no payloads)
-    if art.results:
-        cb_bytes = huffman.serialize_codebook(art.codebook)
+    results = art.results
+    memo = None
+    cb = art.codebook
+    if results and not lr.she:
+        # gsp/global level: its one payload was packed at compress time
+        if len(results) != 1:
+            raise ValueError("a gsp/global level holds exactly one payload")
+        memo = results[0].extras["entropy"]
+        cb = memo["codebook"]
+    if results:
+        cb_bytes = huffman.serialize_codebook(cb)
         entry.codebook_off, entry.codebook_len = append(cb_bytes)
         entry.codebook_crc = zlib.crc32(cb_bytes)
 
@@ -146,20 +162,30 @@ def pack_level(lr: LevelResult, *, payload_codec: str = "auto",
 
     level_comp = resolve_payload_codec(payload_codec)
     entry.payload_compressor = level_comp
-    if not art.results:
+    if not results:
         return bytes(blob), entry
-    results = art.results
-    device = results[0].codes.device
-    payloads = entropy.TorchEngine(device).encode_payloads(
-        art.codebook, [r.codes for r in results])
-    for r, sb, (packed, nbits), betas in zip(results, art.subblocks, payloads,
-                                             _betas_bytes(results)):
+    if art.subblocks:
+        origins = [sb.cell_origin(art.unit) for sb in art.subblocks]
+        sizes = [sb.cell_size(art.unit) for sb in art.subblocks]
+    else:
+        # one payload covering the whole (padded) grid; origin/size are
+        # informative for 3D levels only (higher ranks decode via shape)
+        origins = [(0, 0, 0)]
+        gs = tuple(int(s) for s in art.grid_shape[:3])
+        sizes = [gs + (1,) * (3 - len(gs))]
+    if memo is not None:
+        payloads = [(memo["packed"], memo["nbits"])]
+    else:
+        payloads = entropy.TorchEngine(results[0].codes.device) \
+            .encode_payloads(cb, [r.codes for r in results])
+    for r, origin, size, (packed, nbits), betas in zip(
+            results, origins, sizes, payloads, _betas_bytes(results)):
         stored, comp = _lossless_pass(packed, level_comp)
         payload = betas + stored
         off, length = append(payload)
         entry.subblocks.append(fmt.SubBlockEntry(
-            origin=tuple(int(o) for o in sb.cell_origin(art.unit)),
-            size=tuple(int(s) for s in sb.cell_size(art.unit)),
+            origin=tuple(int(o) for o in origin),
+            size=tuple(int(s) for s in size),
             branch=_branch_code(r), codec=fmt.CODEC_HUFFMAN,
             compressor=comp, payload_off=off, payload_len=length,
             nbits=int(nbits), n_codes=int(r.codes.numel()),
@@ -233,6 +259,12 @@ class TACZWriter:
     :param eb: default absolute error bound for :meth:`add_level`.
     :param unit: finest unit-block edge; level units follow
         ``max(2, unit // ratio)`` as in ``compress_amr``.
+    :param algorithm: prediction algorithm (``"lor_reg"``, ``"lorenzo"``
+        or ``"interp"``).
+    :param she: encode SHE (per-sub-block payload) levels, which random
+        access needs; ``False`` is serializable only with gsp levels.
+    :param strategy: partitioning strategy override (default: chosen per
+        level from its density).
     :param sz_block: Lor/Reg regression block edge.
     :param payload_codec: ``"auto"`` (zstd, zlib fallback), ``"zstd"``,
         ``"zlib"`` or ``"none"``.
@@ -243,6 +275,8 @@ class TACZWriter:
     """
 
     def __init__(self, path: str, *, eb: float | None = None, unit: int = 8,
+                 algorithm: str = "lor_reg", she: bool = True,
+                 strategy: str | None = None,
                  sz_block: int = 6, payload_codec: str = "auto",
                  queue_depth: int = 2,
                  device: str | torch.device = "cuda"):
@@ -251,7 +285,8 @@ class TACZWriter:
         self.path = str(path)
         self._tmp = self.path + ".tmp"
         self._payload_codec = payload_codec
-        self._defaults = dict(eb=eb, unit=unit, sz_block=sz_block)
+        self._defaults = dict(eb=eb, unit=unit, algorithm=algorithm, she=she,
+                              strategy=strategy, sz_block=sz_block)
         self._f = open(self._tmp, "wb")
         self._f.write(fmt.pack_header())
         self._off = fmt.HEADER_SIZE
@@ -290,8 +325,11 @@ class TACZWriter:
         """Queue an already-compressed level (needs ``artifacts``)."""
         self._check_live()
         if lr.artifacts is None:
-            raise ValueError("LevelResult has no serialization artifacts; "
-                             "compress with keep_artifacts=True")
+            raise ValueError(
+                "LevelResult has no serialization artifacts — the merged-4D "
+                "non-SHE path is not indexable (compress with she=True or "
+                "strategy='gsp'), and compression must run with "
+                "keep_artifacts=True")
         self._queue.put(("level", lr))
 
     def set_frontier(self, frontier: frt.Frontier | None) -> None:
@@ -366,8 +404,11 @@ class TACZWriter:
         if item[0] == "level":
             return item[1]
         _, data, mask, eb, ratio, unit = item
+        d = self._defaults
         return compress_level(data, mask, eb=eb, unit=unit,
-                              sz_block=self._defaults["sz_block"],
+                              algorithm=d["algorithm"], she=d["she"],
+                              strategy=d["strategy"],
+                              sz_block=d["sz_block"],
                               ratio=ratio, keep_artifacts=True,
                               device=self.device)
 

@@ -36,6 +36,9 @@ SIGNATURES = {
     ("lorenzo3d", "lorenzo3d_codes_batched"): (_P, _P, _L, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_recon_batched"):
         (_P, _P, _P, _L, _I, _I, _I, _D, _P),
+    ("lorenzo3d", "lorenzo3d_codes"): (_P, _P, _I, _I, _I, _I, _I, _I, _D, _P),
+    ("lorenzo3d", "lorenzo3d_recon"):
+        (_P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P),
     ("hist", "hist_codes"): (_P, _L, _L, _I, _P, _I, _P),
     ("huffdec", "huffdec_payloads"):
         (_P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P),

@@ -14,6 +14,8 @@ wrapper                   TPU kernel it replaces                   source
 ========================  =======================================  ===========================
 lorenzo3d_codes_batched   repro/kernels/lorenzo3d.py:139           csrc/lorenzo3d.cu
 lorenzo3d_recon_batched   repro/kernels/lorenzo3d.py:157           csrc/lorenzo3d.cu
+lorenzo3d_codes           repro/kernels/lorenzo3d.py:64            csrc/lorenzo3d.cu
+lorenzo3d_recon           repro/kernels/lorenzo3d.py:82            csrc/lorenzo3d.cu
 hist                      repro/kernels/hist.py:41                 csrc/hist.cu
 huffdec                   repro/kernels/huffdec.py:48 and :73      csrc/huffdec.cu
 ========================  =======================================  ===========================
@@ -27,11 +29,13 @@ import torch
 from . import build, ref
 
 __all__ = ["launches", "reset_launches", "lorenzo3d_codes_batched",
-           "lorenzo3d_recon_batched", "hist", "huffdec"]
+           "lorenzo3d_recon_batched", "lorenzo3d_codes", "lorenzo3d_recon",
+           "hist", "huffdec"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lorenzo3d_codes_batched": 0, "lorenzo3d_recon_batched": 0,
-            "hist": 0, "huffdec": 0}
+            "lorenzo3d_codes": 0, "lorenzo3d_recon": 0, "hist": 0,
+            "huffdec": 0}
 
 
 def reset_launches() -> None:
@@ -105,6 +109,45 @@ def lorenzo3d_recon_batched(codes: torch.Tensor, eb: float) -> torch.Tensor:
         rc = build.library("lorenzo3d").lorenzo3d_recon_batched(
             _ptr(codes), _ptr(scratch), _ptr(out), n, X, Y, Z, 2.0 * eb,
             _stream(codes))
+    _launched(name, rc)
+    return out
+
+
+def lorenzo3d_codes(x: torch.Tensor, eb: float,
+                    tile: tuple[int, int, int]) -> torch.Tensor:
+    """(X,Y,Z) float32 array → int64 Lorenzo codes of
+    ``rint(float64(x) / 2eb)`` with a zero halo per ``tile`` (kernel 5).
+    The tile is clamped to the shape and must divide it (``ValueError``
+    otherwise); ``tile = shape`` is the global Lorenzo of the array."""
+    name = "lorenzo3d_codes"
+    _require(name, x, torch.float32, 3)
+    tile = ref.check_tile(tuple(x.shape), tile)
+    if not _on_cuda(name, x):
+        return ref.lorenzo3d_codes(x, eb, tile)
+    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = build.library("lorenzo3d").lorenzo3d_codes(
+            _ptr(x), _ptr(out), *x.shape, *tile, 2.0 * eb, _stream(x))
+    _launched(name, rc)
+    return out
+
+
+def lorenzo3d_recon(codes: torch.Tensor, eb: float,
+                    tile: tuple[int, int, int]) -> torch.Tensor:
+    """(X,Y,Z) int64 codes → float32 recon, scans restarting at every
+    ``tile`` edge (kernel 6); the tile is checked as in
+    :func:`lorenzo3d_codes`."""
+    name = "lorenzo3d_recon"
+    _require(name, codes, torch.int64, 3)
+    tile = ref.check_tile(tuple(codes.shape), tile)
+    if not _on_cuda(name, codes):
+        return ref.lorenzo3d_recon(codes, eb, tile)
+    scratch = torch.empty_like(codes)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        rc = build.library("lorenzo3d").lorenzo3d_recon(
+            _ptr(codes), _ptr(scratch), _ptr(out), *codes.shape, *tile,
+            2.0 * eb, _stream(codes))
     _launched(name, rc)
     return out
 

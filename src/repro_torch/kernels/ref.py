@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lorenzo3d_codes_batched", "lorenzo3d_recon_batched", "hist",
+__all__ = ["lorenzo3d_codes_batched", "lorenzo3d_recon_batched",
+           "lorenzo3d_codes", "lorenzo3d_recon", "check_tile", "hist",
            "huffdec", "HUFF_MAXLEN"]
 
 #: Longest codeword the decoders take: a 64-bit window read at any bit
@@ -33,6 +34,49 @@ def lorenzo3d_recon_batched(codes: torch.Tensor, eb: float) -> torch.Tensor:
     for ax in (1, 2, 3):
         q = torch.cumsum(q, dim=ax)
     return (q.double() * (2.0 * eb)).float()
+
+
+def check_tile(shape: tuple[int, ...], tile: tuple[int, ...]
+               ) -> tuple[int, int, int]:
+    """``tile`` clamped to ``shape``, as the TPU kernel's grid takes it.
+
+    :raises ValueError: for a tile that is not three positive edges, or
+        that does not divide ``shape``.
+    """
+    if len(tile) != 3 or any(int(t) < 1 for t in tile):
+        raise ValueError(f"tile {tuple(tile)} must be three positive edges")
+    tile = tuple(max(1, min(int(t), int(s))) for t, s in zip(tile, shape))
+    if any(s % t for s, t in zip(shape, tile)):
+        raise ValueError(f"shape {tuple(shape)} not divisible by tile {tile}")
+    return tile
+
+
+def _tile_view(a: torch.Tensor, tile: tuple[int, int, int]) -> torch.Tensor:
+    """(X,Y,Z) → (gx,tx, gy,ty, gz,tz) view; tile axes are 1, 3 and 5."""
+    gx, gy, gz = (s // t for s, t in zip(a.shape, tile))
+    return a.reshape(gx, tile[0], gy, tile[1], gz, tile[2])
+
+
+def lorenzo3d_codes(x: torch.Tensor, eb: float,
+                    tile: tuple[int, int, int]) -> torch.Tensor:
+    """(X,Y,Z) float32 → int64 codes: ``rint(float64(x) / 2eb)``, then
+    first differences along X, Y and Z with a zero halo at the low faces
+    of every tile (checked by :func:`check_tile`)."""
+    tile = check_tile(tuple(x.shape), tile)
+    c = _tile_view(torch.round(x.double() / (2.0 * eb)).long(), tile)
+    for ax in (1, 3, 5):
+        c = torch.diff(c, dim=ax, prepend=torch.zeros_like(c.narrow(ax, 0, 1)))
+    return c.reshape(x.shape)
+
+
+def lorenzo3d_recon(codes: torch.Tensor, eb: float,
+                    tile: tuple[int, int, int]) -> torch.Tensor:
+    """Inverse of :func:`lorenzo3d_codes`: int64 inclusive prefix sums
+    along X, Y and Z inside every tile, then ``float32(float64(q) · 2eb)``."""
+    q = _tile_view(codes, check_tile(tuple(codes.shape), tile))
+    for ax in (1, 3, 5):
+        q = torch.cumsum(q, dim=ax)
+    return (q.double() * (2.0 * eb)).float().reshape(codes.shape)
 
 
 def hist(codes: torch.Tensor, lo: int, n_bins: int) -> torch.Tensor:

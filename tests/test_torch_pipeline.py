@@ -22,7 +22,7 @@ from repro.core import hybrid as rhybrid
 from repro.io import frontier as rfrt
 from repro_torch import io as tio
 from repro_torch.convert import dataset_from_arrays, result_from_reference
-from repro_torch.core import huffman, hybrid
+from repro_torch.core import gsp, huffman, hybrid, she
 from repro_torch.io import frontier as tfrt
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
@@ -146,23 +146,18 @@ def test_golden_fixtures_decode(expected, name, version):
             assert rd.frontier is None and rd.frontier_error is None
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tio.open_snapshot(os.path.join(GOLD, "multipart.taczd"),
                           device="cpu")
     rds = ramr.synthetic_amr((16, 16, 16), densities=[0.4, 0.6],
                              refine_block=4, seed=1)
     ds = dataset_from_arrays([(l.data, l.mask, l.ratio) for l in rds.levels])
-    for kw in ({"strategy": "gsp"}, {"she": False}, {"strategy": "nast"},
-               {"batched": False}, {"algorithm": "interp"}):
-        with pytest.raises(NotImplementedError):
-            hybrid.compress_amr(ds, eb=1e-3, device="cpu", **kw)
-    path = str(tmp_path / "gsp.tacz")
-    rio.write(path, rhybrid.compress_amr(rds, eb=1e-3, she=False,
-                                         strategy="gsp"))
-    with tio.TACZReader(path, device="cpu") as rd:
-        with pytest.raises(NotImplementedError):
-            rd.read_level(0)
+    with pytest.raises(NotImplementedError):
+        hybrid.compress_amr(ds, eb=1e-3, device="cpu", batched=False)
+    with pytest.raises(NotImplementedError):
+        she.she_encode([rds.levels[0].data[:8, :8, :8]], 1e-3, shared=False,
+                       device="cpu")
 
 
 def test_corrupt_payload_fails_crc(tmp_path):
@@ -186,6 +181,15 @@ def test_cuda_default_raises_without_card():
         hybrid.compress_amr(ds, eb=1e-3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tio.TACZReader(os.path.join(GOLD, "v1.tacz"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hybrid.compress_amr(ds, eb=1e-3, she=False, algorithm="interp")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gsp.gsp_pad(np.ones((8, 8, 8), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tio.encode_tensor(np.ones(4, np.float32), 1e-3)
+    blob = tio.encode_tensor(np.ones(4, np.float32), 1e-3, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tio.decode_tensor(blob)
 
 
 def test_import_hygiene():

@@ -113,9 +113,13 @@ def test_prequant_dequant_and_nd_lorenzo():
 def test_reg_block_grid_and_unported_branches():
     for shape in [(8, 8, 8), (1, 5, 9), (3, 16, 2)]:
         assert sz.reg_block_grid(shape, 6) == rsz.reg_block_grid(shape, 6)
-    with pytest.raises(NotImplementedError):
-        sz.decode_codes_batched(torch.zeros(1, 8, dtype=torch.int64), (8,),
-                                0.1, branch="lorenzo")
-    with pytest.raises(NotImplementedError):
-        sz.decode_codes_batched(torch.zeros(1, 8, dtype=torch.int64),
-                                (2, 2, 2), 0.1, branch="interp")
+    # 1D Lorenzo and interp payloads decode as the reference decodes them
+    codes = np.random.default_rng(8).integers(-9, 9, (2, 8))
+    for shape, branch in [((8,), "lorenzo"), ((2, 2, 2), "interp")]:
+        np.testing.assert_array_equal(
+            sz.decode_codes_batched(torch.from_numpy(codes), shape, 0.1,
+                                    branch=branch).numpy(),
+            rsz.decode_codes_batched(codes, shape, 0.1, branch=branch))
+    with pytest.raises(ValueError):
+        sz.decode_codes_batched(torch.from_numpy(codes), (8,), 0.1,
+                                branch="reg", betas=torch.zeros(2, 1, 4))
