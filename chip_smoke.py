@@ -38,7 +38,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    cost per call, so they are also timed from a CUDA graph of 100 calls;
 5. kernels 5 and 6 against their plain versions on the GSP-padded finest
    level of phase 2's snapshot (512³), at ``tile = shape`` and at the
-   reference's default tile ``(8, 128, 128)``.
+   reference's default tile ``(8, 128, 128)``;
+6. LM serving with an int8 KV cache, through the user entry points:
+   deepseek-7b at full width and depth (30 layers, d_model 4096, 6.9 B
+   parameters initialised on the card from a seeded generator, each
+   layer's leaf at ``1/√fan_in`` as the reference's ``_init_leaf``
+   scales a layer), 8 requests of 1,024 prompt tokens and 32 greedy new
+   tokens through ``ServingEngine(cfg, RunConfig(kv_quant=True))
+   .generate``, then the same with a bf16 cache.  Two paths are each
+   driven with the launch counts reset just before and read just after:
+   ``generate`` with the int8 cache (kernel 7 must have launched; it
+   never launches kernel 8), and a full-width bf16 prefill cache through
+   ``quantize_prefill_cache`` and ``dequantize_kv`` (kernel 8 must have
+   launched).  Checks: ids in range, finite logits, greedy agreement of
+   the two caches ≥ 50 %, the dequantized cache within ``scale/2``
+   (plus float32 rounding) of the bf16 cache it came from, and
+   prefill/decode consistency — the last-position logits of a
+   1,024-token prefill against a 1,023-token prefill plus one decode
+   step: relative max error ≤ 1e-2 with a bf16 cache on the model's
+   first two layers (the reference test's depth and tolerance); at full
+   depth the int8 cache's error at most 1e-2 above the bf16 cache's;
+   and, with the same weights in float32 at full depth, ≤ 1e-2 with the
+   int8 cache (the bf16 cache's reading is printed beside it).  Prefill
+   and decode step times and a ``torch.profiler`` breakdown of both are
+   printed.  Kernels 7 and 8 are held against their plain versions
+   (exactly) and timed at the path's two shapes: the stacked prefill
+   cache and a decode step's K (one position of one layer, 256 × 128;
+   timed from a CUDA graph).
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -53,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -63,6 +90,10 @@ TAC_DENSITIES = [0.0202, 0.0556, 0.9242]     # run2_t3: fine → coarse
 TAC_ALGORITHMS = ("lorenzo", "lor_reg", "interp")
 ROI_BOX = ((100, 228), (200, 264), (0, 512))
 PLAIN_K4_MAX_SYMBOLS = 16384
+LM_ARCH = "deepseek_7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
+LM_SEED = 13
+QDQ = ("group_quant", "group_dequant")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 
@@ -79,6 +110,10 @@ KERNELS = {
                         "src/repro/kernels/lorenzo3d.py:64"),
     "lorenzo3d_recon": ("src/repro_torch/kernels/csrc/lorenzo3d.cu",
                         "src/repro/kernels/lorenzo3d.py:82"),
+    "group_quant": ("src/repro_torch/kernels/csrc/qdq.cu",
+                    "src/repro/kernels/qdq.py:43"),
+    "group_dequant": ("src/repro_torch/kernels/csrc/qdq.cu",
+                      "src/repro/kernels/qdq.py:64"),
 }
 
 
@@ -134,6 +169,293 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
+               n_launches, smi, **extra) -> dict:
+    b_ms, b_by = bound(bytes_moved, ops_count)
+    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms} "
+          f"max_abs_err={err} launches={n_launches} {extra} [{smi}]")
+    return {"name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": n_launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            **extra}
+
+
+def lm_consistency(torch, cfg, params, prompts, run) -> float:
+    """Relative max error between the last-position logits of a prefill
+    over all prompt tokens and those of a prefill over all but the last
+    plus one decode step of the last, with ``run``'s cache."""
+    from repro_torch.serving import make_prefill_step, make_serve_step
+    from repro_torch.serving.engine import grow_cache
+
+    full, _ = make_prefill_step(cfg, run)(params, {"tokens": prompts})
+    _, state = make_prefill_step(cfg, run)(params,
+                                           {"tokens": prompts[:, :-1]})
+    dec, _ = make_serve_step(cfg, run)(
+        params, grow_cache(state, 1), {"tokens": prompts[:, -1:]},
+        prompts.shape[1] - 1)
+    full, dec = full.float(), dec.float()
+    check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+          "non-finite logits")
+    return float((full - dec).abs().max() / full.abs().max())
+
+
+def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
+    """``torch.profiler`` over one prefill and over three decode steps:
+    wall time, summed kernel time (its share of the wall is the device's
+    busy share) and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"card": smi}
+    logits, state = eng.prefill(params, prompts, LM_PROMPT + 3)
+    tok = torch.argmax(logits, dim=-1)
+    for name, steps in (("prefill", None), ("decode_3_steps", 3)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if steps is None:
+                eng.prefill(params, prompts, LM_PROMPT)
+            else:
+                for i in range(steps):
+                    logits, state = eng.decode(params, state, tok,
+                                               LM_PROMPT + i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # device-side events only: an operator's own entry also carries
+        # the time of the kernels it launched
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+        ev.sort(key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        out[name] = {"wall_ms": wall, "kernel_ms": busy,
+                     "busy_share": busy / wall if wall else None,
+                     "kernel_launches": sum(e.count for e in ev),
+                     "top": [(e.key[:60], e.self_device_time_total / 1e3,
+                              e.count) for e in ev[:8]]}
+    return out
+
+
+def lm_serving(torch, smi: str) -> list[dict]:
+    """Phase 6: LM serving with an int8 KV cache at deepseek-7b's full
+    width and depth.  Returns the kernel rows of kernels 7 and 8."""
+    import statistics
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers, model
+    from repro_torch.serving import (ServingEngine, dequantize_kv,
+                                     make_prefill_step,
+                                     quantize_prefill_cache)
+
+    dev = torch.device("cuda")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 products must not run as TF32")
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size)
+          == (30, 4096, 32, 11008, 102400), f"{LM_ARCH} is not full size")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    specs = model.model_specs(cfg)
+    params = layers.init_from_specs(
+        specs, torch.Generator(device=dev).manual_seed(LM_SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = layers.param_count(specs)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+        generator=torch.Generator().manual_seed(LM_SEED)).to(dev)
+    run_q, run_b = RunConfig(kv_quant=True), RunConfig(kv_quant=False)
+    eng_q = ServingEngine(cfg, run_q, device=dev)
+    eng_b = ServingEngine(cfg, run_b, device=dev)
+    st = {"card": smi, "arch": LM_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": n_params, "batch": LM_BATCH,
+          "prompt": LM_PROMPT, "new_tokens": LM_NEW, "init_s": init_s}
+    failed = []
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    # ---- path 1, generate with the int8 cache: counts reset before, read
+    # after.  It launches kernel 7 (the prefill cache, then each decode
+    # step's K and V per layer) and never kernel 8: decode folds the
+    # scales into the scores, as the reference does
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ids_q = eng_q.generate(params, prompts, new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    st["generate_int8_s"] = time.perf_counter() - t0
+    st["peak_device_bytes_generate_int8"] = torch.cuda.max_memory_allocated()
+    per_generate = {k: ops.launches[k] for k in QDQ}
+    st["launches_per_generate"] = per_generate
+    expect(per_generate["group_quant"] > 0,
+           "kernel group_quant never launched by generate")
+    t0 = time.perf_counter()
+    ids_b = eng_b.generate(params, prompts, new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    st["generate_bf16_s"] = time.perf_counter() - t0
+    for ids in (ids_q, ids_b):
+        check(tuple(ids.shape) == (LM_BATCH, LM_NEW), f"ids {ids.shape}")
+        check(int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab_size,
+              "generated ids out of range")
+    st["greedy_agreement"] = float((ids_q == ids_b).float().mean())
+    expect(st["greedy_agreement"] >= 0.5,
+           f"int8 and bf16 caches agree on {st['greedy_agreement']} < 0.5")
+
+    # ---- path 2, the cache's conversion and read-back: a full-width bf16
+    # prefill cache through quantize_prefill_cache and dequantize_kv,
+    # counts reset before, read after
+    _, cache_b = make_prefill_step(cfg, run_b)(params, {"tokens": prompts})
+    ops.reset_launches()
+    cache_q = quantize_prefill_cache(cfg, cache_b)
+    deq = {name: dequantize_kv(cache_q[name], cache_q[name + "_scale"],
+                               torch.float32) for name in ("k", "v")}
+    torch.cuda.synchronize()
+    per_readback = {k: ops.launches[k] for k in QDQ}
+    st["launches_per_cache_readback"] = per_readback
+    expect(per_readback["group_dequant"] > 0,
+           "kernel group_dequant never launched by dequantize_kv")
+    # the dequantized int8 cache within scale/2 of the bf16 cache (plus
+    # the float32 rounding of x/scale and of q·scale: 2⁻¹⁵ of the scale)
+    worst = 0.0
+    for name in ("k", "v"):
+        for li in range(cfg.n_layers):
+            err = (deq[name][li] - cache_b[name][li].float()).abs()
+            scale = cache_q[name + "_scale"][li][..., None]
+            worst = max(worst, float((err / scale).max()))
+        del err
+    del deq, cache_q
+    st["dequant_err_over_scale"] = worst
+    expect(worst <= 0.5 + 2.0 ** -15, f"dequant error {worst} · scale")
+
+    # ---- prefill/decode consistency.  The reference holds it at 1e-2 on
+    # two layers with a bf16 cache; over 30 bf16 layers the two paths'
+    # own roundings drift further apart, so at full depth the int8 cache
+    # is held to add at most 1e-2 to what the bf16 cache gives, and the
+    # float32 run at the end holds it to 1e-2 without that drift
+    cut = replace(cfg, n_layers=2)
+    cut_params = dict(params, layers={
+        blk: {k: w[:2] for k, w in leaves.items()}
+        for blk, leaves in params["layers"].items()})
+    for depth, c, p in ((2, cut, cut_params), (cfg.n_layers, cfg, params)):
+        for tag, run in (("int8", run_q), ("bf16", run_b)):
+            st[f"consistency_rel_{tag}_{depth}_layers"] = lm_consistency(
+                torch, c, p, prompts, run)
+    del cut_params
+    rel2 = st["consistency_rel_bf16_2_layers"]
+    expect(rel2 <= 1e-2, f"two-layer bf16 consistency {rel2} > 1e-2")
+    rel_q = st[f"consistency_rel_int8_{cfg.n_layers}_layers"]
+    rel_b = st[f"consistency_rel_bf16_{cfg.n_layers}_layers"]
+    expect(rel_q <= rel_b + 1e-2,
+           f"int8 consistency {rel_q} > bf16's {rel_b} + 1e-2")
+
+    # ---- step times: prefill, and each decode step, synchronised
+    for tag, eng in (("int8", eng_q), ("bf16", eng_b)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = eng.prefill(params, prompts, LM_PROMPT + LM_NEW)
+        torch.cuda.synchronize()
+        st[f"prefill_{tag}_s"] = time.perf_counter() - t0
+        tok = torch.argmax(logits, dim=-1)
+        steps = []
+        for i in range(LM_NEW):
+            t0 = time.perf_counter()
+            logits, state = eng.decode(params, state, tok, LM_PROMPT + i)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            tok = torch.argmax(logits, dim=-1)
+        check(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
+        med = statistics.median(steps)
+        st[f"decode_{tag}_ms_per_token"] = med
+        st[f"decode_{tag}_tokens_per_s"] = LM_BATCH / med * 1e3
+        del state
+    print("LM serving: " + json.dumps(st))
+    print("LM serving, device time by kernel: " + json.dumps(
+        lm_profile(torch, eng_q, params, prompts, smi)))
+
+    # ---- kernels 7 and 8 against their plain versions at the path's shapes
+    rows = []
+    x = cache_b["k"].reshape(-1, cfg.head_dim)
+    # a decode step quantizes one position's K of one layer: (B·H, hd)
+    step_k = cache_b["k"][0, :, -1].reshape(-1, cfg.head_dim).contiguous()
+    for label, xs in (("prefill cache", x), ("decode step", step_k)):
+        q, s = ops.group_quant(xs, cfg.head_dim)
+        q_p, s_p = ref.group_quant(xs, cfg.head_dim)
+        check(torch.equal(q, q_p) and torch.equal(s, s_p),
+              f"K7 != plain at the {label} shape")
+        d = ops.group_dequant(q, s, cfg.head_dim)
+        check(torch.equal(d, ref.group_dequant(q, s, cfg.head_dim)),
+              f"K8 != plain at the {label} shape")
+        del q_p, s_p, d
+        print(f"K7/K8 == plain at the {label} shape {tuple(xs.shape)}")
+    n, rows_n = x.numel(), x.shape[0]
+    q, s = ops.group_quant(x, cfg.head_dim)
+    rows.append(kernel_row(
+        "group_quant", 0,
+        cuda_ms(lambda: ops.group_quant(x, cfg.head_dim), 20, torch),
+        cuda_ms(lambda: ref.group_quant(x, cfg.head_dim), 3, torch),
+        2 * n + n + 4 * rows_n, 4 * n, None, per_generate["group_quant"], smi,
+        launches_from="ServingEngine.generate, int8 cache"))
+    rows.append(kernel_row(
+        "group_dequant", 0,
+        cuda_ms(lambda: ops.group_dequant(q, s, cfg.head_dim), 20, torch),
+        cuda_ms(lambda: ref.group_dequant(q, s, cfg.head_dim), 3, torch),
+        n + 4 * rows_n + 4 * n, n, None, per_readback["group_dequant"], smi,
+        launches_from="quantize_prefill_cache + dequantize_kv, "
+                      "full-width cache",
+        launches_per_generate=per_generate["group_dequant"]))
+    del x, q, s, cache_b
+    qk, sk = ops.group_quant(step_k, cfg.head_dim)
+    m = step_k.numel()
+    small = {"card": smi, "shape": tuple(step_k.shape),
+             "k7_graph_ms": graph_ms(
+                 lambda: ops.group_quant(step_k, cfg.head_dim), 100, torch),
+             "k7_plain_graph_ms": graph_ms(
+                 lambda: ref.group_quant(step_k, cfg.head_dim), 100, torch),
+             "k7_event_ms": cuda_ms(
+                 lambda: ops.group_quant(step_k, cfg.head_dim), 200, torch),
+             "k7_bound_ms": bound(3 * m + 4 * step_k.shape[0], 4 * m)[0],
+             "k8_graph_ms": graph_ms(
+                 lambda: ops.group_dequant(qk, sk, cfg.head_dim), 100, torch),
+             "k8_plain_graph_ms": graph_ms(
+                 lambda: ref.group_dequant(qk, sk, cfg.head_dim), 100,
+                 torch),
+             "k8_bound_ms": bound(5 * m + 4 * step_k.shape[0], m)[0],
+             "k7_launches_per_token": 2 * cfg.n_layers}
+    print("K7/K8 at the decode-step shape: " + json.dumps(small))
+
+    # ---- witness for the full-depth consistency: the same weights in
+    # float32 (exact copies), so that only the cache's own rounding (bf16
+    # or int8, as the reference keeps it whatever the model's dtype) parts
+    # the two paths.  Its int8 reading is held to the reference's 1e-2
+    def to_f32(tree):
+        for k, w in tree.items():
+            if isinstance(w, dict):
+                to_f32(w)
+            else:
+                tree[k] = w.float()
+    to_f32(params)
+    torch.cuda.empty_cache()
+    cfg32 = replace(cfg, dtype="float32")
+    f32 = {"card": smi}
+    for tag, run in (("int8", run_q), ("bf16", run_b)):
+        f32[f"consistency_rel_{tag}_cache"] = lm_consistency(
+            torch, cfg32, params, prompts, run)
+    print(f"LM serving, float32 model at {cfg.n_layers} layers: "
+          + json.dumps(f32))
+    expect(f32["consistency_rel_int8_cache"] <= 1e-2,
+           f"float32 int8-cache consistency {f32} > 1e-2")
+    del params
+    torch.cuda.empty_cache()
+    check(not failed, "; ".join(failed))
+    return rows
 
 
 def main() -> int:
@@ -239,16 +561,9 @@ def main() -> int:
 
     def row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
             n_launches=None):
-        b_ms, b_by = bound(bytes_moved, ops_count)
-        rows.append({"name": name, "route": "cuda",
-                     "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-                     "launches": (launches[name] if n_launches is None
-                                  else n_launches), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": library_ms})
-        print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms} "
-              f"max_abs_err={err} [{smi}]")
+        rows.append(kernel_row(
+            name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
+            launches[name] if n_launches is None else n_launches, smi))
 
     # K1/K2 on the largest same-shape stack of the finest level
     grid, _, _, subblocks = hybrid.partition_level(
@@ -484,6 +799,9 @@ def main() -> int:
         cuda_ms(lambda: ref.lorenzo3d_recon(codes, eb, SHAPE), 3, torch),
         12 * n_el, 5 * n_el, None, launches4["lorenzo3d_recon"])
     del padded, codes
+
+    # ------------------------------------------------- 6. LM serving
+    rows += lm_serving(torch, smi)
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

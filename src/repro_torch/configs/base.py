@@ -1,0 +1,60 @@
+"""Model and run configuration schema of the LM plane.
+
+:class:`ModelConfig` copies the reference's frozen dataclass field for
+field, so that a config reads the same in either package.
+:class:`RunConfig` keeps the one execution knob the port's serving path
+reads; the reference's train-step knobs come with the train step, and
+``ShapeConfig`` (the benchmark cells' input shapes) with the cells.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+__all__ = ["ModelConfig", "RunConfig"]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                # 0 for attention-free archs
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0             # 0 → d_model // n_heads
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # --- attention details ---
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    # --- SSM / RWKV ---
+    ssm_state: int = 0          # Mamba2 d_state (hybrid family)
+    ssm_expand: int = 2
+    ssm_head: int = 64
+    rwkv_head: int = 64
+    # --- hybrid (Zamba2): shared attention block every k core layers ---
+    shared_attn_every: int = 0
+    # --- modality frontend (vlm/audio): stubbed embeddings in ---
+    input_mode: str = "tokens"  # tokens | embeddings
+    act: str = "swiglu"         # swiglu | gelu
+    norm_eps: float = 1e-5
+    # numerics
+    dtype: str = "bfloat16"
+    notes: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // max(self.n_heads, 1)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Execution knobs of the serving path."""
+
+    kv_quant: bool = False      # int8 KV cache with per-(token, head) scales

@@ -1,9 +1,9 @@
 """Carry inputs and compressed state across from the reference package.
 
-The tests hand the same dataset, and the same compressed state, to the
-JAX/numpy reference and to this port.  Both helpers read their inputs
-duck-typed (attributes and numpy arrays) and import nothing of the
-reference package.
+The tests hand the same dataset, the same compressed state and the same
+model parameters to the JAX/numpy reference and to this port.  The
+helpers read their inputs duck-typed (attributes and numpy arrays) and
+import nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -16,8 +16,11 @@ from .core.huffman import Codebook
 from .core.hybrid import AMRCompressionResult, LevelArtifacts, LevelResult
 from .core.sz import SZResult
 from .device import resolve_device
+from .models.layers import ParamSpec
+from .models.model import model_specs
 
-__all__ = ["dataset_from_arrays", "result_from_reference"]
+__all__ = ["dataset_from_arrays", "result_from_reference",
+           "params_from_reference"]
 
 
 def dataset_from_arrays(levels, *, name: str = "amr") -> AMRDataset:
@@ -95,3 +98,43 @@ def result_from_reference(res, *, device: str | torch.device = "cuda",
             eb=float(lr.eb), n_subblocks=int(lr.n_subblocks),
             ratio=int(lr.ratio), artifacts=art))
     return AMRCompressionResult(levels=levels, method=str(res.method))
+
+
+def _param(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # an ml_dtypes array
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_reference(tree, cfg, *,
+                          device: str | torch.device = "cuda") -> dict:
+    """The port's parameter tree for ``cfg`` from the reference's, given
+    as nested dicts of numpy arrays (bf16 leaves as ``ml_dtypes`` arrays
+    or as float32), with the stacked-layer axis kept.
+
+    Every leaf takes the dtype of its spec in the port's
+    :func:`~repro_torch.models.model.model_specs`, so float32 copies of
+    bf16 leaves round back exactly.
+
+    :raises ValueError: for a missing or extra key, or a shape that is
+        not the spec's.
+    """
+    device = resolve_device(device)
+
+    def conv(node, spec, path):
+        if isinstance(spec, ParamSpec):
+            t = _param(node, spec.torch_dtype, device)
+            if tuple(t.shape) != spec.shape:
+                raise ValueError(f"{path}: shape {tuple(t.shape)}, "
+                                 f"expected {spec.shape}")
+            return t
+        if not isinstance(node, dict) or set(node) != set(spec):
+            keys = sorted(node) if isinstance(node, dict) else type(node)
+            raise ValueError(f"{path or 'params'}: keys {keys}, "
+                             f"expected {sorted(spec)}")
+        return {k: conv(v, spec[k], f"{path}/{k}") for k, v in node.items()}
+
+    return conv(tree, model_specs(cfg), "")

@@ -6,7 +6,8 @@ the checkout, where ``<hash>`` covers the source and the flags, so an
 edited source rebuilds and an unchanged one loads at once.  The sources
 have a plain C interface (no PyTorch headers), so a build takes seconds.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math`` — the
-Lorenzo kernels rely on IEEE float64 division and ``rint``.
+Lorenzo kernels rely on IEEE float64 division and ``rint``, the
+quantizer on IEEE float32 division.
 
 Nothing here runs at import: :func:`library` builds on its first call.
 """
@@ -22,7 +23,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "build_all", "build_dir", "build_logs", "library"]
 
-SOURCES = ("lorenzo3d", "hist", "huffdec")
+SOURCES = ("lorenzo3d", "hist", "huffdec", "qdq")
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,9 @@ SIGNATURES = {
     ("hist", "hist_codes"): (_P, _L, _L, _I, _P, _I, _P),
     ("huffdec", "huffdec_payloads"):
         (_P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P),
+    ("qdq", "group_quant_f32"): (_P, _P, _P, _L, _I, _P),
+    ("qdq", "group_quant_bf16"): (_P, _P, _P, _L, _I, _P),
+    ("qdq", "group_dequant_f32"): (_P, _P, _P, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

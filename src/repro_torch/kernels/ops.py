@@ -18,6 +18,8 @@ lorenzo3d_codes           repro/kernels/lorenzo3d.py:64            csrc/lorenzo3
 lorenzo3d_recon           repro/kernels/lorenzo3d.py:82            csrc/lorenzo3d.cu
 hist                      repro/kernels/hist.py:41                 csrc/hist.cu
 huffdec                   repro/kernels/huffdec.py:48 and :73      csrc/huffdec.cu
+group_quant               repro/kernels/qdq.py:43                  csrc/qdq.cu
+group_dequant             repro/kernels/qdq.py:64                  csrc/qdq.cu
 ========================  =======================================  ===========================
 """
 from __future__ import annotations
@@ -30,12 +32,12 @@ from . import build, ref
 
 __all__ = ["launches", "reset_launches", "lorenzo3d_codes_batched",
            "lorenzo3d_recon_batched", "lorenzo3d_codes", "lorenzo3d_recon",
-           "hist", "huffdec"]
+           "hist", "huffdec", "group_quant", "group_dequant"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lorenzo3d_codes_batched": 0, "lorenzo3d_recon_batched": 0,
             "lorenzo3d_codes": 0, "lorenzo3d_recon": 0, "hist": 0,
-            "huffdec": 0}
+            "huffdec": 0, "group_quant": 0, "group_dequant": 0}
 
 
 def reset_launches() -> None:
@@ -210,3 +212,49 @@ def huffdec(data: torch.Tensor, byte_off: torch.Tensor, nbits: torch.Tensor,
             _ptr(out), _ptr(err), _stream(data))
     _launched(name, rc)
     return out, err
+
+
+def group_quant(x: torch.Tensor, group: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, d) float32 or bfloat16 → (int8 codes (n, d), float32 scales
+    (n, d/group)), per-group symmetric int8 (kernel 7); see
+    :func:`repro_torch.kernels.ref.group_quant`."""
+    name = "group_quant"
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
+    _require(name, x, x.dtype, 2)
+    n_groups = ref.check_groups(tuple(x.shape), group)
+    if not _on_cuda(name, x):
+        return ref.group_quant(x, group)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((x.shape[0], x.shape[1] // group),
+                        dtype=torch.float32, device=x.device)
+    fn = "group_quant_f32" if x.dtype == torch.float32 else "group_quant_bf16"
+    with torch.cuda.device(x.device):
+        rc = getattr(build.library("qdq"), fn)(
+            _ptr(x), _ptr(q), _ptr(scale), n_groups, int(group), _stream(x))
+    _launched(name, rc)
+    return q, scale
+
+
+def group_dequant(q: torch.Tensor, scale: torch.Tensor, group: int
+                  ) -> torch.Tensor:
+    """int8 codes (n, d) and float32 scales (n, d/group) → float32
+    ``q · scale`` (kernel 8)."""
+    name = "group_dequant"
+    _require(name, q, torch.int8, 2)
+    _require(name, scale, torch.float32, 2)
+    n_groups = ref.check_groups(tuple(q.shape), group)
+    if tuple(scale.shape) != (q.shape[0], q.shape[1] // group):
+        raise ValueError(f"{name}: scales {tuple(scale.shape)} do not match "
+                         f"codes {tuple(q.shape)} at group {group}")
+    if not _on_cuda(name, q, scale):
+        return ref.group_dequant(q, scale, group)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    with torch.cuda.device(q.device):
+        rc = build.library("qdq").group_dequant_f32(
+            _ptr(q), _ptr(scale), _ptr(out), n_groups, int(group), sms,
+            _stream(q))
+    _launched(name, rc)
+    return out

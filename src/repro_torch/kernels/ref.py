@@ -11,7 +11,8 @@ import torch
 
 __all__ = ["lorenzo3d_codes_batched", "lorenzo3d_recon_batched",
            "lorenzo3d_codes", "lorenzo3d_recon", "check_tile", "hist",
-           "huffdec", "HUFF_MAXLEN"]
+           "huffdec", "HUFF_MAXLEN", "check_groups", "group_quant",
+           "group_dequant"]
 
 #: Longest codeword the decoders take: a 64-bit window read at any bit
 #: offset inside its first byte holds 57 whole bits.
@@ -157,3 +158,46 @@ def huffdec(data, byte_off, nbits, n_decode, out_off, n_out, symbols,
         out.scatter_(0, dst, torch.where(ok, symbols[sidx], 0))
         pos = torch.where(ok, pos + l, pos)
     return out[:n_out], err
+
+
+def check_groups(shape: tuple[int, ...], group: int) -> int:
+    """The number of groups of ``group`` values in an (n, d) array.
+
+    :raises ValueError: unless the array is 2-D and ``group`` is positive
+        and divides ``d``.
+    """
+    if len(shape) != 2:
+        raise ValueError(f"expected an (n, d) array, got {tuple(shape)}")
+    if group < 1 or shape[1] % group:
+        raise ValueError(f"shape {tuple(shape)} needs d % {group} == 0")
+    return shape[0] * (shape[1] // group)
+
+
+def group_quant(x: torch.Tensor, group: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, d) float32 or bfloat16 → int8 codes (n, d) and float32 scales
+    (n, d/group): per group of ``group`` values along d, ``scale =
+    max|x|/127`` (1 for an all-zero group) and ``q = clip(rint(x / scale),
+    −127, 127)``, computed in float32.
+
+    Both divisions divide by a tensor: PyTorch turns a division by a
+    Python number into a product with its reciprocal on CUDA, which
+    differs from the reference's division at ties.
+    """
+    check_groups(tuple(x.shape), group)
+    n, d = x.shape
+    g = x.float().reshape(n, d // group, group)
+    amax = g.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.round(g / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8).reshape(n, d), scale
+
+
+def group_dequant(q: torch.Tensor, scale: torch.Tensor, group: int
+                  ) -> torch.Tensor:
+    """Inverse of :func:`group_quant`: float32 ``q · scale`` per group."""
+    check_groups(tuple(q.shape), group)
+    n, d = q.shape
+    g = q.reshape(n, d // group, group).float()
+    return (g * scale.float()[..., None]).reshape(n, d)
