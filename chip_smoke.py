@@ -16,14 +16,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    compress-time recon bit for bit, the ROI crops must equal slices of
    them, and ``max|recon − orig|`` over each mask must stay within
    ``eb + 2⁻²²·max|orig|``.  Kernel launch counts are reset just before
-   and read just after; every kernel must have launched;
+   and read just after; every kernel must have launched.  The brick
+   shapes the path sends kernel 2 are recorded;
 3. kernels 1-4 against their plain PyTorch versions on the card, at the
    main path's shapes (exact agreement required), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
-   the same function, that call (``library_ms``, a yardstick only).  The
-   plain Huffman decoder walks the finest level's payloads of at most
-   16,384 symbols (plus a truncated copy of one); the kernel is timed on
-   the whole level;
+   the same function, that call (``library_ms``, a yardstick only).
+   Kernel 2 is also held against its plain version on every brick shape
+   the main path sent it and on one shape that takes its three-pass
+   route, and timed beside that route on the main stack.  Kernel 4's
+   chunked decode must equal its own serial walk (forced on every
+   payload) and the codes the compressor encoded on every payload of the
+   finest level (plus a truncated copy of one), with no payload left to
+   the serial walk; it must equal the plain decoder on the payloads of at
+   most 16,384 symbols and on the seeded adversarial cases of
+   ``kernels.huffdec_cases``; chunk sizes are compared in turns;
 4. the TAC path (``she=False``), through the user entry points: the
    ``run2_t3`` structure (Nyx Run2_T3, three levels 2/6/92 %, seed 3) at
    512³ with ``eb = 1e-3 · range`` of the finest level, compressed with
@@ -32,9 +39,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    streamed through ``TACZWriter(strategy="gsp")`` must read back
    (``read``, ``read_roi``, ``verify``) equal to the compress-time recon.
    Launch counts are reset before and read after; kernels 5 and 6 must
-   have launched.  Kernels 5 and 6 are then held against their plain
-   versions, and timed, on the grid that path gives them: the GSP-padded
-   128³ coarse level.  There a launch is about as short as the host's
+   have launched.  Kernel 4 on that level's one GSP payload must equal
+   its serial walk and the compress-time codes, settle with no serial
+   payload, and is timed there at each chunk size; kernel 2 is held
+   against its plain version on every brick shape the path sent it.
+   Kernels 5 and 6 are then held against their plain versions, and
+   timed, on the grid that path gives them: the GSP-padded 128³ coarse
+   level.  There a launch is about as short as the host's
    cost per call, so they are also timed from a CUDA graph of 100 calls;
 5. kernels 5 and 6 against their plain versions on the GSP-padded finest
    level of phase 2's snapshot (512³), at ``tile = shape`` and at the
@@ -73,6 +84,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -90,6 +102,8 @@ TAC_DENSITIES = [0.0202, 0.0556, 0.9242]     # run2_t3: fine → coarse
 TAC_ALGORITHMS = ("lorenzo", "lor_reg", "interp")
 ROI_BOX = ((100, 228), (200, 264), (0, 512))
 PLAIN_K4_MAX_SYMBOLS = 16384
+K4_CHUNK_BITS = (64, 128, 256, 512, 1024)    # the chunk-size A/B
+K2_THREE_PASS_SHAPE = (2, 2, 128, 256)       # a plane past shared memory
 LM_ARCH = "deepseek_7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
 LM_SEED = 13
@@ -177,11 +191,153 @@ def kernel_row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
     print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms} "
           f"max_abs_err={err} launches={n_launches} {extra} [{smi}]")
-    return {"name": name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": n_launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            **extra}
+    row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+           "replaces": KERNELS[name][1], "launches": n_launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    check(not row.keys() & extra.keys(), f"{name}: extra keys {extra}")
+    return {**row, **extra}
+
+
+class RecordK2Shapes:
+    """Records the (X, Y, Z) brick shapes, with the largest stack of each,
+    that callers send kernel 2 while active: ``ops.lorenzo3d_recon_batched``
+    is wrapped, and the wrapper still launches and counts as before."""
+
+    def __init__(self, ops):
+        self.ops, self.shapes = ops, {}
+
+    def __enter__(self):
+        self.orig = orig = self.ops.lorenzo3d_recon_batched
+
+        def recording(codes, eb):
+            n, *brick = codes.shape
+            self.shapes[tuple(brick)] = max(n, self.shapes.get(tuple(brick), 0))
+            return orig(codes, eb)
+        self.ops.lorenzo3d_recon_batched = recording
+        return self.shapes
+
+    def __exit__(self, *exc):
+        self.ops.lorenzo3d_recon_batched = self.orig
+
+
+def k2_three_pass(torch, ops, build, codes, eb):
+    """A call of kernel 2's three-pass route (the kernel 2 of earlier
+    builds) through its C entry, on ``codes``: returns (call, output)."""
+    scratch = torch.empty_like(codes)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    lib = build.library("lorenzo3d")
+
+    def call():
+        rc = lib.lorenzo3d_recon_batched(
+            ops._ptr(codes), ops._ptr(scratch), ops._ptr(out), *codes.shape,
+            2.0 * eb, ops._stream(codes))
+        check(rc == 0, f"three-pass launch failed with error {rc}")
+    return call, out
+
+
+def check_k2_shapes(torch, ops, ref, build, shapes: dict, eb: float,
+                    label: str, smi: str):
+    """Kernel 2 against its plain version on seeded codes of every recorded
+    brick shape (at its largest stack), timed beside its three-pass route;
+    returns the shapes with their routes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    seen = []
+    for brick, n in sorted(shapes.items()):
+        codes = torch.randint(-2 ** 20, 2 ** 20, (n, *brick), generator=gen,
+                              device="cuda")
+        want = ref.lorenzo3d_recon_batched(codes, eb)
+        check(torch.equal(ops.lorenzo3d_recon_batched(codes, eb), want),
+              f"K2 != plain on {label} brick {brick} x {n}")
+        three, three_out = k2_three_pass(torch, ops, build, codes, eb)
+        three()
+        check(torch.equal(three_out, want), f"three-pass != plain, {brick}")
+        # from CUDA graphs: a small stack's launch is shorter than the
+        # host's cost per call
+        seen.append({
+            "brick": brick, "n": n, "route": ops.recon_route(brick),
+            "graph_ms": graph_ms(
+                lambda: ops.lorenzo3d_recon_batched(codes, eb), 20, torch),
+            "three_pass_graph_ms": graph_ms(three, 20, torch),
+            "bound_ms": bound(12 * codes.numel(), 5 * codes.numel())[0]})
+    print(f"K2 == plain on every brick shape of {label} "
+          f"[{smi}]: {json.dumps(seen)}")
+    return seen
+
+
+class ForceSerialK4:
+    """While active, every ``ops.huffdec`` call walks all its payloads
+    serially (the kernel 4 of earlier builds): a same-call A/B of the read
+    path."""
+
+    def __init__(self, ops):
+        self.ops = ops
+
+    def __enter__(self):
+        self.orig = orig = self.ops.huffdec
+        self.ops.huffdec = lambda *a, **k: orig(*a, serial=True, **k)
+
+    def __exit__(self, *exc):
+        self.ops.huffdec = self.orig
+
+
+def read_turns(torch, ops, fn) -> dict:
+    """Wall seconds of ``fn()`` (ending in a synchronize) in turns:
+    chunked K4, K4's serial walk forced, serial, chunked."""
+    out = {"chunked_s": [], "serial_walk_s": []}
+    for serial in (False, True, True, False):
+        with ForceSerialK4(ops) if serial else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out["serial_walk_s" if serial else "chunked_s"].append(
+                time.perf_counter() - t0)
+    return out
+
+
+def device_profile(torch, fn) -> dict:
+    """One ``fn()`` under ``torch.profiler`` (after a warm-up): wall ms,
+    summed kernel ms (its share of the wall is the device's busy share),
+    the kernel launches and the kernels that take most of the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an operator's own entry also carries the
+    # time of the kernels it launched
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    return {"wall_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
+            "kernel_launches": sum(e.count for e in ev),
+            "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                    for e in ev[:8]]}
+
+
+def k4_stats(ops) -> dict:
+    s = ops.huffdec_stats.tolist()
+    return {"chunks": s[0], "passes": s[1], "serial_payloads": s[2],
+            "decoded_per_pass": s[3:]}
+
+
+def k4_vs_serial(torch, ops, args, label: str, **kw) -> dict:
+    """Kernel 4 (chunked) against its own serial walk forced on every
+    payload; returns the chunked call's sync statistics."""
+    out, err = ops.huffdec(*args, **kw)
+    st = k4_stats(ops)
+    out_s, err_s = ops.huffdec(*args, serial=True)
+    check(torch.equal(out, out_s) and torch.equal(err, err_s),
+          f"K4 chunked != its serial walk on {label} {kw}")
+    return st
 
 
 def lm_consistency(torch, cfg, params, prompts, run) -> float:
@@ -204,41 +360,19 @@ def lm_consistency(torch, cfg, params, prompts, run) -> float:
 
 
 def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
-    """``torch.profiler`` over one prefill and over three decode steps:
-    wall time, summed kernel time (its share of the wall is the device's
-    busy share) and the kernels that take most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {"card": smi}
+    """``torch.profiler`` over one prefill and over three decode steps
+    (see :func:`device_profile`)."""
     logits, state = eng.prefill(params, prompts, LM_PROMPT + 3)
     tok = torch.argmax(logits, dim=-1)
-    for name, steps in (("prefill", None), ("decode_3_steps", 3)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if steps is None:
-                eng.prefill(params, prompts, LM_PROMPT)
-            else:
-                for i in range(steps):
-                    logits, state = eng.decode(params, state, tok,
-                                               LM_PROMPT + i)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only: an operator's own entry also carries
-        # the time of the kernels it launched
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-        ev.sort(key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in ev) / 1e3
-        out[name] = {"wall_ms": wall, "kernel_ms": busy,
-                     "busy_share": busy / wall if wall else None,
-                     "kernel_launches": sum(e.count for e in ev),
-                     "top": [(e.key[:60], e.self_device_time_total / 1e3,
-                              e.count) for e in ev[:8]]}
-    return out
+
+    def decode_3_steps():
+        st = state
+        for i in range(3):
+            _, st = eng.decode(params, st, tok, LM_PROMPT + i)
+    return {"card": smi,
+            "prefill": device_profile(
+                torch, lambda: eng.prefill(params, prompts, LM_PROMPT)),
+            "decode_3_steps": device_profile(torch, decode_3_steps)}
 
 
 def lm_serving(torch, smi: str) -> list[dict]:
@@ -502,7 +636,8 @@ def main() -> int:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stages = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            RecordK2Shapes(ops) as k2_shapes2:
         path = os.path.join(tmp, "snap.tacz")
         t0 = time.perf_counter()
         res = hybrid.compress_amr(ds, eb=eb, device="cuda")
@@ -521,6 +656,9 @@ def main() -> int:
         stages["read_roi_s"] = time.perf_counter() - t0
         launches = dict(ops.launches)
         file_bytes = os.path.getsize(path)
+        read_ab = read_turns(torch, ops, lambda: tio.read(path, device="cuda"))
+        read_prof = device_profile(torch,
+                                   lambda: tio.read(path, device="cuda"))
         with tio.TACZReader(path, device="cuda") as rd:
             check(rd.verify(), "container CRCs")
             entry0 = rd.levels[0]
@@ -551,6 +689,10 @@ def main() -> int:
         "compression_ratio_file": raw_bytes / file_bytes,
         "file_bytes": file_bytes, "peak_device_bytes": peak,
         "launches": launches}))
+    print("main path read, K4 chunked vs its serial walk forced (s, in "
+          "turns): " + json.dumps({"card": smi, **read_ab}))
+    print("main path read, device time by kernel: "
+          + json.dumps({"card": smi, **read_prof}))
     for name in ("lorenzo3d_codes_batched", "lorenzo3d_recon_batched",
                  "hist", "huffdec"):
         check(launches[name] > 0,
@@ -589,11 +731,34 @@ def main() -> int:
     recon = ops.lorenzo3d_recon_batched(codes, eb)
     plain_r = ref.lorenzo3d_recon_batched(codes, eb)
     check(torch.equal(recon, plain_r), "K2 != plain")
-    row("lorenzo3d_recon_batched", float((recon - plain_r).abs().max()),
-        cuda_ms(lambda: ops.lorenzo3d_recon_batched(codes, eb), 20, torch),
-        cuda_ms(lambda: ref.lorenzo3d_recon_batched(codes, eb), 5, torch),
-        12 * n_el, 5 * n_el, None)
-    del x, codes, plain, recon, plain_r
+    check(ops.recon_route(shape) == "shared", f"K2 route for {shape}")
+    # the three-pass route (the K2 of earlier builds) on the same stack,
+    # through its C entry, for a same-call comparison
+    three_pass, three = k2_three_pass(torch, ops, build, codes, eb)
+    three_pass()
+    check(torch.equal(three, plain_r), "K2 three-pass route != plain")
+    k2_ms = cuda_ms(lambda: ops.lorenzo3d_recon_batched(codes, eb), 20, torch)
+    k2_three_ms = cuda_ms(three_pass, 20, torch)
+    k2_ms_2 = cuda_ms(lambda: ops.lorenzo3d_recon_batched(codes, eb), 20, torch)
+    k2_three_ms_2 = cuda_ms(three_pass, 20, torch)
+    rows.append(kernel_row(
+        "lorenzo3d_recon_batched", float((recon - plain_r).abs().max()),
+        k2_ms, cuda_ms(lambda: ref.lorenzo3d_recon_batched(codes, eb), 5,
+                       torch),
+        12 * n_el, 5 * n_el, None, launches["lorenzo3d_recon_batched"], smi,
+        brick_route="shared", ms_turns=[k2_ms, k2_ms_2],
+        three_pass_ms_turns=[k2_three_ms, k2_three_ms_2]))
+    del x, codes, plain, recon, plain_r, three
+    k2_seen = check_k2_shapes(torch, ops, ref, build, k2_shapes2, eb,
+                              "the TAC+ main path", smi)
+    big = torch.randint(-2 ** 20, 2 ** 20, K2_THREE_PASS_SHAPE, device=dev)
+    check(ops.recon_route(K2_THREE_PASS_SHAPE[1:]) == "three_pass",
+          f"{K2_THREE_PASS_SHAPE} should take the three-pass route")
+    check(torch.equal(ops.lorenzo3d_recon_batched(big, eb),
+                      ref.lorenzo3d_recon_batched(big, eb)),
+          f"K2 != plain on the three-pass shape {K2_THREE_PASS_SHAPE}")
+    print(f"K2 == plain on the three-pass shape {K2_THREE_PASS_SHAPE}")
+    del big
 
     # K3 on the finest level's pooled codes
     pooled = torch.cat([r.codes for r in res.levels[0].artifacts.results])
@@ -612,11 +777,41 @@ def main() -> int:
     print(f"K3 input: {pooled.numel()} codes, span {span}")
     del pooled, shifted, counts
 
+    # K4 on every payload of the finest level: the chunked decode settles
+    # every payload with no serial walk, and equals its own serial walk
+    # and the codes the compressor encoded; then with a truncated copy of
+    # the first payload added, which the serial walk must take
+    eng = TorchEngine(dev)
+    args = eng.huffdec_args(codebook0, payloads0)
+    n_out = args[5]
+    out_k, err_k = ops.huffdec(*args)
+    k4_level = k4_stats(ops)
+    check(k4_level["serial_payloads"] == 0 and not bool(err_k.any()),
+          f"K4 on the finest level: {k4_level}")
+    check(torch.equal(out_k, torch.cat(
+        [r.codes.reshape(-1) for r in res.levels[0].artifacts.results])),
+        "K4 != the compress-time codes of the finest level")
+    t0 = time.perf_counter()
+    out_s, err_s = ops.huffdec(*args, serial=True)
+    torch.cuda.synchronize()
+    k4_serial_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(out_k, out_s) and torch.equal(err_k, err_s),
+          "K4 chunked != its serial walk on the finest level")
+    del out_s, err_s
+    trunc_set = payloads0 + [(payloads0[0][0], payloads0[0][1] // 2,
+                              payloads0[0][2])]
+    targs = eng.huffdec_args(codebook0, trunc_set)
+    st = k4_vs_serial(torch, ops, targs, "the level + a truncated copy")
+    check(st["serial_payloads"] == 1, f"K4 truncated copy: {st}")
+    print(f"K4 == serial walk == compress-time codes on all "
+          f"{len(payloads0)} payloads of the finest level: "
+          f"{json.dumps(k4_level)}; with a truncated copy: {json.dumps(st)}")
+    del targs, out_k, err_k
+
     # K4 against its plain version on the finest level's payloads of at
     # most PLAIN_K4_MAX_SYMBOLS symbols plus a truncated copy of the longest
     # of them (the plain lockstep decoder runs one step per symbol of the
-    # longest payload); the whole level is checked by phase 2's read
-    eng = TorchEngine(dev)
+    # longest payload)
     short = [p for p in payloads0 if p[2] <= PLAIN_K4_MAX_SYMBOLS]
     trunc = max(short, key=lambda p: p[2])
     short = short + [(trunc[0], trunc[1] // 2, trunc[2])]
@@ -632,31 +827,58 @@ def main() -> int:
           "K4 error kinds on the level's payloads")
     print(f"K4 plain check: {len(short)} payloads, {sargs[5]} symbols, "
           f"max {trunc[2]} per payload, plain {plain_ms:.1f} ms")
-    # ... and an incomplete codebook with valid, corrupt and truncated ones
-    from repro_torch.core import huffman
-    cb_gap = huffman._canonicalize(np.array([5, -3], np.int64),
-                                   np.array([1, 2], np.int64))  # 0, 10; 11 free
-    gap = [(np.packbits([0, 1, 0, 0, 1, 0]), 6, 4),
-           (np.packbits([0, 1, 1, 0, 0, 0]), 6, 3),
-           (np.packbits([0, 1]), 2, 2)]
-    gargs = eng.huffdec_args(cb_gap, gap)
-    gk, ek = ops.huffdec(*gargs)
-    gp, ep = ref.huffdec(*gargs)
-    check(torch.equal(gk, gp) and torch.equal(ek, ep), "K4 != plain (gap)")
-    check(ek.tolist() == [0, 2, 1], f"K4 gap error kinds {ek.tolist()}")
-    # K4 timed on the whole level's payloads plus a truncated one
-    payloads = payloads0 + [(payloads0[0][0], payloads0[0][1] // 2,
-                             payloads0[0][2])]
-    args = eng.huffdec_args(codebook0, payloads)
-    n_out = args[5]
-    walked_bits = sum(min(nb, 8 * len(b)) for b, nb, _ in payloads)
-    row("huffdec", 0, cuda_ms(lambda: ops.huffdec(*args), 3, torch), plain_ms,
-        int(args[0].numel()) + 8 * n_out + 36 * len(payloads),
-        walked_bits * 4, None)
-    print(f"K4 input: {len(payloads)} payloads, {n_out} symbols, "
-          f"max {max(p[2] for p in payloads)} per payload")
+    # ... and the seeded adversarial cases, at every chunk size
+    from repro_torch.kernels import huffdec_cases
+    adv = {}
+    for cbits in K4_CHUNK_BITS:
+        for name, cb, pays in huffdec_cases.cases(cbits, seed=cbits):
+            cargs = eng.huffdec_args(cb, pays)
+            ok, er = ops.huffdec(*cargs, chunk_bits=cbits)
+            st = k4_stats(ops)
+            op, ep = ref.huffdec(*cargs)
+            check(torch.equal(ok, op) and torch.equal(er, ep),
+                  f"K4 != plain on the adversarial case {name} at "
+                  f"chunk_bits={cbits}")
+            k4_vs_serial(torch, ops, cargs, name, chunk_bits=cbits)
+            adv[f"{name}@{cbits}"] = {**st, "err": er.tolist()}
+    for cbits in K4_CHUNK_BITS:
+        check(adv[f"fixed_length_never_syncs@{cbits}"]["serial_payloads"]
+              == 1, "K4: the fixed-length case must take the serial walk")
+        check(adv[f"gap_past_first_chunk@{cbits}"]["err"] == [2, 0, 1, 0],
+              "K4 error kinds on the gap case")
+        check(adv[f"truncated_at_chunk_boundary@{cbits}"]["err"]
+              == [1, 1, 0, 0], "K4 error kinds on the truncation case")
+    print("K4 == plain == serial walk on the adversarial cases: "
+          + json.dumps(adv))
+    # K4 timed on the whole level, chunk sizes in turns (up, then down),
+    # from CUDA graphs: the chunk size moves device work only
+    ab = {c: [] for c in K4_CHUNK_BITS}
+    for cbits in K4_CHUNK_BITS + K4_CHUNK_BITS[::-1]:
+        ab[cbits].append(graph_ms(
+            lambda: ops.huffdec(*args, chunk_bits=cbits), 5, torch))
+    ab_stats = {}
+    for cbits in K4_CHUNK_BITS:
+        ab_stats[cbits] = k4_vs_serial(torch, ops, args, "the finest level",
+                                       chunk_bits=cbits)
+    print("K4 chunk-size A/B on the finest level (graph ms, in turns): "
+          + json.dumps({"card": smi, "ms": ab, "stats": ab_stats}))
+    print("K4 on the finest level, device time by kernel: " + json.dumps(
+        {"card": smi, **device_profile(torch, lambda: ops.huffdec(*args))}))
+    walked_bits = sum(min(nb, 8 * len(b)) for b, nb, _ in payloads0)
+    k4_ms = cuda_ms(lambda: ops.huffdec(*args), 10, torch)
+    k4_row = kernel_row(
+        "huffdec", 0, k4_ms, plain_ms,
+        int(args[0].numel()) + 8 * n_out + 36 * len(payloads0),
+        walked_bits * 4, None, launches["huffdec"], smi,
+        graph_ms=graph_ms(lambda: ops.huffdec(*args), 10, torch),
+        chunk_bits=ops.HUFF_CHUNK_BITS, serial_walk_ms=k4_serial_ms,
+        sync=k4_level)
+    rows.append(k4_row)
+    print(f"K4 input: {len(payloads0)} payloads, {n_out} symbols, "
+          f"max {max(p[2] for p in payloads0)} per payload")
+    del out_k, err_k, out_p, err_p
 
-    del payloads0, payloads, args, sargs, res, levels, roi
+    del payloads0, args, sargs, res, levels, roi
 
     # ---------------------------------------------------------- 4. TAC path
     t0 = time.perf_counter()
@@ -672,7 +894,8 @@ def main() -> int:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     tac = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            RecordK2Shapes(ops) as k2_shapes4:
         for alg in TAC_ALGORITHMS:
             st = {}
             t0 = time.perf_counter()
@@ -698,6 +921,7 @@ def main() -> int:
                   f"{alg}: coarse level took "
                   f"{res4.levels[coarse_li].strategy}, not gsp")
             recon_c = res4.levels[coarse_li].recon
+            codes_c = res4.levels[coarse_li].artifacts.results[0].codes
             path = os.path.join(tmp, f"{alg}.tacz")
             t0 = time.perf_counter()
             with tio.TACZWriter(path, eb=eb4, algorithm=alg, she=False,
@@ -719,28 +943,72 @@ def main() -> int:
                 check(rd.verify(), f"{alg}: container CRCs")
             st["compression_ratio_bits"] = res4.compression_ratio()
             st["coarse_file_bytes"] = os.path.getsize(path)
-            tac[alg] = (st, path)
-            del res4, recon_c, got, crop
+            tac[alg] = (st, path, codes_c.reshape(-1))
+            del res4, recon_c, got, crop, codes_c
         launches4 = dict(ops.launches)
         peak4 = torch.cuda.max_memory_allocated()
-        for alg, (st, path) in tac.items():
-            # K4 on the level's one GSP payload (after the counts were read)
+        for alg, (st, path, codes_c) in tac.items():
+            # K4 on the level's one GSP payload (after the counts were read):
+            # equal to its serial walk and to the compress-time codes, with
+            # no serial payload; timed at each chunk size in turns
             with tio.TACZReader(path, device="cuda") as rd:
                 sb = rd.levels[0].subblocks[0]
                 code_bytes, _ = rd._payload_parts(0, sb, rd.subblock_shape(0, 0))
                 gargs = eng.huffdec_args(rd._codebook(0),
                                          [(code_bytes, sb.nbits, sb.n_codes)])
-            st["k4_gsp_payload_ms"] = cuda_ms(lambda: ops.huffdec(*gargs), 2,
+            gout, gerr = ops.huffdec(*gargs)
+            st["k4_gsp_sync"] = k4_stats(ops)
+            check(st["k4_gsp_sync"]["serial_payloads"] == 0
+                  and not bool(gerr.any()), f"{alg}: K4 on the GSP payload "
+                                            f"{st['k4_gsp_sync']}")
+            check(torch.equal(gout, codes_c),
+                  f"{alg}: K4 != the compress-time codes of the GSP level")
+            t0 = time.perf_counter()
+            sout, serr = ops.huffdec(*gargs, serial=True)
+            torch.cuda.synchronize()
+            st["k4_gsp_serial_walk_ms"] = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(gout, sout) and torch.equal(gerr, serr),
+                  f"{alg}: K4 chunked != its serial walk on the GSP payload")
+            ab = {c: [] for c in K4_CHUNK_BITS}
+            for cbits in K4_CHUNK_BITS + K4_CHUNK_BITS[::-1]:
+                ab[cbits].append(graph_ms(
+                    lambda: ops.huffdec(*gargs, chunk_bits=cbits), 10, torch))
+            st["k4_gsp_chunk_ab_graph_ms"] = ab
+            st["k4_gsp_payload_ms"] = cuda_ms(lambda: ops.huffdec(*gargs), 20,
                                               torch)
+            st["k4_gsp_payload_graph_ms"] = graph_ms(
+                lambda: ops.huffdec(*gargs), 20, torch)
             st["gsp_payload_symbols"] = sb.n_codes
+            st["gsp_payload_bytes"] = int(gargs[0].numel())
+            if alg == TAC_ALGORITHMS[0]:
+                st["k4_gsp_profile"] = device_profile(
+                    torch, lambda: ops.huffdec(*gargs))
+                st["read_turns"] = read_turns(
+                    torch, ops, lambda: tio.read(path, device="cuda"))
             print(f"TAC {alg}: " + json.dumps({"card": smi, **{
                 k: (round(v, 4) if isinstance(v, float) else v)
                 for k, v in st.items()}}))
+            del gout, gerr, sout, serr, codes_c
     print("TAC path: " + json.dumps({"peak_device_bytes": peak4,
                                      "launches": launches4}))
     for name in ("lorenzo3d_codes", "lorenzo3d_recon"):
         check(launches4[name] > 0,
               f"kernel {name} never launched on the TAC path")
+    k2_seen += check_k2_shapes(torch, ops, ref, build, k2_shapes4, eb4,
+                               "the TAC path", smi)
+    check(all(s["route"] != "three_pass" for s in k2_seen),
+          f"a main-path brick shape takes the three-pass route: {k2_seen}")
+    # K4's row carries the GSP payload as its second shape
+    g = tac["lorenzo"][0]
+    g_bytes, g_syms = g["gsp_payload_bytes"], g["gsp_payload_symbols"]
+    k4_row.update(
+        gsp_payload_ms=g["k4_gsp_payload_ms"],
+        gsp_payload_graph_ms=g["k4_gsp_payload_graph_ms"],
+        gsp_payload_bound_ms=bound(g_bytes + 8 * g_syms + 36,
+                                   4 * 8 * g_bytes)[0],
+        gsp_payload_serial_walk_ms=g["k4_gsp_serial_walk_ms"],
+        gsp_payload_symbols=g_syms, gsp_sync=g["k4_gsp_sync"],
+        gsp_launches=launches4["huffdec"])
 
     # K5/K6 against their plain versions on the grid the TAC path gives
     # them: the GSP-padded coarse level, at the path's tile = shape

@@ -37,12 +37,19 @@ SIGNATURES = {
     ("lorenzo3d", "lorenzo3d_codes_batched"): (_P, _P, _L, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_recon_batched"):
         (_P, _P, _P, _L, _I, _I, _I, _D, _P),
+    ("lorenzo3d", "lorenzo3d_recon_bricks"):
+        (_P, _P, _P, _L, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_codes"): (_P, _P, _I, _I, _I, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_recon"):
         (_P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P),
     ("hist", "hist_codes"): (_P, _L, _L, _I, _P, _I, _P),
-    ("huffdec", "huffdec_payloads"):
-        (_P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P),
+    ("huffdec", "huffdec_sync_passes"): (),
+    ("huffdec", "huffdec_sync"):
+        (_P, _L, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _L, _I, _P,
+         _P, _P, _P, _P, _P),
+    ("huffdec", "huffdec_finish"):
+        (_P, _L, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _L,
+         _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     ("qdq", "group_quant_f32"): (_P, _P, _P, _L, _I, _P),
     ("qdq", "group_quant_bf16"): (_P, _P, _P, _L, _I, _P),
     ("qdq", "group_dequant_f32"): (_P, _P, _P, _L, _I, _I, _P),

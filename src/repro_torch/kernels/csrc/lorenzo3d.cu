@@ -7,7 +7,6 @@
 //                                                      tile = brick (K1, K2)
 //   lorenzo3d_codes / lorenzo3d_recon                  one (X, Y, Z) array,
 //                                                      any tile (K5, K6)
-// Both pairs run the same kernels; the batched pair passes tile = brick.
 // The arithmetic is the reference's float64 host path, not the Pallas
 // bodies' float32: q = rint(float64(x) / (2 eb)) (IEEE division, round
 // half to even), int64 codes, and dequant float32(float64(q) * 2 eb).
@@ -17,12 +16,27 @@
 // Bound: bytes.  Codes read 4 B and write 8 B per element; recon reads
 // 8 B and writes 4 B per element.  Codes use one thread per element and
 // evaluate the 8-corner stencil from the float input (the neighbours sit
-// in L1/L2), so the int64 prequant grid is never stored.  Recon runs
-// three sequential scans, one thread per line, restarting at tile edges:
-// X and Y scans are coalesced across the Z index, the last scan (Z, fused
-// with the dequant) walks contiguous lines one per thread and is not
-// coalesced.  The scans move about 44 B per element against the bound's
-// 12.
+// in L1/L2), so the int64 prequant grid is never stored.
+//
+// Recon of a brick stack (K2, lorenzo3d_recon_bricks): one block holds one
+// brick, or several small ones, in shared memory as int64 with each Z line
+// padded by one element, so that the X, Y and Z scans (one thread per
+// line) are free of bank conflicts.  The block loads its bricks with
+// coalesced 16-byte loads, runs the three inclusive scans in shared
+// memory and stores the dequantized float32 values coalesced: 12 B of
+// device traffic per element, the bound's.  A brick past one block's
+// 227 KB (kSmemBudget), 32^3 and up, takes two launches: blocks of X
+// planes run the Y and Z scans in shared memory and store int64 partial
+// sums, then one thread per line runs the X scan through them, coalesced,
+// fused with the dequant (28 B per element, but a few large bricks still
+// spread over every SM).  ops.recon_route decides from the shape alone:
+// "shared" (whole bricks), "planes", or "three_pass" when one padded
+// (Y, Z) plane exceeds the budget (no main-path brick does).
+//
+// The three-pass route (recon_launch; also K6, whole-array tiles): three
+// sequential scans through device memory, one thread per line, restarting
+// at tile edges, the last (Z, fused with the dequant) walking contiguous
+// lines one per thread, uncoalesced: about 44 B per element.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,6 +125,167 @@ __global__ void scan_z_dequant_kernel(const long long* __restrict__ in,
   }
 }
 
+// Bytes of shared memory one block may use (H100: 227 KB).
+constexpr int kSmemBudget = 232448;
+constexpr int kBrickThreads = 256;
+// Shared memory a plane block aims at: three to an SM.
+constexpr int kPlaneTarget = 64 * 1024;
+// Dynamic shared memory a kernel gets without cudaFuncSetAttribute.
+constexpr int kSmemDefault = 48 * 1024;
+// Loads in flight per thread while a tile is read into shared memory.
+constexpr int kUnroll = 4;
+
+// Shared slot of element e of a tile of Z-long lines, each padded by one
+// int64: the Z scan's threads, Z + 1 words apart, fall on distinct banks.
+__device__ __forceinline__ int padded(int e, int Z) {
+  const int line = e / Z;
+  return line * (Z + 1) + (e - line * Z);
+}
+
+// `total` int64 codes from device memory into padded shared lines, with
+// kUnroll coalesced loads in flight per thread (two codes a load when
+// kVec: Z even and 16-byte aligned).
+template <bool kVec>
+__device__ void load_tile(const long long* __restrict__ src, int total, int Z,
+                          long long* __restrict__ s) {
+  if (kVec) {
+    const longlong2* v2 = reinterpret_cast<const longlong2*>(src);
+    const int nv = total / 2;
+    for (int h0 = threadIdx.x; h0 < nv; h0 += kUnroll * blockDim.x) {
+      longlong2 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int h = h0 + u * blockDim.x;
+        if (h < nv) v[u] = v2[h];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int h = h0 + u * blockDim.x;
+        if (h < nv) {
+          const int at = padded(2 * h, Z);
+          s[at] = v[u].x;
+          s[at + 1] = v[u].y;
+        }
+      }
+    }
+  } else {
+    for (int e0 = threadIdx.x; e0 < total; e0 += kUnroll * blockDim.x) {
+      long long v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e < total) v[u] = src[e];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e < total) s[padded(e, Z)] = v[u];
+      }
+    }
+  }
+}
+
+// The dequantized tile, float32(float64(q) * 2eb), stored coalesced.
+__device__ void store_tile(float* __restrict__ dst, int total, int Z,
+                           const long long* __restrict__ s, double two_eb) {
+  for (int e = threadIdx.x; e < total; e += blockDim.x)
+    dst[e] = (float)((double)s[padded(e, Z)] * two_eb);
+}
+
+// Inclusive scans of `n_lines` lines of `len` steps `stride` apart; line t
+// starts at first(t).
+template <class F>
+__device__ __forceinline__ void scan_lines(long long* s, int n_lines, int len,
+                                           int stride, F first) {
+  for (int t = threadIdx.x; t < n_lines; t += blockDim.x) {
+    long long* q = s + first(t);
+    long long acc = 0;
+    for (int m = 0; m < len; ++m) {
+      acc += q[m * stride];
+      q[m * stride] = acc;
+    }
+  }
+}
+
+// K2: `per_block` whole bricks of one (X, Y, Z) stack per block.
+template <bool kVec>
+__global__ void __launch_bounds__(kBrickThreads)
+recon_bricks_kernel(const long long* __restrict__ codes,
+                    float* __restrict__ out, long long n, int X, int Y, int Z,
+                    int per_block, double two_eb) {
+  extern __shared__ long long s_brick[];
+  const int zp = Z + 1, yz = Y * Z, xz = X * Z, vol_p = X * Y * zp;
+  const long long b0 = (long long)blockIdx.x * per_block;
+  const int nb = (int)(n - b0 < per_block ? n - b0 : per_block);
+  const long long base = b0 * X * yz;
+  const int total = nb * X * yz;
+  load_tile<kVec>(codes + base, total, Z, s_brick);
+  __syncthreads();
+  // X: lines (brick, j, k), stride Y * zp
+  scan_lines(s_brick, nb * yz, X, Y * zp, [&](int t) {
+    const int bk = t / yz, r = t - bk * yz, j = r / Z;
+    return bk * vol_p + j * zp + (r - j * Z);
+  });
+  __syncthreads();
+  // Y: lines (brick, i, k), stride zp
+  scan_lines(s_brick, nb * xz, Y, zp, [&](int t) {
+    const int bk = t / xz, r = t - bk * xz, i = r / Z;
+    return bk * vol_p + i * Y * zp + (r - i * Z);
+  });
+  __syncthreads();
+  // Z: lines (brick, i, j), contiguous
+  scan_lines(s_brick, nb * X * Y, Z, 1, [&](int t) { return t * zp; });
+  __syncthreads();
+  store_tile(out + base, total, Z, s_brick, two_eb);
+}
+
+// K2 for bricks past one block's shared memory (32^3 and up), in two
+// launches.  Blocks of `px` X planes run the Y and Z scans in shared
+// memory and store the int64 partial sums; then one thread per (brick, j,
+// k) line runs the X scan through them, coalesced across k, fused with the
+// dequant (the scans commute: int64 sums are exact).  28 B of device
+// traffic per element instead of 12, but a stack of a few large bricks
+// still spreads over every SM.
+template <bool kVec>
+__global__ void __launch_bounds__(kBrickThreads)
+planes_yz_kernel(const long long* __restrict__ codes,
+                 long long* __restrict__ partial, int X, int Y, int Z,
+                 int px, int groups) {
+  extern __shared__ long long s_pl[];
+  const int zp = Z + 1, yz = Y * Z, plane_p = Y * zp;
+  const long long brick = blockIdx.x / groups;
+  const int x0 = (int)(blockIdx.x - brick * groups) * px;
+  const int nx = X - x0 < px ? X - x0 : px;
+  const long long sb = (brick * X + x0) * yz;
+  load_tile<kVec>(codes + sb, nx * yz, Z, s_pl);
+  __syncthreads();
+  // Y: lines (plane, k), stride zp
+  scan_lines(s_pl, nx * Z, Y, zp, [&](int t) {
+    const int pl = t / Z;
+    return pl * plane_p + (t - pl * Z);
+  });
+  __syncthreads();
+  // Z: lines (plane, j), contiguous
+  scan_lines(s_pl, nx * Y, Z, 1, [&](int t) { return t * zp; });
+  __syncthreads();
+  for (int e = threadIdx.x; e < nx * yz; e += blockDim.x)
+    partial[sb + e] = s_pl[padded(e, Z)];
+}
+
+__global__ void scan_x_dequant_kernel(const long long* __restrict__ partial,
+                                      float* __restrict__ out,
+                                      long long n_lines, int X, long long yz,
+                                      double two_eb) {
+  const long long line = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (line >= n_lines) return;
+  const long long base = (line / yz) * X * yz + line % yz;
+  long long acc = 0;
+  for (int i = 0; i < X; ++i) {
+    acc += partial[base + i * yz];
+    out[base + i * yz] = (float)((double)acc * two_eb);
+  }
+}
+
 inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -155,6 +330,15 @@ int recon_launch(const long long* codes, long long* scratch, float* out,
   return (int)cudaGetLastError();
 }
 
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where that is
+// past the default.
+template <class K>
+int allow_smem(K kernel, int smem) {
+  if (smem <= kSmemDefault) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
 }  // namespace
 
 extern "C" int lorenzo3d_codes_batched(const float* x, long long* codes,
@@ -169,6 +353,62 @@ extern "C" int lorenzo3d_recon_batched(const long long* codes,
                                        double two_eb, cudaStream_t stream) {
   return recon_launch(codes, scratch, out, n, X, Y, Z, X, Y, Z, two_eb,
                       stream);
+}
+
+// K2 on shared memory: whole bricks, per_block of them (up to 4,096
+// elements) a block, when one brick fits; else X planes in shared memory
+// and an X scan through `scratch` (int64, the shape of `codes`), when one
+// plane fits.  cudaErrorInvalidValue for larger planes (ops.recon_route
+// sends those to the three-pass entry).
+extern "C" int lorenzo3d_recon_bricks(const long long* codes,
+                                      long long* scratch, float* out,
+                                      long long n, int X, int Y, int Z,
+                                      double two_eb, cudaStream_t stream) {
+  const long long vol = (long long)X * Y * Z;
+  if (n == 0 || vol == 0) return 0;
+  const long long plane_smem = (long long)Y * (Z + 1) * 8;
+  if (plane_smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+  const bool vec = Z % 2 == 0 && ((uintptr_t)codes & 15) == 0;
+  int rc;
+  if (X * plane_smem <= kSmemBudget) {
+    long long per_block = 4096 / vol;
+    if (per_block < 1) per_block = 1;
+    if (per_block > n) per_block = n;
+    while (per_block > 1 && per_block * X * plane_smem > kSmemBudget)
+      --per_block;
+    const int smem = (int)(per_block * X * plane_smem);
+    const unsigned grid = (unsigned)((n + per_block - 1) / per_block);
+    rc = vec ? allow_smem(recon_bricks_kernel<true>, smem)
+             : allow_smem(recon_bricks_kernel<false>, smem);
+    if (rc) return rc;
+    if (vec)
+      recon_bricks_kernel<true><<<grid, kBrickThreads, smem, stream>>>(
+          codes, out, n, X, Y, Z, (int)per_block, two_eb);
+    else
+      recon_bricks_kernel<false><<<grid, kBrickThreads, smem, stream>>>(
+          codes, out, n, X, Y, Z, (int)per_block, two_eb);
+    return (int)cudaGetLastError();
+  }
+  long long px = kPlaneTarget / plane_smem;
+  if (px < 1) px = 1;
+  const int groups = (int)((X + px - 1) / px);
+  const int smem = (int)(px * plane_smem);
+  rc = vec ? allow_smem(planes_yz_kernel<true>, smem)
+           : allow_smem(planes_yz_kernel<false>, smem);
+  if (rc) return rc;
+  const unsigned grid = (unsigned)(n * groups);
+  if (vec)
+    planes_yz_kernel<true><<<grid, kBrickThreads, smem, stream>>>(
+        codes, scratch, X, Y, Z, (int)px, groups);
+  else
+    planes_yz_kernel<false><<<grid, kBrickThreads, smem, stream>>>(
+        codes, scratch, X, Y, Z, (int)px, groups);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const long long yz = (long long)Y * Z, lines = n * yz;
+  scan_x_dequant_kernel<<<blocks_for(lines, 256), 256, 0, stream>>>(
+      scratch, out, lines, X, yz, two_eb);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int lorenzo3d_codes(const float* x, long long* codes, int X, int Y,

@@ -8,6 +8,11 @@ Each wrapper checks dtype, shape and contiguity, then:
 * for any other device, raises.
 
 There is no fallback: a CUDA tensor reaches its kernel or an exception.
+Two kernels choose a route from what the host already knows: the brick
+recon (kernel 2) from the brick's shape (:func:`recon_route`), the
+Huffman decode (kernel 4) by a chunk plan of the payloads' bits
+(:func:`huffdec_plan`) that leaves payloads it cannot settle to the
+kernel's own serial walk.
 
 ========================  =======================================  ===========================
 wrapper                   TPU kernel it replaces                   source
@@ -31,13 +36,27 @@ import torch
 from . import build, ref
 
 __all__ = ["launches", "reset_launches", "lorenzo3d_codes_batched",
-           "lorenzo3d_recon_batched", "lorenzo3d_codes", "lorenzo3d_recon",
-           "hist", "huffdec", "group_quant", "group_dequant"]
+           "lorenzo3d_recon_batched", "recon_route", "lorenzo3d_codes",
+           "lorenzo3d_recon", "hist", "huffdec", "huffdec_plan",
+           "HUFF_CHUNK_BITS", "huffdec_stats", "group_quant",
+           "group_dequant"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lorenzo3d_codes_batched": 0, "lorenzo3d_recon_batched": 0,
             "lorenzo3d_codes": 0, "lorenzo3d_recon": 0, "hist": 0,
             "huffdec": 0, "group_quant": 0, "group_dequant": 0}
+
+
+#: Shared memory one block of the brick recon may use (H100: 227 KB).
+RECON_SMEM_BUDGET = 232448
+
+#: Bits per chunk of the parallel Huffman decode (kernel 4).
+HUFF_CHUNK_BITS = 64
+
+#: Device int32 tensor of the last CUDA :func:`huffdec` call: [chunks,
+#: sync passes run, payloads walked serially, chunks decoded in each pass].
+#: Only :func:`huffdec` writes it; reading it synchronises.
+huffdec_stats: torch.Tensor | None = None
 
 
 def reset_launches() -> None:
@@ -68,8 +87,8 @@ def _require(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: input must be contiguous")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -98,19 +117,37 @@ def lorenzo3d_codes_batched(x: torch.Tensor, eb: float) -> torch.Tensor:
     return out
 
 
+def recon_route(shape: tuple[int, int, int]) -> str:
+    """Kernel 2's route for an (X, Y, Z) brick, from the shape alone:
+    ``"shared"`` when the brick's int64 image, each Z line padded by one
+    element, fits one block's shared memory; ``"planes"`` (Y and Z scans
+    on X planes in shared memory, then the X scan) when one padded (Y, Z)
+    plane does; ``"three_pass"`` (three scans through device memory)
+    otherwise."""
+    x, y, z = (int(v) for v in shape)
+    if 8 * x * y * (z + 1) <= RECON_SMEM_BUDGET:
+        return "shared"
+    return "planes" if 8 * y * (z + 1) <= RECON_SMEM_BUDGET else "three_pass"
+
+
 def lorenzo3d_recon_batched(codes: torch.Tensor, eb: float) -> torch.Tensor:
-    """(N,X,Y,Z) int64 codes → float32 recon (kernel 2)."""
+    """(N,X,Y,Z) int64 codes → float32 recon (kernel 2), routed by
+    :func:`recon_route`."""
     name = "lorenzo3d_recon_batched"
     _require(name, codes, torch.int64, 4)
     if not _on_cuda(name, codes):
         return ref.lorenzo3d_recon_batched(codes, eb)
-    scratch = torch.empty_like(codes)
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
     n, X, Y, Z = codes.shape
+    route = recon_route((X, Y, Z))
+    # int64 partial sums, which the whole-brick route does not use
+    scratch = None if route == "shared" else torch.empty_like(codes)
+    lib = build.library("lorenzo3d")
+    entry = lib.lorenzo3d_recon_batched if route == "three_pass" else \
+        lib.lorenzo3d_recon_bricks
     with torch.cuda.device(codes.device):
-        rc = build.library("lorenzo3d").lorenzo3d_recon_batched(
-            _ptr(codes), _ptr(scratch), _ptr(out), n, X, Y, Z, 2.0 * eb,
-            _stream(codes))
+        rc = entry(_ptr(codes), _ptr(scratch), _ptr(out), n, X, Y, Z,
+                   2.0 * eb, _stream(codes))
     _launched(name, rc)
     return out
 
@@ -172,17 +209,51 @@ def hist(codes: torch.Tensor, lo: int, n_bins: int) -> torch.Tensor:
     return counts
 
 
+def huffdec_plan(nbits: torch.Tensor, n_bytes: int, chunk_bits: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cut every payload into chunks of ``chunk_bits`` bits from its first
+    bit, numbered in one flat index over the batch.
+
+    Returns ``(pay_first (A+1,), chunk_pay (cap,), chunk_bit (cap,))``:
+    payload ``a`` owns chunks ``pay_first[a]:pay_first[a+1]``; chunk ``c``
+    belongs to payload ``chunk_pay[c]`` (``A`` for a spare chunk) and starts
+    at its payload's bit ``chunk_bit[c]``.  ``cap = A + ⌈8·n_bytes /
+    chunk_bits⌉`` is known on the host without reading ``nbits``, and
+    holds every chunk of payloads that do not overlap in a buffer of
+    ``n_bytes``; the kernel walks a payload past ``cap`` serially.  Torch
+    ops on ``nbits``'s device, with no host synchronisation.
+    """
+    if chunk_bits < 1:
+        raise ValueError(f"chunk_bits {chunk_bits} must be positive")
+    a_n = nbits.numel()
+    ends = torch.cumsum((nbits.clamp(min=0) + chunk_bits - 1) // chunk_bits, 0)
+    pay_first = torch.cat([ends.new_zeros(1), ends])
+    cap = a_n + -(-8 * int(n_bytes) // chunk_bits)
+    idx = torch.arange(cap, dtype=torch.int64, device=nbits.device)
+    chunk_pay = torch.searchsorted(ends, idx, right=True)
+    return pay_first, chunk_pay, (idx - pay_first[chunk_pay]) * chunk_bits
+
+
 def huffdec(data: torch.Tensor, byte_off: torch.Tensor, nbits: torch.Tensor,
             n_decode: torch.Tensor, out_off: torch.Tensor, n_out: int,
             symbols: torch.Tensor, first_code: torch.Tensor,
             first_index: torch.Tensor, count: torch.Tensor, maxlen: int,
+            *, chunk_bits: int | None = None, serial: bool = False,
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decode every payload of a level in one launch (kernel 4).
+    """Decode every payload of a level (kernel 4).
 
     See :func:`repro_torch.kernels.ref.huffdec` for the arguments.  The
     tables (``first_code``/``first_index``/``count``) hold at least
     ``maxlen + 1`` entries.  Returns ``(out int64 (n_out,), err int32)``.
+
+    On the card the payloads are decoded in chunks of ``chunk_bits``
+    (default :data:`HUFF_CHUNK_BITS`) that synchronise themselves; what
+    that cannot settle, the kernel walks serially, and ``serial=True``
+    walks every payload so.  Either way the result is the plain
+    version's; :data:`huffdec_stats` counts the chunks, the sync passes
+    and the serially walked payloads.  Nothing here waits for the card.
     """
+    global huffdec_stats
     name = "huffdec"
     _require(name, data, torch.uint8, 1)
     for t in (byte_off, nbits, n_decode, out_off, symbols, first_code,
@@ -196,6 +267,7 @@ def huffdec(data: torch.Tensor, byte_off: torch.Tensor, nbits: torch.Tensor,
     a_n = byte_off.numel()
     if not (nbits.numel() == n_decode.numel() == out_off.numel() == a_n):
         raise ValueError(f"{name}: per-payload arrays differ in length")
+    chunk = HUFF_CHUNK_BITS if chunk_bits is None else int(chunk_bits)
     args = (data, byte_off, nbits, n_decode, out_off, symbols, first_code,
             first_index, count)
     if not _on_cuda(name, *args):
@@ -204,13 +276,40 @@ def huffdec(data: torch.Tensor, byte_off: torch.Tensor, nbits: torch.Tensor,
     dev = data.device
     out = torch.zeros(n_out, dtype=torch.int64, device=dev)
     err = torch.zeros(a_n, dtype=torch.int32, device=dev)
+    if a_n == 0:
+        return out, err
+    lib = build.library("huffdec")
+    pay_first, chunk_pay, chunk_bit = huffdec_plan(nbits, data.numel(), chunk)
+    cap = chunk_pay.numel()
+    # zeroed: per-payload flags, then the stats; the chunk state is written
+    # before it is read (counts of chunks without a payload stay unread)
+    small = torch.zeros(a_n + 4 + lib.huffdec_sync_passes(),
+                        dtype=torch.int32, device=dev)
+    flag, stats = small[:a_n], small[a_n:]
+    walk_all = bool(serial) or symbols.numel() < 2
+    lut = torch.empty(2048, dtype=torch.int32, device=dev)
+    state = torch.empty(3 * cap, dtype=torch.int64, device=dev)
+    entry, exits = state[:cap], state[cap:]
+    count_c = torch.empty(cap, dtype=torch.int32, device=dev)
+    common = (_ptr(data), data.numel(), _ptr(byte_off), _ptr(nbits),
+              _ptr(n_decode))
+    book = (_ptr(first_code), _ptr(first_index), _ptr(count), int(maxlen),
+            _ptr(pay_first), _ptr(chunk_pay), _ptr(chunk_bit), cap, chunk,
+            _ptr(lut), _ptr(entry), _ptr(exits), _ptr(count_c))
     with torch.cuda.device(dev):
-        rc = build.library("huffdec").huffdec_payloads(
-            _ptr(data), _ptr(byte_off), _ptr(nbits), _ptr(n_decode),
-            _ptr(out_off), a_n, _ptr(symbols), symbols.numel(),
-            _ptr(first_code), _ptr(first_index), _ptr(count), int(maxlen),
-            _ptr(out), _ptr(err), _stream(data))
+        if not walk_all:
+            rc = lib.huffdec_sync(*common, a_n, symbols.numel(), *book,
+                                  _ptr(stats), _stream(data))
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA launch failed with error "
+                                   f"{rc}")
+        excl = torch.cumsum(count_c, 0) - count_c
+        rc = lib.huffdec_finish(
+            *common, _ptr(out_off), a_n, _ptr(symbols), symbols.numel(),
+            *book, _ptr(excl), _ptr(flag), int(walk_all), _ptr(out),
+            _ptr(err), _ptr(stats), _stream(data))
     _launched(name, rc)
+    huffdec_stats = stats
     return out, err
 
 

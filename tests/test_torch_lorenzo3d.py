@@ -1,18 +1,20 @@
-"""Kernels 5 and 6 (tiled 3D Lorenzo codes and recon) against the reference.
+"""Kernels 5 and 6 (tiled 3D Lorenzo codes and recon) against the reference,
+and the route kernel 2 (the brick-stack recon) takes for a brick shape.
 
 On the CPU the wrappers run their plain PyTorch versions; here they are
 held against the reference's numpy host path tile by tile, and against
 the Pallas kernels in interpret mode on inputs where float32 and float64
 quantization agree.  All comparisons are exact.  The CUDA kernels run
-only on a card: ``test_tiled_kernels_match_plain_on_card`` is marked
-``cuda`` and skips without one.
+only on a card: ``test_tiled_kernels_match_plain_on_card`` and
+``test_brick_recon_matches_plain_on_card`` are marked ``cuda`` and skip
+without one; the reference is imported inside the CPU tests, so that the
+card's tests run where JAX is not installed (``pytest --noconftest -m
+cuda``).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro.core import sz as rsz
-from repro.kernels import ops as rops
 from repro_torch.kernels import ops, ref
 
 CASES = [((5, 7, 9), (5, 7, 9)), ((8, 16, 16), (2, 4, 4)),
@@ -45,6 +47,8 @@ def _host_per_tile(q, tile, fn):
 
 @pytest.mark.parametrize("shape,tile", CASES)
 def test_tiled_lorenzo_plain_matches_host_path(shape, tile):
+    from repro.core import sz as rsz
+
     eb = 0.037
     x = _field(shape, eb, seed=sum(shape))
     t = ref.check_tile(shape, tile)
@@ -60,6 +64,8 @@ def test_tiled_lorenzo_plain_matches_host_path(shape, tile):
 @pytest.mark.parametrize("shape,tile", [((8, 16, 16), (4, 8, 8)),
                                         ((4, 8, 12), (4, 8, 12))])
 def test_tiled_lorenzo_plain_matches_pallas_interpret(shape, tile):
+    from repro.kernels import ops as rops
+
     # no ties and |q| < 2^23, with 2eb a power of two: the Pallas body's
     # f32 reciprocal and f32 dequant are then exact too
     eb = 2.0 ** -4
@@ -102,3 +108,61 @@ def test_tiled_kernels_match_plain_on_card():
         assert torch.equal(codes, ref.lorenzo3d_codes(x, 0.02, tile))
         assert torch.equal(ops.lorenzo3d_recon(codes, 0.02, tile),
                            ref.lorenzo3d_recon(codes, 0.02, tile))
+
+
+# (X, Y, Z) bricks: the main paths' shapes (8³ to 64³, 48³), and the
+# shared-memory budget's edges: whole bricks up to 8·X·Y·(Z+1) = 232,448
+# bytes (8 x 16 x 226), X planes while 8·Y·(Z+1) fits (Y = 128, Z = 226)
+ROUTES = [((16, 16, 16), "shared"), ((8, 8, 8), "shared"),
+          ((8, 16, 16), "shared"), ((4, 4, 4), "shared"),
+          ((8, 16, 226), "shared"), ((8, 16, 227), "planes"),
+          ((32, 32, 32), "planes"), ((48, 48, 48), "planes"),
+          ((64, 64, 64), "planes"), ((32, 64, 32), "planes"),
+          ((2, 128, 226), "planes"), ((2, 128, 227), "three_pass"),
+          ((3, 64, 512), "three_pass"), ((1, 1, 1), "shared")]
+
+
+@pytest.mark.parametrize("brick,route", ROUTES)
+def test_brick_recon_route_by_shape(brick, route):
+    assert ops.recon_route(brick) == route
+    x, y, z = brick
+    assert (8 * x * y * (z + 1) <= ops.RECON_SMEM_BUDGET) == \
+        (route == "shared")
+    assert (8 * y * (z + 1) <= ops.RECON_SMEM_BUDGET) == \
+        (route != "three_pass")
+
+
+@pytest.mark.parametrize("brick", [(16, 16, 16), (5, 7, 9), (32, 32, 32),
+                                   (2, 128, 227)])
+def test_brick_recon_plain_matches_host_path(brick):
+    # the plain version the CPU runs whatever the route: the reference's
+    # N-D Lorenzo recon brick by brick
+    from repro.core import sz as rsz
+
+    eb = 0.02
+    rng = np.random.default_rng(sum(brick))
+    codes = rng.integers(-3000, 3000, (2, *brick)).astype(np.int64)
+    got = ops.lorenzo3d_recon_batched(torch.from_numpy(codes), eb)
+    for i in range(2):
+        want = rsz.dequant(rsz.lorenzo_nd_recon(codes[i]), eb)
+        np.testing.assert_array_equal(got[i].numpy(), want)
+
+
+@pytest.mark.cuda
+def test_brick_recon_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for brick, _ in ROUTES + [((5, 7, 9), "shared"), ((33, 17, 31), "shared")]:
+        for n in (1, 3, 37) if brick[0] * brick[1] * brick[2] < 10 ** 5 \
+                else (1, 3):
+            codes = torch.randint(-2 ** 20, 2 ** 20, (n, *brick),
+                                  generator=gen, device="cuda")
+            assert torch.equal(ops.lorenzo3d_recon_batched(codes, 0.013),
+                               ref.lorenzo3d_recon_batched(codes, 0.013))
+    # a storage offset that breaks the 16-byte alignment of the loads
+    flat = torch.randint(-99, 99, (1 + 4 * 16 ** 3,), generator=gen,
+                         device="cuda")
+    codes = flat[1:].view(4, 16, 16, 16)
+    assert torch.equal(ops.lorenzo3d_recon_batched(codes, 0.5),
+                       ref.lorenzo3d_recon_batched(codes, 0.5))
