@@ -17,11 +17,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    them, and ``max|recon − orig|`` over each mask must stay within
    ``eb + 2⁻²²·max|orig|``.  Kernel launch counts are reset just before
    and read just after; every kernel must have launched.  The brick
-   shapes the path sends kernel 2 are recorded;
+   shapes the path sends kernels 1 and 2 are recorded;
 3. kernels 1-4 against their plain PyTorch versions on the card, at the
    main path's shapes (exact agreement required), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
    the same function, that call (``library_ms``, a yardstick only).
+   Kernel 1 is timed beside its elementwise design (the kernel 1 of
+   earlier builds, one thread per element, through its C entry) on the
+   main stack, in turns, and both are held against the plain version on
+   every brick shape the main path sent it (CUDA-graph times of both).
    Kernel 2 is also held against its plain version on every brick shape
    the main path sent it and on one shape that takes its three-pass
    route, and timed beside that route on the main stack.  Kernel 4's
@@ -41,8 +45,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    Launch counts are reset before and read after; kernels 5 and 6 must
    have launched.  Kernel 4 on that level's one GSP payload must equal
    its serial walk and the compress-time codes, settle with no serial
-   payload, and is timed there at each chunk size; kernel 2 is held
-   against its plain version on every brick shape the path sent it.
+   payload, and is timed there at each chunk size; kernels 1 and 2 are
+   held against their plain versions on every brick shape the path sent
+   them.
    Kernels 5 and 6 are then held against their plain versions, and
    timed, on the grid that path gives them: the GSP-padded 128³ coarse
    level.  There a launch is about as short as the host's
@@ -58,11 +63,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    tokens through ``ServingEngine(cfg, RunConfig(kv_quant=True))
    .generate``, then the same with a bf16 cache.  Two paths are each
    driven with the launch counts reset just before and read just after:
-   ``generate`` with the int8 cache (kernel 7 must have launched; it
-   never launches kernel 8), and a full-width bf16 prefill cache through
-   ``quantize_prefill_cache`` and ``dequantize_kv`` (kernel 8 must have
-   launched).  Checks: ids in range, finite logits, greedy agreement of
-   the two caches ≥ 50 %, the dequantized cache within ``scale/2``
+   ``generate`` with the int8 cache (kernel 7 exactly ``2 + layers ·
+   steps`` times: the prefill cache's K and V stacks, then one fused
+   decode write a layer and step; it never launches kernel 8), and a
+   full-width bf16 prefill cache through ``quantize_prefill_cache`` and
+   ``dequantize_kv`` (kernel 8 must have launched).  Checks: ids in
+   range, finite logits, greedy agreement of the two caches ≥ 50 %, the
+   dequantized cache within ``scale/2``
    (plus float32 rounding) of the bf16 cache it came from, and
    prefill/decode consistency — the last-position logits of a
    1,024-token prefill against a 1,023-token prefill plus one decode
@@ -74,8 +81,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    and decode step times and a ``torch.profiler`` breakdown of both are
    printed.  Kernels 7 and 8 are held against their plain versions
    (exactly) and timed at the path's two shapes: the stacked prefill
-   cache and a decode step's K (one position of one layer, 256 × 128;
-   timed from a CUDA graph).
+   cache (kernel 7 in turns with its warp route, the kernel 7 of earlier
+   builds) and a decode step's K (one position of one layer, 256 × 128;
+   timed from a CUDA graph).  A decode step's write of K and V into one
+   layer's int8 cache, fused (``ops.quantize_kv_into``, one launch),
+   must equal the composed route (two kernel-7 calls and four slice
+   copies, with either route of kernel 7) and the plain version; the
+   three are timed from CUDA graphs in turns, and the host's time per
+   call of the fused and the composed write in turns.
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -199,26 +212,78 @@ def kernel_row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
     return {**row, **extra}
 
 
-class RecordK2Shapes:
+class RecordBrickShapes:
     """Records the (X, Y, Z) brick shapes, with the largest stack of each,
-    that callers send kernel 2 while active: ``ops.lorenzo3d_recon_batched``
-    is wrapped, and the wrapper still launches and counts as before."""
+    that callers send kernels 1 and 2 while active:
+    ``ops.lorenzo3d_codes_batched`` and ``ops.lorenzo3d_recon_batched``
+    are wrapped, and the wrappers still launch and count as before.
+    Yields ``{"codes": {...}, "recon": {...}}``."""
+
+    WRAPPED = {"codes": "lorenzo3d_codes_batched",
+               "recon": "lorenzo3d_recon_batched"}
 
     def __init__(self, ops):
-        self.ops, self.shapes = ops, {}
+        self.ops = ops
+        self.shapes = {key: {} for key in self.WRAPPED}
 
     def __enter__(self):
-        self.orig = orig = self.ops.lorenzo3d_recon_batched
+        self.orig = {}
+        for key, fn in self.WRAPPED.items():
+            self.orig[key] = orig = getattr(self.ops, fn)
 
-        def recording(codes, eb):
-            n, *brick = codes.shape
-            self.shapes[tuple(brick)] = max(n, self.shapes.get(tuple(brick), 0))
-            return orig(codes, eb)
-        self.ops.lorenzo3d_recon_batched = recording
+            def recording(t, eb, _orig=orig, _seen=self.shapes[key]):
+                n, *brick = t.shape
+                _seen[tuple(brick)] = max(n, _seen.get(tuple(brick), 0))
+                return _orig(t, eb)
+            setattr(self.ops, fn, recording)
         return self.shapes
 
     def __exit__(self, *exc):
-        self.ops.lorenzo3d_recon_batched = self.orig
+        for key, fn in self.WRAPPED.items():
+            setattr(self.ops, fn, self.orig[key])
+
+
+def k1_elementwise(torch, ops, build, x, eb):
+    """A call of kernel 1 as one thread per element (the kernel 1 of
+    earlier builds) through its C entry, on ``x``: returns (call,
+    output)."""
+    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    lib = build.library("lorenzo3d")
+
+    def call():
+        rc = lib.lorenzo3d_codes_batched_elementwise(
+            ops._ptr(x), ops._ptr(out), *x.shape, 2.0 * eb, ops._stream(x))
+        check(rc == 0, f"elementwise K1 launch failed with error {rc}")
+    return call, out
+
+
+def check_k1_shapes(torch, ops, ref, build, shapes: dict, eb: float,
+                    label: str, smi: str):
+    """Kernel 1 against its plain version on seeded values of every
+    recorded brick shape (at its largest stack), timed from CUDA graphs
+    beside its elementwise design; returns the shapes with their routes
+    and times."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seen = []
+    for brick, n in sorted(shapes.items()):
+        x = torch.randn((n, *brick), generator=gen, device="cuda") * (300 * eb)
+        want = ref.lorenzo3d_codes_batched(x, eb)
+        check(torch.equal(ops.lorenzo3d_codes_batched(x, eb), want),
+              f"K1 != plain on {label} brick {brick} x {n}")
+        old, old_out = k1_elementwise(torch, ops, build, x, eb)
+        old()
+        check(torch.equal(old_out, want), f"elementwise K1 != plain, {brick}")
+        graph = graph_ms(lambda: ops.lorenzo3d_codes_batched(x, eb), 20, torch)
+        seen.append({
+            "brick": brick, "n": n, "route": ops.codes_route(x),
+            "graph_ms": graph,
+            "elementwise_graph_ms": graph_ms(old, 20, torch),
+            "graph_ms_2": graph_ms(
+                lambda: ops.lorenzo3d_codes_batched(x, eb), 20, torch),
+            "bound_ms": bound(12 * x.numel(), 12 * x.numel())[0]})
+    print(f"K1 == plain on every brick shape of {label} "
+          f"[{smi}]: {json.dumps(seen)}")
+    return seen
 
 
 def k2_three_pass(torch, ops, build, codes, eb):
@@ -234,6 +299,24 @@ def k2_three_pass(torch, ops, build, codes, eb):
             2.0 * eb, ops._stream(codes))
         check(rc == 0, f"three-pass launch failed with error {rc}")
     return call, out
+
+
+def k7_warp_route(torch, ops, build, x, group):
+    """Kernel 7 on its warp route only (one warp per group; the kernel 7 of
+    earlier builds) through its C entry, on ``x``: returns (codes, scales,
+    call), the outputs written by one call already made."""
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((x.shape[0], x.shape[1] // group), dtype=torch.float32,
+                    device=x.device)
+    fn = getattr(build.library("qdq"), "group_quant_warp_f32"
+                 if x.dtype == torch.float32 else "group_quant_warp_bf16")
+
+    def call():
+        rc = fn(ops._ptr(x), ops._ptr(q), ops._ptr(s), s.numel(), group,
+                ops._stream(x))
+        check(rc == 0, f"warp-route K7 launch failed with error {rc}")
+    call()
+    return q, s, call
 
 
 def check_k2_shapes(torch, ops, ref, build, shapes: dict, eb: float,
@@ -381,8 +464,9 @@ def lm_serving(torch, smi: str) -> list[dict]:
     import statistics
 
     from repro_torch.configs import RunConfig, get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.models import layers, model
+    from repro_torch.models.attention import init_kv_cache
     from repro_torch.serving import (ServingEngine, dequantize_kv,
                                      make_prefill_step,
                                      quantize_prefill_cache)
@@ -429,8 +513,12 @@ def lm_serving(torch, smi: str) -> list[dict]:
     st["peak_device_bytes_generate_int8"] = torch.cuda.max_memory_allocated()
     per_generate = {k: ops.launches[k] for k in QDQ}
     st["launches_per_generate"] = per_generate
-    expect(per_generate["group_quant"] > 0,
-           "kernel group_quant never launched by generate")
+    # the prefill cache's K and V stacks, then one fused write a layer and
+    # a decode step
+    want_k7 = 2 + cfg.n_layers * LM_NEW
+    expect(per_generate["group_quant"] == want_k7,
+           f"kernel group_quant launched {per_generate['group_quant']} "
+           f"times by generate, not {want_k7}")
     t0 = time.perf_counter()
     ids_b = eng_b.generate(params, prompts, new_tokens=LM_NEW)
     torch.cuda.synchronize()
@@ -516,53 +604,130 @@ def lm_serving(torch, smi: str) -> list[dict]:
 
     # ---- kernels 7 and 8 against their plain versions at the path's shapes
     rows = []
-    x = cache_b["k"].reshape(-1, cfg.head_dim)
-    # a decode step quantizes one position's K of one layer: (B·H, hd)
-    step_k = cache_b["k"][0, :, -1].reshape(-1, cfg.head_dim).contiguous()
+    hd = cfg.head_dim
+    x = cache_b["k"].reshape(-1, hd)
+    # a decode step's K and V of one layer, (B, 1, H, hd), and one layer's
+    # int8 cache at full capacity, written at the first decode position
+    kv_step = {n: cache_b[n][0][:, -1:].contiguous() for n in ("k", "v")}
+    step_k = kv_step["k"].reshape(-1, hd)
     for label, xs in (("prefill cache", x), ("decode step", step_k)):
-        q, s = ops.group_quant(xs, cfg.head_dim)
-        q_p, s_p = ref.group_quant(xs, cfg.head_dim)
+        q, s = ops.group_quant(xs, hd)
+        q_p, s_p = ref.group_quant(xs, hd)
         check(torch.equal(q, q_p) and torch.equal(s, s_p),
               f"K7 != plain at the {label} shape")
-        d = ops.group_dequant(q, s, cfg.head_dim)
-        check(torch.equal(d, ref.group_dequant(q, s, cfg.head_dim)),
+        q_w, s_w, _ = k7_warp_route(torch, ops, build, xs, hd)
+        check(torch.equal(q_w, q_p) and torch.equal(s_w, s_p),
+              f"K7's warp route != plain at the {label} shape")
+        d = ops.group_dequant(q, s, hd)
+        check(torch.equal(d, ref.group_dequant(q, s, hd)),
               f"K8 != plain at the {label} shape")
-        del q_p, s_p, d
+        del q_p, s_p, q_w, s_w, d
         print(f"K7/K8 == plain at the {label} shape {tuple(xs.shape)}")
+    capacity = LM_PROMPT + LM_NEW
+    layer = init_kv_cache(cfg, LM_BATCH, capacity, device=dev, quantized=True)
+    layer_c = {n: t.clone() for n, t in layer.items()}
+    layer_w = {n: t.clone() for n, t in layer.items()}
+
+    def fused():
+        ops.quantize_kv_into(kv_step["k"], kv_step["v"], layer, LM_PROMPT)
+
+    def composed(cache, warp: bool):
+        # the decode write of earlier builds: K7 on K, K7 on V, four copies
+        for name, t in kv_step.items():
+            if warp:
+                q, s, _ = k7_warp_route(torch, ops, build, t.reshape(-1, hd),
+                                        hd)
+            else:
+                q, s = ops.group_quant(t.reshape(-1, hd), hd)
+            cache[name][:, LM_PROMPT:LM_PROMPT + 1] = q.reshape(t.shape)
+            cache[name + "_scale"][:, LM_PROMPT:LM_PROMPT + 1] = s.reshape(
+                t.shape[:-1])
+    before = ops.launches["group_quant"]
+    fused()
+    check(ops.launches["group_quant"] == before + 1,
+          "the fused decode write is not one launch")
+    composed(layer_c, False)
+    composed(layer_w, True)
+    for name in layer:
+        check(torch.equal(layer[name], layer_c[name])
+              and torch.equal(layer[name], layer_w[name]),
+              f"fused decode write != composed route ({name})")
+    ref_layer = {n: torch.zeros_like(t) for n, t in layer.items()}
+    ref.quantize_kv_into(kv_step["k"], kv_step["v"], ref_layer, LM_PROMPT)
+    check(all(torch.equal(layer[n], ref_layer[n]) for n in layer),
+          "fused decode write != plain")
+    print("K7 fused decode write == composed route == plain at "
+          f"{tuple(kv_step['k'].shape)} into a {capacity}-position layer")
+    del layer_c, layer_w, ref_layer
+
     n, rows_n = x.numel(), x.shape[0]
-    q, s = ops.group_quant(x, cfg.head_dim)
+    # the prefill stack, in turns: tile route, warp route (the K7 of
+    # earlier builds), warp route, tile route
+    _, _, k7_warp_call = k7_warp_route(torch, ops, build, x, hd)
+    k7_ms = cuda_ms(lambda: ops.group_quant(x, hd), 20, torch)
+    k7_warp_ms = cuda_ms(k7_warp_call, 20, torch)
+    k7_warp_ms_2 = cuda_ms(k7_warp_call, 20, torch)
+    k7_ms_2 = cuda_ms(lambda: ops.group_quant(x, hd), 20, torch)
+    # a decode step's write from CUDA graphs, in turns: fused, composed
+    # (the current K7 twice + four copies), composed with the warp route
+    # (the decode write of earlier builds), and back
+    step_n = 2 * kv_step["k"].numel()
+    step = {"fused": [], "composed": [], "composed_warp_route": []}
+    for key in ("fused", "composed", "composed_warp_route",
+                "composed_warp_route", "composed", "fused"):
+        fn = fused if key == "fused" else (
+            lambda w=key == "composed_warp_route": composed(layer, w))
+        step[key].append(graph_ms(fn, 100, torch))
+    step_bound = bound(3 * step_n + 4 * step_n // hd, 4 * step_n)[0]
+    # ... and the host's time per call (decode follows the host), 200
+    # calls each, in turns
+    step_host_us = {"fused": [], "composed": []}
+    for key in ("fused", "composed", "composed", "fused"):
+        fn = fused if key == "fused" else (lambda: composed(layer, False))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        step_host_us[key].append((time.perf_counter() - t0) / 200 * 1e6)
+    q, s = ops.group_quant(x, hd)
     rows.append(kernel_row(
-        "group_quant", 0,
-        cuda_ms(lambda: ops.group_quant(x, cfg.head_dim), 20, torch),
-        cuda_ms(lambda: ref.group_quant(x, cfg.head_dim), 3, torch),
+        "group_quant", 0, k7_ms,
+        cuda_ms(lambda: ref.group_quant(x, hd), 3, torch),
         2 * n + n + 4 * rows_n, 4 * n, None, per_generate["group_quant"], smi,
-        launches_from="ServingEngine.generate, int8 cache"))
+        launches_from="ServingEngine.generate, int8 cache",
+        ms_turns=[k7_ms, k7_ms_2],
+        warp_route_ms_turns=[k7_warp_ms, k7_warp_ms_2],
+        decode_write_graph_ms=step, decode_write_bound_ms=step_bound,
+        decode_write_host_us=step_host_us))
     rows.append(kernel_row(
         "group_dequant", 0,
-        cuda_ms(lambda: ops.group_dequant(q, s, cfg.head_dim), 20, torch),
-        cuda_ms(lambda: ref.group_dequant(q, s, cfg.head_dim), 3, torch),
+        cuda_ms(lambda: ops.group_dequant(q, s, hd), 20, torch),
+        cuda_ms(lambda: ref.group_dequant(q, s, hd), 3, torch),
         n + 4 * rows_n + 4 * n, n, None, per_readback["group_dequant"], smi,
         launches_from="quantize_prefill_cache + dequantize_kv, "
                       "full-width cache",
         launches_per_generate=per_generate["group_dequant"]))
-    del x, q, s, cache_b
-    qk, sk = ops.group_quant(step_k, cfg.head_dim)
+    del x, q, s, cache_b, layer
+    qk, sk = ops.group_quant(step_k, hd)
     m = step_k.numel()
     small = {"card": smi, "shape": tuple(step_k.shape),
              "k7_graph_ms": graph_ms(
-                 lambda: ops.group_quant(step_k, cfg.head_dim), 100, torch),
+                 lambda: ops.group_quant(step_k, hd), 100, torch),
              "k7_plain_graph_ms": graph_ms(
-                 lambda: ref.group_quant(step_k, cfg.head_dim), 100, torch),
+                 lambda: ref.group_quant(step_k, hd), 100, torch),
              "k7_event_ms": cuda_ms(
-                 lambda: ops.group_quant(step_k, cfg.head_dim), 200, torch),
+                 lambda: ops.group_quant(step_k, hd), 200, torch),
              "k7_bound_ms": bound(3 * m + 4 * step_k.shape[0], 4 * m)[0],
+             "decode_write_graph_ms": step,
+             "decode_write_bound_ms": step_bound,
+             "decode_write_host_us": step_host_us,
              "k8_graph_ms": graph_ms(
-                 lambda: ops.group_dequant(qk, sk, cfg.head_dim), 100, torch),
+                 lambda: ops.group_dequant(qk, sk, hd), 100, torch),
              "k8_plain_graph_ms": graph_ms(
-                 lambda: ref.group_dequant(qk, sk, cfg.head_dim), 100,
-                 torch),
+                 lambda: ref.group_dequant(qk, sk, hd), 100, torch),
              "k8_bound_ms": bound(5 * m + 4 * step_k.shape[0], m)[0],
-             "k7_launches_per_token": 2 * cfg.n_layers}
+             "k7_launches_per_token": cfg.n_layers}
     print("K7/K8 at the decode-step shape: " + json.dumps(small))
 
     # ---- witness for the full-depth consistency: the same weights in
@@ -637,7 +802,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     stages = {}
     with tempfile.TemporaryDirectory() as tmp, \
-            RecordK2Shapes(ops) as k2_shapes2:
+            RecordBrickShapes(ops) as shapes2:
         path = os.path.join(tmp, "snap.tacz")
         t0 = time.perf_counter()
         res = hybrid.compress_amr(ds, eb=eb, device="cuda")
@@ -724,10 +889,25 @@ def main() -> int:
     codes = ops.lorenzo3d_codes_batched(x, eb)
     plain = ref.lorenzo3d_codes_batched(x, eb)
     check(torch.equal(codes, plain), "K1 != plain")
-    row("lorenzo3d_codes_batched", 0,
-        cuda_ms(lambda: ops.lorenzo3d_codes_batched(x, eb), 20, torch),
+    check(ops.codes_route(x) == "planes", f"K1 route for {shape}")
+    # K1 as one thread per element (the K1 of earlier builds) on the same
+    # stack, through its C entry, in turns: new, elementwise, elementwise,
+    # new
+    k1_old, k1_old_out = k1_elementwise(torch, ops, build, x, eb)
+    k1_old()
+    check(torch.equal(k1_old_out, plain), "elementwise K1 != plain")
+    k1_ms = cuda_ms(lambda: ops.lorenzo3d_codes_batched(x, eb), 20, torch)
+    k1_old_ms = cuda_ms(k1_old, 20, torch)
+    k1_old_ms_2 = cuda_ms(k1_old, 20, torch)
+    k1_ms_2 = cuda_ms(lambda: ops.lorenzo3d_codes_batched(x, eb), 20, torch)
+    k1_row = kernel_row(
+        "lorenzo3d_codes_batched", 0, k1_ms,
         cuda_ms(lambda: ref.lorenzo3d_codes_batched(x, eb), 5, torch),
-        12 * n_el, 12 * n_el, None)
+        12 * n_el, 12 * n_el, None, launches["lorenzo3d_codes_batched"], smi,
+        ms_turns=[k1_ms, k1_ms_2],
+        elementwise_ms_turns=[k1_old_ms, k1_old_ms_2])
+    rows.append(k1_row)
+    del k1_old_out
     recon = ops.lorenzo3d_recon_batched(codes, eb)
     plain_r = ref.lorenzo3d_recon_batched(codes, eb)
     check(torch.equal(recon, plain_r), "K2 != plain")
@@ -749,7 +929,9 @@ def main() -> int:
         brick_route="shared", ms_turns=[k2_ms, k2_ms_2],
         three_pass_ms_turns=[k2_three_ms, k2_three_ms_2]))
     del x, codes, plain, recon, plain_r, three
-    k2_seen = check_k2_shapes(torch, ops, ref, build, k2_shapes2, eb,
+    k2_seen = check_k2_shapes(torch, ops, ref, build, shapes2["recon"], eb,
+                              "the TAC+ main path", smi)
+    k1_seen = check_k1_shapes(torch, ops, ref, build, shapes2["codes"], eb,
                               "the TAC+ main path", smi)
     big = torch.randint(-2 ** 20, 2 ** 20, K2_THREE_PASS_SHAPE, device=dev)
     check(ops.recon_route(K2_THREE_PASS_SHAPE[1:]) == "three_pass",
@@ -895,7 +1077,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     tac = {}
     with tempfile.TemporaryDirectory() as tmp, \
-            RecordK2Shapes(ops) as k2_shapes4:
+            RecordBrickShapes(ops) as shapes4:
         for alg in TAC_ALGORITHMS:
             st = {}
             t0 = time.perf_counter()
@@ -994,10 +1176,18 @@ def main() -> int:
     for name in ("lorenzo3d_codes", "lorenzo3d_recon"):
         check(launches4[name] > 0,
               f"kernel {name} never launched on the TAC path")
-    k2_seen += check_k2_shapes(torch, ops, ref, build, k2_shapes4, eb4,
-                               "the TAC path", smi)
+    k2_seen += check_k2_shapes(torch, ops, ref, build, shapes4["recon"],
+                               eb4, "the TAC path", smi)
+    k1_seen += check_k1_shapes(torch, ops, ref, build, shapes4["codes"],
+                               eb4, "the TAC path", smi)
     check(all(s["route"] != "three_pass" for s in k2_seen),
           f"a main-path brick shape takes the three-pass route: {k2_seen}")
+    k1_row["brick_shapes"] = len(k1_seen)
+    # the plane walk against the elementwise kernel where it takes the
+    # shape (small stacks take the elementwise kernel itself)
+    k1_row["slower_than_elementwise"] = [
+        s["brick"] for s in k1_seen if s["route"] == "planes"
+        and min(s["graph_ms"], s["graph_ms_2"]) > s["elementwise_graph_ms"]]
     # K4's row carries the GSP payload as its second shape
     g = tac["lorenzo"][0]
     g_bytes, g_syms = g["gsp_payload_bytes"], g["gsp_payload_symbols"]

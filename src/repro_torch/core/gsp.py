@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.ref import true_divide
 from .blocks import BlockGrid, make_block_grid
 
 __all__ = ["gsp_pad", "gsp_unpad", "gsp_meta_bits"]
@@ -40,7 +41,7 @@ def _boundary_slice_mean(blocks: torch.Tensor, m: int, axis: int,
     acc = torch.zeros_like(blocks.select(ax, 0))
     for i in range(first, first + m):
         acc = acc + blocks.select(ax, i)
-    return acc / m
+    return true_divide(acc, float(m))
 
 
 def gsp_pad(data, mask=None, *, unit: int = 8,

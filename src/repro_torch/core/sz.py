@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.ref import true_divide
 from . import entropy, huffman
 from .compat import zstd_size_bits
 
@@ -74,7 +75,7 @@ def prequant(x: torch.Tensor, eb: float) -> torch.Tensor:
     """``q = rint(float64(x) / 2eb)`` as int64 — ``|x − 2eb·q| ≤ eb``."""
     if eb <= 0:
         raise ValueError("error bound must be positive")
-    return torch.round(x.double() / (2.0 * eb)).long()
+    return torch.round(true_divide(x.double(), 2.0 * eb)).long()
 
 
 def dequant(q: torch.Tensor, eb: float) -> torch.Tensor:
@@ -384,12 +385,12 @@ def _regression_fit(xb: torch.Tensor, b: int
     fit float64) with the fit evaluated from the float32-cast betas."""
     coord = np.arange(b, dtype=np.float64) - (b - 1) / 2.0
     var = float((coord ** 2).sum()) * b * b
-    mean = _block_sum(xb) / float(b ** 3)   # float32 divide, as numpy
+    mean = true_divide(_block_sum(xb), float(b ** 3))  # float32, as numpy
     xc = xb.double() - mean.double()[..., None, None, None]
     c = _coord(b, xb.device)
-    b1 = _block_sum(xc * c[:, None, None]) / var
-    b2 = _block_sum(xc * c[None, :, None]) / var
-    b3 = _block_sum(xc * c[None, None, :]) / var
+    b1 = true_divide(_block_sum(xc * c[:, None, None]), var)
+    b2 = true_divide(_block_sum(xc * c[None, :, None]), var)
+    b3 = true_divide(_block_sum(xc * c[None, None, :]), var)
     betas = torch.stack([mean.double(), b1, b2, b3], dim=-1).float()
     return betas, _fit_from_betas(betas, b)
 
@@ -502,7 +503,8 @@ def compress_lor_reg(x: torch.Tensor, eb: float, *, block: int = 6,
     if b >= 2:
         xb, bgrid = _block_view(x, b)
         betas, fit = _regression_fit(xb, b)
-        codes_reg = torch.round((xb.double() - fit) / (2.0 * eb)).long()
+        codes_reg = torch.round(
+            true_divide(xb.double() - fit, 2.0 * eb)).long()
         n_blocks = int(np.prod(bgrid))
         cost_reg = _code_cost_bits(codes_reg) + n_blocks * 4 * 32
         use_reg = cost_reg < cost_lor
@@ -556,7 +558,8 @@ def compress_lor_reg_batched(x: torch.Tensor, eb: float, *, block: int = 6
     if b >= 2:
         xb, bgrid = _block_view_batched(x, b)
         betas, fit = _regression_fit(xb, b)
-        codes_reg = torch.round((xb.double() - fit) / (2.0 * eb)).long()
+        codes_reg = torch.round(
+            true_divide(xb.double() - fit, 2.0 * eb)).long()
         n_blocks = int(np.prod(bgrid))
         cost_reg = _code_cost_bits_rows(codes_reg) + n_blocks * 4 * 32
         use_reg = cost_reg < cost_lor

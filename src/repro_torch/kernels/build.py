@@ -35,6 +35,8 @@ _D = ctypes.c_double
 #: C signature of every exported launcher: (library, function) → argtypes.
 SIGNATURES = {
     ("lorenzo3d", "lorenzo3d_codes_batched"): (_P, _P, _L, _I, _I, _I, _D, _P),
+    ("lorenzo3d", "lorenzo3d_codes_batched_elementwise"):
+        (_P, _P, _L, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_recon_batched"):
         (_P, _P, _P, _L, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_recon_bricks"):
@@ -52,6 +54,12 @@ SIGNATURES = {
          _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     ("qdq", "group_quant_f32"): (_P, _P, _P, _L, _I, _P),
     ("qdq", "group_quant_bf16"): (_P, _P, _P, _L, _I, _P),
+    ("qdq", "group_quant_warp_f32"): (_P, _P, _P, _L, _I, _P),
+    ("qdq", "group_quant_warp_bf16"): (_P, _P, _P, _L, _I, _P),
+    ("qdq", "quantize_kv_f32"):
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P),
+    ("qdq", "quantize_kv_bf16"):
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P),
     ("qdq", "group_dequant_f32"): (_P, _P, _P, _L, _I, _I, _P),
 }
 

@@ -11,12 +11,18 @@
 // bodies' float32: q = rint(float64(x) / (2 eb)) (IEEE division, round
 // half to even), int64 codes, and dequant float32(float64(q) * 2 eb).
 // Build without --use_fast_math so the division stays correctly rounded.
-// All index arithmetic is 64-bit: a 512^3 grid has 1.3e8 elements.
 //
 // Bound: bytes.  Codes read 4 B and write 8 B per element; recon reads
-// 8 B and writes 4 B per element.  Codes use one thread per element and
-// evaluate the 8-corner stencil from the float input (the neighbours sit
-// in L1/L2), so the int64 prequant grid is never stored.
+// 8 B and writes 4 B per element.
+//
+// Codes of a brick stack (K1, lorenzo3d_codes_batched): a block walks
+// the X planes of its bricks (or of one X slab of a brick), prequantizing
+// each element once into int64 plane buffers in shared memory; see
+// codes_bricks_kernel.  Codes of one array at any tile (K5), and K1's
+// small stacks and long rows: one thread per element, 64-bit indices (a
+// 512^3 grid has 1.3e8 elements), the 8-corner stencil evaluated from
+// the float input, each corner prequantized again (the neighbours sit in
+// L1/L2); the kernel 1 of earlier builds.
 //
 // Recon of a brick stack (K2, lorenzo3d_recon_bricks): one block holds one
 // brick, or several small ones, in shared memory as int64 with each Z line
@@ -286,6 +292,134 @@ __global__ void scan_x_dequant_kernel(const long long* __restrict__ partial,
   }
 }
 
+// K1 on a brick stack (codes_bricks_kernel).  A block takes nb whole
+// bricks (as many as fill its 256 threads: 4 of 16^3, 16 of 8^3), or one
+// Y band of one brick's planes (as many rows as fill the threads, plus
+// the row above as a halo), over the X planes [x0, x1) of one slab:
+// stacks of few bricks are cut along X into slabs so that the card holds
+// about 8 blocks per SM, each slab prequantizing one halo plane more.
+// The block walks its planes in order.  Each thread owns one unit of VEC
+// contiguous Z values (a 16-byte load when Z % 4 == 0), the same on
+// every plane, and
+//   - prequantizes its unit of plane p once (one float64 division and
+//     rint per element) into one of two int64 plane buffers in shared
+//     memory, then issues the load of plane p + 2 (two planes are in
+//     flight while it works);
+//   - after the barrier, takes the 2D Lorenzo difference d2 = q[j][k] −
+//     q[j−1][k] − q[j][k−1] + q[j−1][k−1] from the buffer (zero across a
+//     brick's low Y and Z faces) and stores the code d2 − d2 of plane
+//     p − 1, which it keeps in registers (zero at a brick's first
+//     plane), coalesced.
+// The buffers are read along Z by consecutive threads (no bank
+// conflicts to pad against); one barrier per plane separates the writes
+// of a buffer from the reads of the plane two before.  12 B of device
+// traffic per element plus the halo planes and rows; index arithmetic
+// is 32-bit inside a brick, 64-bit only for a unit's base offset.  No
+// zero test: every one tried cost K1 10 % (kSkipZero above).
+constexpr int kCodesThreads = 256;
+
+template <int VEC>
+__global__ void __launch_bounds__(kCodesThreads)
+codes_bricks_kernel(const float* __restrict__ x, long long* __restrict__ codes,
+                    long long n, int X, int Y, int Z, int nb, int slabs,
+                    int px, int bands, int py, double two_eb) {
+  extern __shared__ long long s_q[];  // two plane buffers
+  const int yz = Y * Z;
+  const int band = (int)(blockIdx.x % bands);
+  const long long rest = blockIdx.x / bands;
+  const int slab = (int)(rest % slabs);
+  const long long b0 = rest / slabs * nb;
+  const int nbh = n - b0 < nb ? (int)(n - b0) : nb;
+  const int x0 = slab * px, x1 = X < x0 + px ? X : x0 + px;
+  const int p0 = x0 > 0 ? x0 - 1 : 0;
+  const int y0 = band * py, y1 = Y < y0 + py ? Y : y0 + py;
+  const int y0h = y0 > 0 ? y0 - 1 : 0;  // with the halo row
+  const int band_el = (y1 - y0h) * Z, set = nb * band_el;
+  // this thread's unit: element e of the block's plane buffer, (j, k) in
+  // its brick, and the unit's offset in the stack at plane 0
+  const bool live = (int)threadIdx.x < nbh * band_el / VEC;
+  const int e = threadIdx.x * VEC;
+  const int bb = e / band_el, jr = (e - bb * band_el) / Z;
+  const int j = y0h + jr, k = e - bb * band_el - jr * Z;
+  const long long off = (b0 + bb) * X * (long long)yz + (long long)j * Z + k;
+  auto load = [&](int p, float (&v)[VEC]) {
+    if (!live || p >= x1) return;
+    const float* src = x + off + (long long)p * yz;
+    if (VEC == 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+      v[0] = f.x;
+      v[VEC > 1 ? 1 : 0] = f.y;
+      v[VEC > 2 ? 2 : 0] = f.z;
+      v[VEC > 3 ? 3 : 0] = f.w;
+    } else {
+      v[0] = __ldg(src);
+    }
+  };
+  long long prev[VEC];
+#pragma unroll
+  for (int m = 0; m < VEC; ++m) prev[m] = 0;
+  // plane p: prequantize from v, refill v with plane p + 2, then codes
+  auto step = [&](int p, float (&v)[VEC]) {
+    long long* buf = s_q + ((p - p0) & 1) * set;
+    long long q[VEC];
+    if (live) {
+#pragma unroll
+      for (int m = 0; m < VEC; ++m)
+        q[m] = (long long)rint((double)v[m] / two_eb);
+      if (VEC == 4) {
+        longlong2* b2 = reinterpret_cast<longlong2*>(buf + e);
+        b2[0] = make_longlong2(q[0], q[VEC > 1 ? 1 : 0]);
+        b2[1] = make_longlong2(q[VEC > 2 ? 2 : 0], q[VEC > 3 ? 3 : 0]);
+      } else {
+        buf[e] = q[0];
+      }
+    }
+    load(p + 2, v);
+    __syncthreads();
+    if (!live || j < y0) return;  // idle, or the halo row
+    const long long* at = buf + e;
+    long long up[VEC];
+    if (VEC == 4 && j > 0) {
+      const longlong2* u2 = reinterpret_cast<const longlong2*>(at - Z);
+      const longlong2 a = u2[0], b = u2[1];
+      up[0] = a.x;
+      up[VEC > 1 ? 1 : 0] = a.y;
+      up[VEC > 2 ? 2 : 0] = b.x;
+      up[VEC > 3 ? 3 : 0] = b.y;
+    } else {
+#pragma unroll
+      for (int m = 0; m < VEC; ++m) up[m] = j > 0 ? at[m - Z] : 0;
+    }
+    long long left = k > 0 ? at[-1] : 0;
+    long long up_left = j > 0 && k > 0 ? at[-Z - 1] : 0;
+    long long c[VEC];
+#pragma unroll
+    for (int m = 0; m < VEC; ++m) {
+      const long long d2 = q[m] - left - up[m] + up_left;
+      c[m] = d2 - prev[m];
+      prev[m] = d2;
+      left = q[m];
+      up_left = up[m];
+    }
+    if (p < x0) return;  // the slab's halo plane
+    long long* dst = codes + off + (long long)p * yz;
+    if (VEC == 4) {
+      longlong2* d2p = reinterpret_cast<longlong2*>(dst);
+      d2p[0] = make_longlong2(c[0], c[VEC > 1 ? 1 : 0]);
+      d2p[1] = make_longlong2(c[VEC > 2 ? 2 : 0], c[VEC > 3 ? 3 : 0]);
+    } else {
+      dst[0] = c[0];
+    }
+  };
+  float va[VEC], vb[VEC];
+  load(p0, va);
+  load(p0 + 1, vb);
+  for (int p = p0; p < x1; p += 2) {
+    step(p, va);
+    if (p + 1 < x1) step(p + 1, vb);
+  }
+}
+
 inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -339,11 +473,81 @@ int allow_smem(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// Streaming multiprocessors of the current device, read once per device.
+int sm_count() {
+  static int cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cache[dev] == 0 &&
+      cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return cache[dev];
+}
+
+template <int VEC>
+int codes_bricks_launch(const float* x, long long* codes, long long n, int X,
+                        int Y, int Z, int nb, int py, double two_eb,
+                        cudaStream_t stream) {
+  const long long groups = (n + nb - 1) / nb;
+  const int bands = (Y + py - 1) / py;
+  // about 8 blocks per SM: cut a stack of few bricks along X, keeping at
+  // least two planes a slab
+  const long long target = 8LL * sm_count(), base = groups * bands;
+  long long slabs = base >= target ? 1 : (target + base - 1) / base;
+  if (slabs > X / 2) slabs = X / 2;
+  if (slabs < 1) slabs = 1;
+  const int px = (int)((X + slabs - 1) / slabs);
+  slabs = (X + px - 1) / px;
+  if (base * slabs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int rows = bands > 1 ? py + 1 : Y;
+  const int smem = 2 * nb * rows * Z * (int)sizeof(long long);
+  int rc = allow_smem(codes_bricks_kernel<VEC>, smem);
+  if (rc) return rc;
+  codes_bricks_kernel<VEC>
+      <<<(unsigned)(base * slabs), kCodesThreads, smem, stream>>>(
+          x, codes, n, X, Y, Z, nb, (int)slabs, px, bands, py, two_eb);
+  return (int)cudaGetLastError();
+}
+
+// K1's plane walk: whole bricks when a plane fills at most a block's
+// threads, else Y bands of one brick.  ops.codes_route sends stacks of
+// few values, and Z rows of more than 128 loads, to the elementwise
+// kernel instead (cudaErrorInvalidValue for such a row here).
+int codes_bricks(const float* x, long long* codes, long long n, int X, int Y,
+                 int Z, double two_eb, cudaStream_t stream) {
+  if (n == 0 || (long long)X * Y * Z == 0) return 0;
+  const bool vec = Z % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+                   ((uintptr_t)codes & 15) == 0;
+  const long long row = Z / (vec ? 4 : 1), per_plane = (long long)Y * row;
+  if (row > kCodesThreads / 2) return (int)cudaErrorInvalidValue;
+  long long nb = 1;
+  int py = Y;
+  if (per_plane <= kCodesThreads) {
+    nb = kCodesThreads / per_plane;
+    if (nb > n) nb = n;
+  } else {
+    py = (int)(kCodesThreads / row) - 1;  // with the halo row, <= 256 units
+  }
+  return vec ? codes_bricks_launch<4>(x, codes, n, X, Y, Z, (int)nb, py,
+                                      two_eb, stream)
+             : codes_bricks_launch<1>(x, codes, n, X, Y, Z, (int)nb, py,
+                                      two_eb, stream);
+}
+
 }  // namespace
 
 extern "C" int lorenzo3d_codes_batched(const float* x, long long* codes,
                                        long long n, int X, int Y, int Z,
                                        double two_eb, cudaStream_t stream) {
+  return codes_bricks(x, codes, n, X, Y, Z, two_eb, stream);
+}
+
+// K1 as one thread per element (the kernel 1 of earlier builds): the
+// route of small stacks and long rows (ops.codes_route).
+extern "C" int lorenzo3d_codes_batched_elementwise(
+    const float* x, long long* codes, long long n, int X, int Y, int Z,
+    double two_eb, cudaStream_t stream) {
   return codes_launch<false>(x, codes, n, X, Y, Z, X, Y, Z, two_eb, stream);
 }
 

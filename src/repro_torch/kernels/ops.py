@@ -8,11 +8,14 @@ Each wrapper checks dtype, shape and contiguity, then:
 * for any other device, raises.
 
 There is no fallback: a CUDA tensor reaches its kernel or an exception.
-Two kernels choose a route from what the host already knows: the brick
-recon (kernel 2) from the brick's shape (:func:`recon_route`), the
-Huffman decode (kernel 4) by a chunk plan of the payloads' bits
-(:func:`huffdec_plan`) that leaves payloads it cannot settle to the
-kernel's own serial walk.
+Some kernels choose a route from what the host already knows: the brick
+codes (kernel 1, :func:`codes_route`) and recon (kernel 2,
+:func:`recon_route`) from the stack's shape, the quantizer (kernel 7, in
+C) from the group size, the number of groups and the pointers'
+alignment, the Huffman decode (kernel 4) by a chunk plan of the
+payloads' bits (:func:`huffdec_plan`) that leaves payloads it cannot
+settle to the kernel's own serial walk.  :func:`quantize_kv_into` is
+kernel 7 fused with a decode step's write into an int8 KV cache.
 
 ========================  =======================================  ===========================
 wrapper                   TPU kernel it replaces                   source
@@ -24,6 +27,7 @@ lorenzo3d_recon           repro/kernels/lorenzo3d.py:82            csrc/lorenzo3
 hist                      repro/kernels/hist.py:41                 csrc/hist.cu
 huffdec                   repro/kernels/huffdec.py:48 and :73      csrc/huffdec.cu
 group_quant               repro/kernels/qdq.py:43                  csrc/qdq.cu
+quantize_kv_into          repro/kernels/qdq.py:43 (fused write)    csrc/qdq.cu
 group_dequant             repro/kernels/qdq.py:64                  csrc/qdq.cu
 ========================  =======================================  ===========================
 """
@@ -35,17 +39,23 @@ import torch
 
 from . import build, ref
 
-__all__ = ["launches", "reset_launches", "lorenzo3d_codes_batched",
+__all__ = ["launches", "reset_launches", "codes_route",
+           "CODES_ELEMENTWISE_MAX", "lorenzo3d_codes_batched",
            "lorenzo3d_recon_batched", "recon_route", "lorenzo3d_codes",
            "lorenzo3d_recon", "hist", "huffdec", "huffdec_plan",
            "HUFF_CHUNK_BITS", "huffdec_stats", "group_quant",
-           "group_dequant"]
+           "quantize_kv_into", "group_dequant"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lorenzo3d_codes_batched": 0, "lorenzo3d_recon_batched": 0,
             "lorenzo3d_codes": 0, "lorenzo3d_recon": 0, "hist": 0,
             "huffdec": 0, "group_quant": 0, "group_dequant": 0}
 
+
+#: Brick stacks of at most this many values take kernel 1's elementwise
+#: route: the plane walk's two dependent plane loads lost there to the
+#: elementwise kernel's one (71 bricks of 8 x 16 x 8 on an H100).
+CODES_ELEMENTWISE_MAX = 1 << 17
 
 #: Shared memory one block of the brick recon may use (H100: 227 KB).
 RECON_SMEM_BUDGET = 232448
@@ -101,18 +111,35 @@ def _launched(name: str, rc: int) -> None:
     launches[name] += 1
 
 
+def codes_route(x: torch.Tensor) -> str:
+    """Kernel 1's route for an (N, X, Y, Z) float32 stack, from its shape
+    and alignment: ``"planes"`` (each brick's X planes walked through
+    shared memory), or ``"elementwise"`` (one thread per element) for
+    stacks of at most :data:`CODES_ELEMENTWISE_MAX` values, where one
+    launch's latency sets the time, and for Z rows of more than 128 loads
+    (of 16 bytes when Z % 4 == 0 and the input is 16-byte aligned, else of
+    one value)."""
+    Z = x.shape[-1]
+    per_load = 4 if Z % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    if x.numel() <= CODES_ELEMENTWISE_MAX or Z // per_load > 128:
+        return "elementwise"
+    return "planes"
+
+
 def lorenzo3d_codes_batched(x: torch.Tensor, eb: float) -> torch.Tensor:
     """(N,X,Y,Z) float32 bricks → int64 zero-halo Lorenzo codes of
-    ``rint(float64(x) / 2eb)`` (kernel 1)."""
+    ``rint(float64(x) / 2eb)`` (kernel 1), routed by :func:`codes_route`."""
     name = "lorenzo3d_codes_batched"
     _require(name, x, torch.float32, 4)
     if not _on_cuda(name, x):
         return ref.lorenzo3d_codes_batched(x, eb)
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
     n, X, Y, Z = x.shape
+    lib = build.library("lorenzo3d")
+    entry = lib.lorenzo3d_codes_batched if codes_route(x) == "planes" else \
+        lib.lorenzo3d_codes_batched_elementwise
     with torch.cuda.device(x.device):
-        rc = build.library("lorenzo3d").lorenzo3d_codes_batched(
-            _ptr(x), _ptr(out), n, X, Y, Z, 2.0 * eb, _stream(x))
+        rc = entry(_ptr(x), _ptr(out), n, X, Y, Z, 2.0 * eb, _stream(x))
     _launched(name, rc)
     return out
 
@@ -319,9 +346,7 @@ def group_quant(x: torch.Tensor, group: int
     (n, d/group)), per-group symmetric int8 (kernel 7); see
     :func:`repro_torch.kernels.ref.group_quant`."""
     name = "group_quant"
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
-    _require(name, x, x.dtype, 2)
+    _require_quant_input(name, x, 2)
     n_groups = ref.check_groups(tuple(x.shape), group)
     if not _on_cuda(name, x):
         return ref.group_quant(x, group)
@@ -334,6 +359,64 @@ def group_quant(x: torch.Tensor, group: int
             _ptr(x), _ptr(q), _ptr(scale), n_groups, int(group), _stream(x))
     _launched(name, rc)
     return q, scale
+
+
+def _require_quant_input(name: str, x: torch.Tensor, ndim: int) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
+    _require(name, x, x.dtype, ndim)
+
+
+def quantize_kv_into(k: torch.Tensor, v: torch.Tensor, cache: dict,
+                     start: int) -> None:
+    """Quantize a decode step's K and V and write them into one layer's
+    int8 cache at positions ``start:start + Sq``, in place: kernel 7 with
+    ``group = hd``, in one launch for both (counted under
+    ``launches["group_quant"]``).
+
+    ``k``, ``v``: (B, Sq, H, hd) float32 or bfloat16, contiguous.
+    ``cache``: ``{"k", "v"}`` int8 (B, S, H, hd) and ``{"k_scale",
+    "v_scale"}`` float32 (B, S, H), each contiguous past its batch axis
+    (a layer of a stacked cache is); the kernel takes the batch stride.
+    Raises on another dtype or shape, a non-contiguous input, or
+    ``start + Sq > S``.  See :func:`repro_torch.kernels.ref.quantize_kv_into`.
+    """
+    name = "group_quant"
+    _require_quant_input(name, k, 4)
+    _require_quant_input(name, v, 4)
+    if v.dtype != k.dtype or v.shape != k.shape:
+        raise ValueError(f"{name}: k {k.dtype} {tuple(k.shape)} and v "
+                         f"{v.dtype} {tuple(v.shape)} differ")
+    B, Sq, H, hd = k.shape
+    ck, cv, sk, sv = (cache[n] for n in ("k", "v", "k_scale", "v_scale"))
+    S = ck.shape[1] if ck.dim() == 4 else -1
+    for t, dtype, inner in ((ck, torch.int8, (H, hd)),
+                            (cv, torch.int8, (H, hd)),
+                            (sk, torch.float32, (H,)),
+                            (sv, torch.float32, (H,))):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: cache leaf {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != (B, S, *inner):
+            raise ValueError(f"{name}: cache leaf {tuple(t.shape)} does not "
+                             f"match k {tuple(k.shape)}")
+        if B and not t[0].is_contiguous():
+            raise ValueError(f"{name}: cache leaf must be contiguous past "
+                             "its batch axis")
+    if ck.stride(0) != cv.stride(0) or sk.stride(0) != sv.stride(0):
+        raise ValueError(f"{name}: K and V caches have different strides")
+    start = int(start)
+    if start < 0 or start + Sq > S:
+        raise ValueError(f"{name}: positions {start}..{start + Sq} past the "
+                         f"cache's {S}")
+    if not _on_cuda(name, k, v, ck, cv, sk, sv):
+        ref.quantize_kv_into(k, v, cache, start)
+        return
+    fn = "quantize_kv_f32" if k.dtype == torch.float32 else "quantize_kv_bf16"
+    with torch.cuda.device(k.device):
+        rc = getattr(build.library("qdq"), fn)(
+            _ptr(k), _ptr(v), _ptr(ck), _ptr(cv), _ptr(sk), _ptr(sv), B, Sq,
+            H, hd, S, start, ck.stride(0), sk.stride(0), _stream(k))
+    _launched(name, rc)
 
 
 def group_dequant(q: torch.Tensor, scale: torch.Tensor, group: int

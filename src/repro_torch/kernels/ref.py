@@ -9,20 +9,31 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lorenzo3d_codes_batched", "lorenzo3d_recon_batched",
-           "lorenzo3d_codes", "lorenzo3d_recon", "check_tile", "hist",
-           "huffdec", "HUFF_MAXLEN", "check_groups", "group_quant",
-           "group_dequant"]
+__all__ = ["true_divide", "lorenzo3d_codes_batched",
+           "lorenzo3d_recon_batched", "lorenzo3d_codes", "lorenzo3d_recon",
+           "check_tile", "hist", "huffdec", "HUFF_MAXLEN", "check_groups",
+           "group_quant", "group_dequant", "quantize_kv_into"]
 
 #: Longest codeword the decoders take: a 64-bit window read at any bit
 #: offset inside its first byte holds 57 whole bits.
 HUFF_MAXLEN = 57
 
 
+def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d``, correctly rounded on any device, as numpy divides.
+
+    PyTorch's CUDA kernels turn a division by a Python number into a
+    product with its reciprocal, which can round one ulp away (and so
+    across a tie of ``rint``); a divisor on the tensor's own device keeps
+    the IEEE division.
+    """
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def lorenzo3d_codes_batched(x: torch.Tensor, eb: float) -> torch.Tensor:
     """(N,X,Y,Z) float32 → int64 codes: ``rint(float64(x) / 2eb)``, then
     zero-halo first differences along X, Y and Z within each brick."""
-    c = torch.round(x.double() / (2.0 * eb)).long()
+    c = torch.round(true_divide(x.double(), 2.0 * eb)).long()
     for ax in (1, 2, 3):
         c = torch.diff(c, dim=ax, prepend=torch.zeros_like(c.narrow(ax, 0, 1)))
     return c
@@ -64,7 +75,8 @@ def lorenzo3d_codes(x: torch.Tensor, eb: float,
     first differences along X, Y and Z with a zero halo at the low faces
     of every tile (checked by :func:`check_tile`)."""
     tile = check_tile(tuple(x.shape), tile)
-    c = _tile_view(torch.round(x.double() / (2.0 * eb)).long(), tile)
+    c = _tile_view(torch.round(true_divide(x.double(), 2.0 * eb)).long(),
+                   tile)
     for ax in (1, 3, 5):
         c = torch.diff(c, dim=ax, prepend=torch.zeros_like(c.narrow(ax, 0, 1)))
     return c.reshape(x.shape)
@@ -201,3 +213,17 @@ def group_dequant(q: torch.Tensor, scale: torch.Tensor, group: int
     n, d = q.shape
     g = q.reshape(n, d // group, group).float()
     return (g * scale.float()[..., None]).reshape(n, d)
+
+
+def quantize_kv_into(k: torch.Tensor, v: torch.Tensor, cache: dict,
+                     start: int) -> None:
+    """A decode step's write into one layer's int8 KV cache, in place:
+    ``k``/``v`` (B, Sq, H, hd) each through :func:`group_quant` at
+    ``group = hd``, the codes into ``cache["k"]``/``cache["v"]`` (B, S, H,
+    hd) and the scales into ``cache["k_scale"]``/``cache["v_scale"]`` (B,
+    S, H) at positions ``start:start + Sq``."""
+    hd, end = k.shape[-1], start + k.shape[1]
+    for name, x in (("k", k), ("v", v)):
+        q, s = group_quant(x.reshape(-1, hd), hd)
+        cache[name][:, start:end] = q.reshape(x.shape)
+        cache[name + "_scale"][:, start:end] = s.reshape(x.shape[:-1])

@@ -12,7 +12,9 @@ Modes, as in the reference:
 An int8 cache stores codes and one float32 scale per (token, head):
 :func:`quantize_heads` is kernel 7 with ``group = head_dim`` and
 :func:`dequantize_heads` kernel 8 followed by a cast (the reference's
-``_quantize_heads``/``_dequantize_heads``).
+``_quantize_heads``/``_dequantize_heads``).  A decode step quantizes its
+K and V and writes them into the cache in one kernel-7 launch
+(``ops.quantize_kv_into``).
 
 Products whose reference asks for float32 results
 (``preferred_element_type``) multiply float32 copies of their operands:
@@ -207,9 +209,10 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
 
     Returns ``(out, kv)``.  Prefill returns this layer's K/V; decode
     writes this step's K/V into ``cache`` at ``cache_len`` **in place**
-    (quantized by kernel 7 for an int8 cache: a copy of a multi-GB cache
-    per step is what the reference's functional update costs and the
-    port avoids) and attends over ``cache_len + Sq`` entries.
+    (for an int8 cache, quantized and written by one kernel-7 launch: a
+    copy of a multi-GB cache per step is what the reference's functional
+    update costs and the port avoids) and attends over ``cache_len + Sq``
+    entries.
     """
     B, Sq, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -230,12 +233,8 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
             raise ValueError(f"cache holds {cache['k'].shape[1]} entries, "
                              f"decode needs {end}")
         if "k_scale" in cache:
-            kq, ks = quantize_heads(k)
-            vq, vs = quantize_heads(v)
-            cache["k"][:, cache_len:end] = kq
-            cache["v"][:, cache_len:end] = vq
-            cache["k_scale"][:, cache_len:end] = ks
-            cache["v_scale"][:, cache_len:end] = vs
+            ops.quantize_kv_into(k.contiguous(), v.contiguous(), cache,
+                                 cache_len)
             out = decode_attention(q, cache["k"], cache["v"], valid_len=end,
                                    k_scale=cache["k_scale"],
                                    v_scale=cache["v_scale"])

@@ -5,8 +5,9 @@ Each (token, head) vector is a unit block with its own scale, as TAC
 gives each block its own error bound.  ``quantize_kv`` (kernel 7) and
 ``dequantize_kv`` (kernel 8, then a cast) are the reference's names for
 :func:`~repro_torch.models.attention.quantize_heads` and
-:func:`~repro_torch.models.attention.dequantize_heads`, which also
-quantize each decode step's new K/V.
+:func:`~repro_torch.models.attention.dequantize_heads`.  A decode step's
+new K/V go through kernel 7 too, fused with the cache write
+(``repro_torch.kernels.ops.quantize_kv_into``).
 """
 from __future__ import annotations
 

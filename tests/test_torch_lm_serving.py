@@ -44,6 +44,7 @@ from repro.configs import smoke_config as r_smoke
 from repro_torch.configs import PORTED_IDS, RunConfig, get_config, smoke_config
 from repro_torch.convert import params_from_reference
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as tlay
 from repro_torch.models import model as tmodel
 from repro_torch.serving import ServingEngine, make_prefill_step, make_serve_step
@@ -109,6 +110,10 @@ def _reference_outputs(path: str) -> None:
                     lg, st = serve(params, st, {"tokens": jnp.asarray(
                         inp["forced"][:, i:i + 1])}, jnp.int32(P + i))
                     out[f"{qtag}/decode{i}"] = f32(lg)
+                if dtype == "bfloat16":
+                    for name, a in st.items():
+                        out[f"{qtag}/dstate/{name}"] = (
+                            np.asarray(a) if a.dtype == jnp.int8 else f32(a))
                 if dtype == "bfloat16":
                     out[f"{qtag}/generate"] = np.asarray(
                         rengine.ServingEngine(cfg, run).generate(
@@ -182,6 +187,7 @@ def _port_runs(ref, arch: str, dtype: str, kv_quant: bool) -> dict:
             lg, st = step(params, st, {"tokens": torch.from_numpy(
                 inp["forced"][:, i:i + 1])}, P + i)
             res["decode"].append(lg)
+        res["dstate"] = st
         _PORT[key] = res
     return _PORT[key]
 
@@ -266,7 +272,10 @@ def test_prefill_and_decode_logits_match_reference(ref, arch, dtype,
 @pytest.mark.parametrize("arch", ARCHS)
 def test_int8_cache_codes_match_reference(ref, arch):
     """Wherever the two prefills produced the same bf16 K/V vector, the
-    int8 caches of the serving path hold the same codes and scales."""
+    int8 caches of the serving path hold the same codes and scales; and
+    the decode steps' writes (the fused ``ops.quantize_kv_into``) hold the
+    reference's codes at layer 0, whose K/V both frameworks compute from
+    the forced tokens' embeddings alone."""
     bf = _port_runs(ref, arch, "bfloat16", False)["state"]
     q8 = _port_runs(ref, arch, "bfloat16", True)["state"]
     assert set(q8) == {"k", "v", "k_scale", "v_scale"}
@@ -283,6 +292,31 @@ def test_int8_cache_codes_match_reference(ref, arch):
             q8[name + "_scale"].numpy()[same],
             ref[f"{tag}/1/state/{name}_scale"][same])
         assert q8[name].dtype == torch.int8
+    bf_d = _port_runs(ref, arch, "bfloat16", False)["dstate"]
+    q8_d = _port_runs(ref, arch, "bfloat16", True)["dstate"]
+    steps = slice(P, P + T)
+    for name in ("k", "v"):
+        x = bf_d[name][0, :, steps]                 # (B, T, H, hd) bf16
+        hd = x.shape[-1]
+        assert (ref[f"{tag}/0/dstate/{name}"][0, :, steps]
+                == x.float().numpy()).all()
+        q, sc = kref.group_quant(x.reshape(-1, hd), hd)
+        got_q = q8_d[name][0, :, steps].reshape(-1, hd)
+        got_s = q8_d[name + "_scale"][0, :, steps].reshape(-1)
+        assert torch.equal(got_q, q) and torch.equal(got_s, sc[:, 0])
+        # the reference's decode step runs jitted, so its scales follow
+        # XLA's amax · float32(1/127) (ROADMAP §3); its codes equal the
+        # port's wherever the scales do
+        amax = x.float().abs().amax(dim=-1).reshape(-1).numpy()
+        want_s = ref[f"{tag}/1/dstate/{name}_scale"][0, :, steps].reshape(-1)
+        np.testing.assert_array_equal(want_s, np.where(
+            amax > 0, amax * (np.float32(1) / np.float32(127)),
+            np.float32(1)).astype(np.float32))
+        agree = want_s == got_s.numpy()
+        assert agree.mean() > 0.5, agree.mean()
+        np.testing.assert_array_equal(
+            got_q.numpy()[agree],
+            ref[f"{tag}/1/dstate/{name}"][0, :, steps].reshape(-1, hd)[agree])
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache",

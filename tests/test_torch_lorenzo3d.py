@@ -5,8 +5,9 @@ On the CPU the wrappers run their plain PyTorch versions; here they are
 held against the reference's numpy host path tile by tile, and against
 the Pallas kernels in interpret mode on inputs where float32 and float64
 quantization agree.  All comparisons are exact.  The CUDA kernels run
-only on a card: ``test_tiled_kernels_match_plain_on_card`` and
-``test_brick_recon_matches_plain_on_card`` are marked ``cuda`` and skip
+only on a card: ``test_tiled_kernels_match_plain_on_card``,
+``test_brick_recon_matches_plain_on_card`` and
+``test_brick_codes_match_plain_on_card`` are marked ``cuda`` and skip
 without one; the reference is imported inside the CPU tests, so that the
 card's tests run where JAX is not installed (``pytest --noconftest -m
 cuda``).
@@ -166,3 +167,101 @@ def test_brick_recon_matches_plain_on_card():
     codes = flat[1:].view(4, 16, 16, 16)
     assert torch.equal(ops.lorenzo3d_recon_batched(codes, 0.5),
                        ref.lorenzo3d_recon_batched(codes, 0.5))
+
+
+# (N, X, Y, Z) stacks for kernel 1.  Up to 2^17 values one thread per
+# element: small stacks of the main paths' shapes and odd ones.  Past it
+# the plane walk: the main paths' brick shapes (8^3 to 64^3, 48^3,
+# 8 x 16 x 16), one 64^3 brick (cut into X slabs and Y bands), odd Z (one
+# value a unit: whole bricks, Y bands); rows past 128 units take one
+# thread per element again
+K1_STACKS = [(3, 1, 1, 1), (5, 3, 5, 7), (37, 8, 8, 8), (7, 8, 16, 16),
+             (71, 8, 16, 8), (1, 64, 64, 32), (2, 2, 128, 64),
+             (300, 16, 16, 16), (600, 8, 8, 8), (90, 24, 16, 40),
+             (11, 32, 32, 32), (3, 48, 48, 48), (2, 64, 64, 64),
+             (1, 64, 64, 64), (130, 8, 16, 16), (13, 5, 64, 32),
+             (9, 2, 128, 64), (2000, 3, 5, 7), (40, 3, 40, 30),
+             (3, 8, 16, 512), (120, 3, 3, 129), (50, 3, 5, 201),
+             (60, 2, 9, 129)]
+
+
+@pytest.mark.parametrize("stack,route", [
+    ((300, 16, 16, 16), "planes"), ((1, 64, 64, 64), "planes"),
+    ((40, 3, 40, 30), "planes"), ((32, 16, 16, 16), "elementwise"),
+    ((1, 64, 64, 32), "elementwise"), ((1, 64, 64, 33), "planes"),
+    ((60, 2, 9, 129), "elementwise"), ((2, 64, 64, 512), "planes"),
+    ((2, 64, 64, 516), "elementwise")])
+def test_brick_codes_route_by_shape(stack, route):
+    x = torch.zeros(stack)
+    assert ops.codes_route(x) == route
+    assert (x.numel() <= ops.CODES_ELEMENTWISE_MAX) <= (route ==
+                                                         "elementwise")
+    # off 16-byte alignment a load takes one value: a row of 512 is long
+    flat = torch.zeros(1 + 2 * 64 * 64 * 512)
+    assert ops.codes_route(flat[1:].view(2, 64, 64, 512)) == "elementwise"
+
+
+@pytest.mark.cuda
+def test_brick_codes_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    routes = set()
+    for stack in K1_STACKS:
+        x = torch.from_numpy(_field(stack, 0.02, sum(stack))).to(dev)
+        routes.add(ops.codes_route(x))
+        assert torch.equal(ops.lorenzo3d_codes_batched(x, 0.02),
+                           ref.lorenzo3d_codes_batched(x, 0.02)), stack
+    assert routes == {"planes", "elementwise"}
+    # an eb that gives codes past 2^31
+    x = torch.from_numpy(_field((40, 16, 16, 16), 1e-3, 1) * 1e3).to(dev)
+    want = ref.lorenzo3d_codes_batched(x, 1e-7)
+    assert int(want.abs().max()) > 2 ** 31
+    assert torch.equal(ops.lorenzo3d_codes_batched(x, 1e-7), want)
+    # a storage offset that breaks the 16-byte alignment of the loads
+    flat = torch.from_numpy(_field((1 + 40 * 16 ** 3,), 0.5, 2)).to(dev)
+    x = flat[1:].view(40, 16, 16, 16)
+    assert torch.equal(ops.lorenzo3d_codes_batched(x, 0.5),
+                       ref.lorenzo3d_codes_batched(x, 0.5))
+    torch.cuda.synchronize()
+
+
+def test_prequant_ties_match_host_path():
+    """Quotients at and next to the ties of ``rint``: the port's prequant
+    and kernel 1's plain version equal the reference's host path."""
+    from repro.core import sz as rsz
+    from repro_torch.core import sz
+
+    eb = 1.3
+    x = (np.arange(-20000, 20000) * 2.6 + 1.3).astype(np.float32)
+    q = rsz.prequant(x, eb)
+    np.testing.assert_array_equal(sz.prequant(torch.from_numpy(x), eb).numpy(),
+                                  q)
+    stack = x.reshape(10, 16, 10, 25)
+    want = np.stack([rsz.lorenzo_nd_codes(rsz.prequant(b, eb)) for b in stack])
+    np.testing.assert_array_equal(
+        ops.lorenzo3d_codes_batched(torch.from_numpy(stack), eb).numpy(), want)
+
+
+@pytest.mark.cuda
+def test_prequant_divides_as_numpy_on_card():
+    """Quotients at and next to the ties of ``rint``: the port's prequant
+    (``sz.prequant``, kernel 1 and its plain version) rounds on the card
+    as numpy's division does, not as a product with the reciprocal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.core import sz
+
+    eb = 1.3
+    x = (np.arange(-20000, 20000) * 2.6 + 1.3).astype(np.float32)
+    want = np.round(x.astype(np.float64) / (2.0 * eb)).astype(np.int64)
+    xt = torch.from_numpy(x).cuda()
+    assert np.array_equal(sz.prequant(xt, eb).cpu().numpy(), want)
+    stack = xt.reshape(10, 16, 10, 25)
+    cpu = ref.lorenzo3d_codes_batched(stack.cpu(), eb)
+    assert torch.equal(ref.lorenzo3d_codes_batched(stack, eb).cpu(), cpu)
+    assert torch.equal(ops.lorenzo3d_codes_batched(stack, eb).cpu(), cpu)
+    big = torch.cat([stack] * 4).reshape(40, 16, 10, 25)
+    assert big.numel() > 2 ** 17
+    assert torch.equal(ops.lorenzo3d_codes_batched(big, eb).cpu(),
+                       ref.lorenzo3d_codes_batched(big.cpu(), eb))

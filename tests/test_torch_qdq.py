@@ -11,10 +11,13 @@ inside the reference stated and checked: under ``jax.jit`` XLA computes
 the scale ``amax / 127`` as ``amax · float32(1/127)``, one ulp away from
 the oracle's division in a few percent of the groups; there the scale
 is checked against that rule and the codes are compared where the
-scales agree.  The CUDA kernels run only on a
-card: ``test_qdq_kernels_match_plain_on_card`` is marked ``cuda`` and
-skips without one.
+scales agree.  The fused decode-step write (``ops.quantize_kv_into``)
+runs its plain version here, held against the composed route and the
+reference's eager decode write.  The CUDA kernels run only on a card:
+``test_qdq_kernels_match_plain_on_card`` (and, without JAX,
+``test_torch_qdq_card.py``) is marked ``cuda`` and skips without one.
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -225,6 +228,113 @@ def test_group_quant_serves_grad_compression(shape):
     d_r = rgc._dequant_leaf(q_r, s_r, shape)
     d = ops.group_dequant(q, s, 256).reshape(-1)[:g.size].reshape(shape)
     np.testing.assert_array_equal(d.numpy(), np.asarray(d_r))
+
+
+def _kv_step(B, Sq, H, hd, dtype, seed):
+    """A decode step's K and V (B, Sq, H, hd) as (numpy, torch) pairs, with
+    an all-zero head vector and exact .5 ties in K."""
+    k = _x((B, Sq, H, hd), seed, scale=2.0)
+    v = _x((B, Sq, H, hd), seed + 1, scale=2.0)
+    k[0, 0, 0] = 0.0
+    k[-1, -1, -1] = _ties(2, hd)[0]
+    if dtype == "bfloat16":
+        kn, vn = k.astype(ml_dtypes.bfloat16), v.astype(ml_dtypes.bfloat16)
+        to_t = (lambda a: torch.from_numpy(a.view(np.uint16).copy())
+                .view(torch.bfloat16))
+    else:
+        kn, vn, to_t = k, v, torch.from_numpy
+    return (kn, to_t(kn)), (vn, to_t(vn))
+
+
+def _int8_cache(lead, seed):
+    """An int8 cache with random contents (B, S, H, hd) / (B, S, H), so
+    that the entries a write must leave alone are checked too."""
+    rng = np.random.default_rng(seed)
+    return {n: torch.from_numpy(rng.integers(-127, 128, lead).astype(np.int8))
+            if n in ("k", "v") else
+            torch.from_numpy(rng.random(lead[:-1]).astype(np.float32))
+            for n in ("k", "v", "k_scale", "v_scale")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [1, 3])
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_fused_kv_write_matches_composed_route(dtype, sq, where):
+    """The fused decode-step write (one kernel-7 launch on the card) equals
+    the composed route, two ``quantize_heads`` and four slice copies, and
+    the reference's decode write (``_quantize_heads`` and
+    ``dynamic_update_slice_in_dim``, run eagerly) at the cache's first
+    position, in the middle and at capacity − Sq."""
+    from repro.models import attention as ratt
+    from repro_torch.models.attention import quantize_heads
+
+    B, S, H, hd = 2, 11, 3, 64
+    start = {"first": 0, "middle": 4, "last": S - sq}[where]
+    (kn, k), (vn, v) = _kv_step(B, sq, H, hd, dtype, seed=sq)
+    got = _int8_cache((B, S, H, hd), 9)
+    ops.quantize_kv_into(k, v, got, start)
+    want = _int8_cache((B, S, H, hd), 9)
+    for name, x in (("k", k), ("v", v)):
+        q, sc = quantize_heads(x)
+        want[name][:, start:start + sq] = q
+        want[name + "_scale"][:, start:start + sq] = sc
+    ref_cache = {n: jnp.asarray(t.numpy()) for n, t in
+                 _int8_cache((B, S, H, hd), 9).items()}
+    for name, x in (("k", kn), ("v", vn)):
+        q, sc = ratt._quantize_heads(jnp.asarray(x))
+        ref_cache[name] = jax.lax.dynamic_update_slice_in_dim(
+            ref_cache[name], q, start, axis=1)
+        ref_cache[name + "_scale"] = jax.lax.dynamic_update_slice_in_dim(
+            ref_cache[name + "_scale"], sc.astype(jnp.float32), start, axis=1)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(ref_cache[name]))
+
+
+def test_fused_kv_write_into_a_layer_of_the_stack():
+    """Written into one layer of a stacked (L, B, S, H, hd) cache (the
+    batch stride is the layer's), the other layers are left alone."""
+    L, B, S, H, hd, start = 3, 2, 6, 2, 128, 5
+    (_, k), (_, v) = _kv_step(B, 1, H, hd, "bfloat16", seed=4)
+    stack = _int8_cache((L, B, S, H, hd), 5)
+    want = {n: t.clone() for n, t in stack.items()}
+    ops.quantize_kv_into(k, v, {n: t[1] for n, t in stack.items()}, start)
+    ref.quantize_kv_into(k, v, {n: t[1] for n, t in want.items()}, start)
+    for name in stack:
+        assert torch.equal(stack[name], want[name]), name
+    assert not torch.equal(stack["k"][1], _int8_cache((L, B, S, H, hd),
+                                                      5)["k"][1])
+
+
+def test_fused_kv_write_checks_inputs():
+    B, Sq, H, hd, S = 2, 3, 2, 32, 8
+    (_, k), (_, v) = _kv_step(B, Sq, H, hd, "float32", seed=2)
+    cache = _int8_cache((B, S, H, hd), 1)
+    for start in (S - Sq + 1, S, -1):
+        with pytest.raises(ValueError, match="past the cache"):
+            ops.quantize_kv_into(k, v, cache, start)
+    with pytest.raises(TypeError):
+        ops.quantize_kv_into(k.double(), v.double(), cache, 0)
+    with pytest.raises(ValueError):
+        ops.quantize_kv_into(k, v.bfloat16(), cache, 0)
+    with pytest.raises(TypeError):
+        ops.quantize_kv_into(k, v, dict(cache, v=cache["v"].short()), 0)
+    with pytest.raises(TypeError):
+        ops.quantize_kv_into(k, v, dict(cache, k_scale=cache["k_scale"]
+                                        .double()), 0)
+    strided = k.transpose(0, 1).contiguous().transpose(0, 1)
+    assert strided.shape == k.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.quantize_kv_into(strided, v, cache, 0)
+    wide = torch.zeros(B, S, H, 2 * hd, dtype=torch.int8)[..., :hd]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.quantize_kv_into(k, v, dict(cache, k=wide), 0)
+    with pytest.raises(ValueError, match="does not match"):
+        ops.quantize_kv_into(k, v, dict(cache, v=cache["v"][:1]), 0)
+    # nothing was written by the refused calls
+    assert all(torch.equal(t, _int8_cache((B, S, H, hd), 1)[n])
+               for n, t in cache.items())
 
 
 @pytest.mark.cuda
