@@ -54,8 +54,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    cost per call, so they are also timed from a CUDA graph of 100 calls;
 5. kernels 5 and 6 against their plain versions on the GSP-padded finest
    level of phase 2's snapshot (512³), at ``tile = shape`` and at the
-   reference's default tile ``(8, 128, 128)``;
-6. LM serving with an int8 KV cache, through the user entry points:
+   reference's default tile ``(8, 128, 128)``.  At ``tile = shape``, on
+   the 128³ grid (from CUDA graphs) and at 512³ (events), every design
+   is held against the plain version and timed in turns: kernel 5's
+   plane walk beside its elementwise design, across units a thread and
+   blocks per SM, and with and without its zero test; kernel 6's planes
+   route beside its three-pass route (the kernels 5 and 6 of earlier
+   builds, through their C entries) and, at 128³, kernel 2's planes
+   route on a one-brick stack;
+6. the card against the reference's own files: the golden fixtures
+   (``tests/golden/{v1,v2_zlib,truncated_tacf}.tacz``) decode on the card
+   to ``expected.npz`` bit for bit, and the TAC GSP level of
+   ``tests/card_reference`` and its TAC+ snapshot (128³) compress on the
+   card to the reference's bytes and decode to the reference's recon;
+7. LM serving with an int8 KV cache, through the user entry points:
    deepseek-7b at full width and depth (30 layers, d_model 4096, 6.9 B
    parameters initialised on the card from a seeded generator, each
    layer's leaf at ``1/√fan_in`` as the reference's ``_init_leaf``
@@ -301,6 +313,108 @@ def k2_three_pass(torch, ops, build, codes, eb):
     return call, out
 
 
+def k5_call(torch, ops, build, x, eb, design: str, units: int = 0,
+            skip_zero: bool = True, blocks_per_sm: int = 0):
+    """A call of kernel 5 at ``tile = shape`` through its C entries, on
+    ``x``: ``design="walk"`` (the plane walk, with ``units`` a thread, the
+    zero test or not, ``blocks_per_sm``; defaults: ``ops``'), or
+    ``"elementwise"`` (one thread per element: the kernel 5 of earlier
+    builds).  Returns (call, output)."""
+    out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    lib = build.library("lorenzo3d")
+    units = units or ops.K5_UNITS
+    blocks_per_sm = blocks_per_sm or ops.K5_BLOCKS_PER_SM
+
+    def call():
+        if design == "walk":
+            rc = lib.lorenzo3d_codes_walk(
+                ops._ptr(x), ops._ptr(out), *x.shape, 2.0 * eb, units,
+                int(skip_zero), blocks_per_sm, ops._stream(x))
+        else:
+            rc = lib.lorenzo3d_codes(ops._ptr(x), ops._ptr(out), *x.shape,
+                                     *x.shape, 2.0 * eb, ops._stream(x))
+        check(rc == 0, f"K5 {design} launch failed with error {rc}")
+    return call, out
+
+
+def k6_call(torch, ops, build, codes, eb, design: str):
+    """A call of kernel 6 at ``tile = shape`` through its C entries, on
+    ``codes``: ``design="planes"`` (its route now), ``"three_pass"`` (the
+    kernel 6 of earlier builds) or ``"k2_planes"`` (kernel 2's planes route
+    on a one-brick stack).  Returns (call, output)."""
+    scratch = torch.empty_like(codes)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    lib = build.library("lorenzo3d")
+    args = (ops._ptr(codes), ops._ptr(scratch), ops._ptr(out))
+
+    def call():
+        if design == "planes":
+            rc = lib.lorenzo3d_recon_planes(*args, *codes.shape, 2.0 * eb,
+                                            ops._stream(codes))
+        elif design == "three_pass":
+            rc = lib.lorenzo3d_recon(*args, *codes.shape, *codes.shape,
+                                     2.0 * eb, ops._stream(codes))
+        else:
+            rc = lib.lorenzo3d_recon_bricks(*args, 1, *codes.shape, 2.0 * eb,
+                                            ops._stream(codes))
+        check(rc == 0, f"K6 {design} launch failed with error {rc}")
+    return call, out
+
+
+def k56_turns(torch, ops, ref, build, x, codes, eb, timer,
+              smi: str) -> dict:
+    """Kernels 5 and 6 at ``tile = shape`` on ``x`` and its ``codes``:
+    every design equal to the plain version, then timed in turns with
+    ``timer(call)`` (new, earlier, earlier, new); kernel 5's walk across
+    units a thread and blocks per SM (up, then down), and with and without
+    the zero test (on, off, off, on) at ``ops``' setting; kernel 2's planes
+    route on a one-brick stack where its route takes the shape."""
+    shape = tuple(x.shape)
+    want_c = ref.lorenzo3d_codes(x, eb, shape)
+    want_r = ref.lorenzo3d_recon(codes, eb, shape)
+    out = {"card": smi, "shape": shape,
+           "routes": [ops.codes3d_route(shape, shape),
+                      ops.recon3d_route(shape, shape)]}
+    k5 = {d: k5_call(torch, ops, build, x, eb, d)
+          for d in ("walk", "elementwise")}
+    k6_designs = ("planes", "three_pass") + (
+        ("k2_planes",) if ops.recon_route(shape) == "planes" else ())
+    k6 = {d: k6_call(torch, ops, build, codes, eb, d) for d in k6_designs}
+    for name, (call, got) in k5.items():
+        call()
+        check(torch.equal(got, want_c), f"K5 {name} != plain on {shape}")
+    for name, (call, got) in k6.items():
+        call()
+        check(torch.equal(got, want_r), f"K6 {name} != plain on {shape}")
+    for kern, designs, new, old in (("k5", k5, "walk", "elementwise"),
+                                    ("k6", k6, "planes", "three_pass")):
+        t = {new: [], old: []}
+        for d in (new, old, old, new):
+            t[d].append(timer(designs[d][0]))
+        out[f"{kern}_ms"] = t
+    if "k2_planes" in k6:
+        out["k2_planes_ms"] = [timer(k6["k2_planes"][0]) for _ in range(2)]
+    configs = [(u, b) for u in (1, 2, 4) for b in (1, 2, 4, 8)]
+    ab = {f"{u}x{b}": [] for u, b in configs}
+    for u, b in configs + configs[::-1]:
+        call, got = k5_call(torch, ops, build, x, eb, "walk", u,
+                            ops.K5_SKIP_ZERO, b)
+        call()
+        check(torch.equal(got, want_c), f"K5 walk {u}x{b} != plain")
+        ab[f"{u}x{b}"].append(timer(call))
+    out["k5_units_x_blocks_per_sm_ms"] = ab
+    skip = {"zero_test": [], "no_zero_test": []}
+    for on in (True, False, False, True):
+        call, got = k5_call(torch, ops, build, x, eb, "walk", 0, on)
+        call()
+        check(torch.equal(got, want_c), f"K5 walk skip_zero={on} != plain")
+        skip["zero_test" if on else "no_zero_test"].append(timer(call))
+    out["k5_zero_test_ms"] = skip
+    out["zero_share"] = float((x == 0).sum()) / x.numel()
+    out["bound_ms"] = bound(12 * x.numel(), 12 * x.numel())[0]
+    return out
+
+
 def k7_warp_route(torch, ops, build, x, group):
     """Kernel 7 on its warp route only (one warp per group; the kernel 7 of
     earlier builds) through its C entry, on ``x``: returns (codes, scales,
@@ -423,6 +537,100 @@ def k4_vs_serial(torch, ops, args, label: str, **kw) -> dict:
     return st
 
 
+def card_reference(torch, np, ops, tio, smi: str) -> dict:
+    """Phase 6: the card's output held to files the reference wrote.  The
+    golden fixtures decode on the card to ``expected.npz`` bit for bit;
+    the TAC GSP level of ``tests/card_reference`` (64³, ``lorenzo``,
+    written by the reference's host path) compresses on the card to the
+    reference's bytes and decodes on the card to the reference's recon,
+    with kernels 5 and 6 launched on their ``tile = shape`` routes; so
+    does its TAC+ snapshot (128³, two levels; kernels 1-4)."""
+    import importlib.util
+
+    tests = os.path.join(HERE, "tests")
+    spec = importlib.util.spec_from_file_location(
+        "make_card_reference",
+        os.path.join(tests, "card_reference", "make_card_reference.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    out = {"card": smi, "golden": {}}
+    with np.load(os.path.join(tests, "golden", "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    for name in ("v1", "v2_zlib", "truncated_tacf"):
+        with tio.TACZReader(os.path.join(tests, "golden", f"{name}.tacz"),
+                            device="cuda") as rd:
+            check(rd.verify(), f"golden {name}: container CRCs")
+            for li in range(rd.n_levels):
+                got = rd.read_level(li)
+                check(got.is_cuda and np.array_equal(
+                    got.cpu().numpy(), expected[f"level{li}"]),
+                    f"golden {name} level {li} != expected.npz on the card")
+            out["golden"][name] = rd.n_levels
+    with open(fixture.CONTAINER, "rb") as f:
+        want_bytes = f.read()
+    with np.load(fixture.RECON) as z:
+        want_recon = z["recon"]
+    data, mask, eb = fixture.level()
+    shape = fixture.SHAPE
+    out["routes"] = [ops.codes3d_route(shape, shape),
+                     ops.recon3d_route(shape, shape)]
+    check(out["routes"] == ["walk", "planes"],
+          f"K5/K6 routes on the fixture: {out['routes']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "card.tacz")
+        ops.reset_launches()
+        with tio.TACZWriter(path, eb=eb, device="cuda",
+                            **fixture.WRITER) as w:
+            w.add_level(data, mask, ratio=1)
+        out["launches_write"] = dict(ops.launches)
+        with open(path, "rb") as f:
+            check(f.read() == want_bytes,
+                  "the GSP level's file != the reference's bytes")
+    ops.reset_launches()
+    got, = tio.read(fixture.CONTAINER, device="cuda")
+    torch.cuda.synchronize()
+    out["launches_read"] = dict(ops.launches)
+    check(np.array_equal(got.cpu().numpy(), want_recon),
+          "the GSP level read on the card != the reference's recon")
+    check(out["launches_write"]["lorenzo3d_codes"] > 0
+          and out["launches_read"]["lorenzo3d_recon"] > 0,
+          "kernels 5/6 did not run on the fixture")
+    out["fixture_bytes"] = len(want_bytes)
+    # the TAC+ snapshot: compressed and written on the card, then the
+    # reference's file read on the card, each level held by its digest
+    from repro_torch.core import amr, hybrid
+
+    with open(fixture.TACPLUS_RECON) as f:
+        want_digests = json.load(f)["levels"]
+    with open(fixture.TACPLUS_CONTAINER, "rb") as f:
+        want_bytes = f.read()
+    ds = amr.synthetic_amr(**fixture.TACPLUS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tacplus.tacz")
+        ops.reset_launches()
+        res = hybrid.compress_amr(ds, eb=fixture.finest_eb(ds),
+                                  device="cuda")
+        tio.write(path, res, payload_codec="none", device="cuda")
+        out["tacplus_launches_write"] = dict(ops.launches)
+        check([fixture.digest(lr.recon.cpu().numpy()) for lr in res.levels]
+              == want_digests, "the TAC+ compress-time recon on the card "
+                               "!= the reference's")
+        with open(path, "rb") as f:
+            check(f.read() == want_bytes,
+                  "the TAC+ snapshot's file != the reference's bytes")
+    ops.reset_launches()
+    got = tio.read(fixture.TACPLUS_CONTAINER, device="cuda")
+    out["tacplus_launches_read"] = dict(ops.launches)
+    check([fixture.digest(g.cpu().numpy()) for g in got] == want_digests,
+          "the TAC+ snapshot read on the card != the reference's recon")
+    check(all(out["tacplus_launches_write"][k] > 0 for k in (
+        "lorenzo3d_codes_batched", "lorenzo3d_recon_batched", "hist"))
+          and out["tacplus_launches_read"]["huffdec"] > 0,
+          "kernels 1-4 did not run on the TAC+ snapshot")
+    out["tacplus_fixture_bytes"] = len(want_bytes)
+    return out
+
+
 def lm_consistency(torch, cfg, params, prompts, run) -> float:
     """Relative max error between the last-position logits of a prefill
     over all prompt tokens and those of a prefill over all but the last
@@ -459,7 +667,7 @@ def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
 
 
 def lm_serving(torch, smi: str) -> list[dict]:
-    """Phase 6: LM serving with an int8 KV cache at deepseek-7b's full
+    """Phase 7: LM serving with an int8 KV cache at deepseek-7b's full
     width and depth.  Returns the kernel rows of kernels 7 and 8."""
     import statistics
 
@@ -784,9 +992,13 @@ def main() -> int:
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, log in build.build_logs().items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the mangled name past the anonymous namespace's prefix
+                fn = line.split("'")[1].split("_cu_")[-1][:64]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {fn}: {line.strip()}")
 
     # ---------------------------------------------------------- 2. main path
     t0 = time.perf_counter()
@@ -1214,7 +1426,12 @@ def main() -> int:
               f"K6 != plain on the TAC path's grid at tile {tile}")
     n_el = padded.numel()
     tac_grid = {"card": smi, "shape": gshape, "values": n_el,
-                "zero_share": float((padded == 0).sum()) / n_el}
+                "zero_share": float((padded == 0).sum()) / n_el,
+                "routes": [ops.codes3d_route(gshape, gshape),
+                           ops.recon3d_route(gshape, gshape)]}
+    check(tac_grid["routes"] == ["walk", "planes"],
+          f"K5/K6 routes on the TAC path's grid: {tac_grid['routes']}")
+    codes = ops.lorenzo3d_codes(padded, eb4, gshape)
     tac_grid["bound_ms"] = bound(12 * n_el, 12 * n_el)[0]
     tac_grid["k5_ms"] = cuda_ms(
         lambda: ops.lorenzo3d_codes(padded, eb4, gshape), 200, torch)
@@ -1230,6 +1447,12 @@ def main() -> int:
         lambda: ops.lorenzo3d_recon(codes, eb4, gshape), 100, torch)
     print("K5/K6 == plain on the TAC path's GSP grid at both tiles: "
           + json.dumps(tac_grid))
+    # the designs in turns from CUDA graphs: a 128³ launch is about as
+    # short as the host's cost per call
+    grid_turns = k56_turns(torch, ops, ref, build, padded, codes, eb4,
+                           lambda call: graph_ms(call, 100, torch), smi)
+    print("K5/K6 designs on the TAC path's GSP grid (graph ms, in turns): "
+          + json.dumps(grid_turns))
     del padded, codes, recon
 
     # ------------------------------------------------- 5. K5/K6 vs plain
@@ -1237,7 +1460,11 @@ def main() -> int:
     n_el = padded.numel()
     print(f"K5/K6 input: GSP-padded finest level of phase 2, "
           f"{tuple(padded.shape)}, {n_el} values, zero share "
-          f"{float((padded == 0).sum()) / n_el}")
+          f"{float((padded == 0).sum()) / n_el}, routes "
+          f"{ops.codes3d_route(SHAPE, SHAPE)}, "
+          f"{ops.recon3d_route(SHAPE, SHAPE)}")
+    check([ops.codes3d_route(SHAPE, SHAPE), ops.recon3d_route(SHAPE, SHAPE)]
+          == ["walk", "planes"], f"K5/K6 routes at {SHAPE}")
     for tile in (SHAPE, (8, 128, 128)):
         codes = ops.lorenzo3d_codes(padded, eb, tile)
         check(torch.equal(codes, ref.lorenzo3d_codes(padded, eb, tile)),
@@ -1248,17 +1475,34 @@ def main() -> int:
         print(f"K5/K6 == plain at tile {tile}")
         del codes, recon
     codes = ops.lorenzo3d_codes(padded, eb, SHAPE)
-    row("lorenzo3d_codes", 0,
-        cuda_ms(lambda: ops.lorenzo3d_codes(padded, eb, SHAPE), 20, torch),
-        cuda_ms(lambda: ref.lorenzo3d_codes(padded, eb, SHAPE), 3, torch),
-        12 * n_el, 12 * n_el, None, launches4["lorenzo3d_codes"])
-    row("lorenzo3d_recon", 0,
-        cuda_ms(lambda: ops.lorenzo3d_recon(codes, eb, SHAPE), 20, torch),
-        cuda_ms(lambda: ref.lorenzo3d_recon(codes, eb, SHAPE), 3, torch),
-        12 * n_el, 5 * n_el, None, launches4["lorenzo3d_recon"])
+    big_turns = k56_turns(torch, ops, ref, build, padded, codes, eb,
+                          lambda call: cuda_ms(call, 10, torch), smi)
+    print(f"K5/K6 designs at {SHAPE} (event ms, in turns): "
+          + json.dumps(big_turns))
+    for name, new, old, fn, ops_count in (
+            ("lorenzo3d_codes", "walk", "elementwise",
+             lambda: ops.lorenzo3d_codes(padded, eb, SHAPE), 12 * n_el),
+            ("lorenzo3d_recon", "planes", "three_pass",
+             lambda: ops.lorenzo3d_recon(codes, eb, SHAPE), 5 * n_el)):
+        key = "k5" if name == "lorenzo3d_codes" else "k6"
+        plain = (lambda: ref.lorenzo3d_codes(padded, eb, SHAPE)) \
+            if key == "k5" else (lambda: ref.lorenzo3d_recon(codes, eb, SHAPE))
+        rows.append(kernel_row(
+            name, 0, cuda_ms(fn, 20, torch), cuda_ms(plain, 3, torch),
+            12 * n_el, ops_count, None, launches4[name], smi,
+            design=big_turns["routes"][key == "k6"],
+            ms_turns=big_turns[f"{key}_ms"][new],
+            earlier_design_ms_turns=big_turns[f"{key}_ms"][old],
+            grid_128_graph_ms=grid_turns[f"{key}_ms"][new],
+            grid_128_earlier_design_graph_ms=grid_turns[f"{key}_ms"][old],
+            grid_128_bound_ms=grid_turns["bound_ms"]))
     del padded, codes
 
-    # ------------------------------------------------- 6. LM serving
+    # ------------------------------------- 6. the card against the reference
+    print("card vs the reference's files: " + json.dumps(
+        card_reference(torch, np, ops, tio, smi)))
+
+    # ------------------------------------------------- 7. LM serving
     rows += lm_serving(torch, smi)
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")

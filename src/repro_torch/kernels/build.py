@@ -42,6 +42,9 @@ SIGNATURES = {
     ("lorenzo3d", "lorenzo3d_recon_bricks"):
         (_P, _P, _P, _L, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_codes"): (_P, _P, _I, _I, _I, _I, _I, _I, _D, _P),
+    ("lorenzo3d", "lorenzo3d_codes_walk"):
+        (_P, _P, _I, _I, _I, _D, _I, _I, _I, _P),
+    ("lorenzo3d", "lorenzo3d_recon_planes"): (_P, _P, _P, _I, _I, _I, _D, _P),
     ("lorenzo3d", "lorenzo3d_recon"):
         (_P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P),
     ("hist", "hist_codes"): (_P, _L, _L, _I, _P, _I, _P),

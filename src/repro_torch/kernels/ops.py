@@ -10,7 +10,9 @@ Each wrapper checks dtype, shape and contiguity, then:
 There is no fallback: a CUDA tensor reaches its kernel or an exception.
 Some kernels choose a route from what the host already knows: the brick
 codes (kernel 1, :func:`codes_route`) and recon (kernel 2,
-:func:`recon_route`) from the stack's shape, the quantizer (kernel 7, in
+:func:`recon_route`) from the stack's shape, the single-array codes and
+recon (kernels 5 and 6, :func:`codes3d_route`, :func:`recon3d_route`)
+from the shape and the tile, the quantizer (kernel 7, in
 C) from the group size, the number of groups and the pointers'
 alignment, the Huffman decode (kernel 4) by a chunk plan of the
 payloads' bits (:func:`huffdec_plan`) that leaves payloads it cannot
@@ -41,10 +43,11 @@ from . import build, ref
 
 __all__ = ["launches", "reset_launches", "codes_route",
            "CODES_ELEMENTWISE_MAX", "lorenzo3d_codes_batched",
-           "lorenzo3d_recon_batched", "recon_route", "lorenzo3d_codes",
-           "lorenzo3d_recon", "hist", "huffdec", "huffdec_plan",
-           "HUFF_CHUNK_BITS", "huffdec_stats", "group_quant",
-           "quantize_kv_into", "group_dequant"]
+           "lorenzo3d_recon_batched", "recon_route", "codes3d_route",
+           "recon3d_route", "CODES3D_MAX_Z", "RECON3D_MAX_Z",
+           "lorenzo3d_codes", "lorenzo3d_recon", "hist", "huffdec",
+           "huffdec_plan", "HUFF_CHUNK_BITS", "huffdec_stats",
+           "group_quant", "quantize_kv_into", "group_dequant"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lorenzo3d_codes_batched": 0, "lorenzo3d_recon_batched": 0,
@@ -59,6 +62,21 @@ CODES_ELEMENTWISE_MAX = 1 << 17
 
 #: Shared memory one block of the brick recon may use (H100: 227 KB).
 RECON_SMEM_BUDGET = 232448
+
+#: Longest Z row kernel 5's plane walk takes (``codes3d_route``): 128
+#: 16-byte loads (512 loads of one value, off 16-byte alignment or with
+#: Z % 4 != 0, at 4 units a thread).
+CODES3D_MAX_Z = 512
+#: Kernel 5's walk: units a thread, the zero test, blocks per SM aimed at
+#: (the best of 1/2/4 units × 1/2/4/8 blocks per SM at 128³ and 512³ on an
+#: H100, ``chip_smoke.py``).
+K5_UNITS = 1
+K5_SKIP_ZERO = True
+K5_BLOCKS_PER_SM = 4
+
+#: Longest Z row kernel 6's planes route takes (``recon3d_route``): one
+#: band row and the carry row, 64 KB of int64, in shared memory.
+RECON3D_MAX_Z = 4096
 
 #: Bits per chunk of the parallel Huffman decode (kernel 4).
 HUFF_CHUNK_BITS = 64
@@ -179,21 +197,59 @@ def lorenzo3d_recon_batched(codes: torch.Tensor, eb: float) -> torch.Tensor:
     return out
 
 
+def _whole_array(shape: tuple[int, int, int], tile: tuple[int, int, int],
+                 max_z: int) -> bool:
+    """``tile = shape``, rows of at most ``max_z`` values, and (Y, Z)
+    planes of 32-bit indices: what the single-array kernels' new routes
+    take."""
+    y, z = int(shape[1]), int(shape[2])
+    return tuple(int(t) for t in tile) == tuple(int(s) for s in shape) \
+        and z <= max_z and y * z < 2 ** 31
+
+
+def codes3d_route(shape: tuple[int, int, int],
+                  tile: tuple[int, int, int]) -> str:
+    """Kernel 5's route for an (X, Y, Z) array and its (checked) tile,
+    from the two alone: ``"walk"`` (kernel 1's plane walk on a one-brick
+    stack) at ``tile = shape`` for rows of at most :data:`CODES3D_MAX_Z`
+    values, else ``"elementwise"`` (one thread per element, any tile)."""
+    return "walk" if _whole_array(shape, tile, CODES3D_MAX_Z) else \
+        "elementwise"
+
+
+def recon3d_route(shape: tuple[int, int, int],
+                  tile: tuple[int, int, int]) -> str:
+    """Kernel 6's route for an (X, Y, Z) array and its (checked) tile,
+    from the two alone: ``"planes"`` (Y and Z scans of each X plane in
+    shared memory, then the X scan fused with the dequant) at ``tile =
+    shape`` for rows of at most :data:`RECON3D_MAX_Z` values, else
+    ``"three_pass"`` (three scans through device memory, any tile)."""
+    return "planes" if _whole_array(shape, tile, RECON3D_MAX_Z) else \
+        "three_pass"
+
+
 def lorenzo3d_codes(x: torch.Tensor, eb: float,
                     tile: tuple[int, int, int]) -> torch.Tensor:
     """(X,Y,Z) float32 array → int64 Lorenzo codes of
-    ``rint(float64(x) / 2eb)`` with a zero halo per ``tile`` (kernel 5).
-    The tile is clamped to the shape and must divide it (``ValueError``
-    otherwise); ``tile = shape`` is the global Lorenzo of the array."""
+    ``rint(float64(x) / 2eb)`` with a zero halo per ``tile`` (kernel 5),
+    routed by :func:`codes3d_route`.  The tile is clamped to the shape
+    and must divide it (``ValueError`` otherwise); ``tile = shape`` is the
+    global Lorenzo of the array."""
     name = "lorenzo3d_codes"
     _require(name, x, torch.float32, 3)
     tile = ref.check_tile(tuple(x.shape), tile)
     if not _on_cuda(name, x):
         return ref.lorenzo3d_codes(x, eb, tile)
     out = torch.empty(x.shape, dtype=torch.int64, device=x.device)
+    lib = build.library("lorenzo3d")
     with torch.cuda.device(x.device):
-        rc = build.library("lorenzo3d").lorenzo3d_codes(
-            _ptr(x), _ptr(out), *x.shape, *tile, 2.0 * eb, _stream(x))
+        if codes3d_route(tuple(x.shape), tile) == "walk":
+            rc = lib.lorenzo3d_codes_walk(
+                _ptr(x), _ptr(out), *x.shape, 2.0 * eb, K5_UNITS,
+                int(K5_SKIP_ZERO), K5_BLOCKS_PER_SM, _stream(x))
+        else:
+            rc = lib.lorenzo3d_codes(_ptr(x), _ptr(out), *x.shape, *tile,
+                                     2.0 * eb, _stream(x))
     _launched(name, rc)
     return out
 
@@ -201,19 +257,27 @@ def lorenzo3d_codes(x: torch.Tensor, eb: float,
 def lorenzo3d_recon(codes: torch.Tensor, eb: float,
                     tile: tuple[int, int, int]) -> torch.Tensor:
     """(X,Y,Z) int64 codes → float32 recon, scans restarting at every
-    ``tile`` edge (kernel 6); the tile is checked as in
-    :func:`lorenzo3d_codes`."""
+    ``tile`` edge (kernel 6), routed by :func:`recon3d_route`; the tile is
+    checked as in :func:`lorenzo3d_codes`."""
     name = "lorenzo3d_recon"
     _require(name, codes, torch.int64, 3)
     tile = ref.check_tile(tuple(codes.shape), tile)
     if not _on_cuda(name, codes):
         return ref.lorenzo3d_recon(codes, eb, tile)
+    # int64 partial sums: the planes route's between its two passes, the
+    # three-pass route's between its scans
     scratch = torch.empty_like(codes)
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    lib = build.library("lorenzo3d")
     with torch.cuda.device(codes.device):
-        rc = build.library("lorenzo3d").lorenzo3d_recon(
-            _ptr(codes), _ptr(scratch), _ptr(out), *codes.shape, *tile,
-            2.0 * eb, _stream(codes))
+        if recon3d_route(tuple(codes.shape), tile) == "planes":
+            rc = lib.lorenzo3d_recon_planes(
+                _ptr(codes), _ptr(scratch), _ptr(out), *codes.shape,
+                2.0 * eb, _stream(codes))
+        else:
+            rc = lib.lorenzo3d_recon(
+                _ptr(codes), _ptr(scratch), _ptr(out), *codes.shape, *tile,
+                2.0 * eb, _stream(codes))
     _launched(name, rc)
     return out
 

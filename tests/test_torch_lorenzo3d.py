@@ -265,3 +265,105 @@ def test_prequant_divides_as_numpy_on_card():
     assert big.numel() > 2 ** 17
     assert torch.equal(ops.lorenzo3d_codes_batched(big, eb).cpu(),
                        ref.lorenzo3d_codes_batched(big.cpu(), eb))
+
+
+# (shape, tile) → kernel 5's and kernel 6's routes: the new kernels at
+# tile = shape within their row limits (Z ≤ 512 for the walk, Z ≤ 4096
+# for the planes), the elementwise and three-pass kernels for any other
+# tile and for longer rows, as the tensor codec sends them
+ROUTES_3D = [
+    ((128, 128, 128), (128, 128, 128), "walk", "planes"),
+    ((512, 512, 512), (512, 512, 512), "walk", "planes"),
+    ((512, 512, 512), (8, 128, 128), "elementwise", "three_pass"),
+    ((64, 256, 512), (64, 256, 512), "walk", "planes"),
+    ((3, 64, 1030), (3, 64, 1030), "elementwise", "planes"),
+    ((5, 7, 9), (5, 7, 9), "walk", "planes"),
+    ((1, 1, 1), (1, 1, 1), "walk", "planes"),
+    ((2, 3, 513), (2, 3, 513), "elementwise", "planes"),
+    ((2, 3, 4096), (2, 3, 4096), "elementwise", "planes"),
+    ((1, 1, 4097), (1, 1, 4097), "elementwise", "three_pass"),
+    ((1, 1, 10 ** 7), (1, 1, 10 ** 7), "elementwise", "three_pass"),
+    ((8, 16, 16), (2, 4, 4), "elementwise", "three_pass"),
+]
+
+
+@pytest.mark.parametrize("shape,tile,codes,recon", ROUTES_3D)
+def test_single_array_routes_by_shape_and_tile(shape, tile, codes, recon):
+    t = ref.check_tile(shape, tile)
+    assert ops.codes3d_route(shape, t) == codes
+    assert ops.recon3d_route(shape, t) == recon
+    assert (codes == "walk") == (t == shape and shape[2] <=
+                                 ops.CODES3D_MAX_Z)
+    assert (recon == "planes") == (t == shape and shape[2] <=
+                                   ops.RECON3D_MAX_Z)
+
+
+def test_tensor_codec_shapes_take_routes_by_shape():
+    # the tensor codec hands kernels 5 and 6 any rank-3 float32 tensor
+    # whole (tile = shape): the route follows its row length alone
+    for shape in [(4, 4, 4), (2, 3, 600), (1, 2, 5000), (7, 1, 3)]:
+        route = ops.codes3d_route(shape, shape)
+        assert route == ("walk" if shape[2] <= 512 else "elementwise")
+        route = ops.recon3d_route(shape, shape)
+        assert route == ("planes" if shape[2] <= 4096 else "three_pass")
+
+
+# shapes and tiles for kernels 5 and 6 on the card: the paths' grids
+# (128³, 512³), odd and tiny arrays, rows with Z % 4 != 0 that are long
+# for the walk, a wide plane, each at tile = shape and at the reference's
+# default tile
+CARD_3D = [(128, 128, 128), (512, 512, 512), (5, 7, 9), (1, 3, 17),
+           (1, 1, 1), (3, 64, 1030), (64, 256, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_3D)
+def test_single_array_kernels_match_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    eb = 0.02
+    x = torch.randn(shape, generator=gen, device="cuda") * (40.0)
+    x[..., :1] = 0.0  # zeros, which the walk's zero test skips
+    # the default tile where it divides the shape, else half rows
+    default = (8, 128, 128) if shape[2] % min(128, shape[2]) == 0 else \
+        (8, 128, shape[2] // 2)
+    for tile in (shape, default):
+        t = ref.check_tile(shape, tile)
+        codes = ops.lorenzo3d_codes(x, eb, t)
+        assert torch.equal(codes, ref.lorenzo3d_codes(x, eb, t)), (shape, t)
+        assert torch.equal(ops.lorenzo3d_recon(codes, eb, t),
+                           ref.lorenzo3d_recon(codes, eb, t)), (shape, t)
+        del codes
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_single_array_kernels_on_views_and_wide_sums_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # a storage offset that breaks the 16-byte alignment of the loads
+    for shape in [(16, 64, 128), (9, 33, 512), (4, 6, 10)]:
+        n = shape[0] * shape[1] * shape[2]
+        flat = torch.randn(n + 1, generator=gen, device="cuda") * 50
+        x = flat[1:].view(shape)
+        assert ops.codes3d_route(shape, shape) == "walk"
+        codes = ops.lorenzo3d_codes(x, 0.5, shape)
+        assert torch.equal(codes, ref.lorenzo3d_codes(x, 0.5, shape))
+        iflat = torch.empty(n + 1, dtype=torch.int64, device="cuda")
+        iflat[1:] = codes.reshape(-1)
+        view = iflat[1:].view(shape)
+        assert torch.equal(ops.lorenzo3d_recon(view, 0.5, shape),
+                           ref.lorenzo3d_recon(view, 0.5, shape))
+    # an eb that gives codes and prefix sums past 2^31
+    shape = (64, 64, 64)
+    x = torch.rand(shape, generator=gen, device="cuda") * 1e3 + 1e3
+    codes = ops.lorenzo3d_codes(x, 1e-7, shape)
+    want = ref.lorenzo3d_codes(x, 1e-7, shape)
+    assert int(want.abs().max()) > 2 ** 31
+    assert torch.equal(codes, want)
+    recon = ops.lorenzo3d_recon(codes, 1e-7, shape)
+    assert torch.equal(recon, ref.lorenzo3d_recon(codes, 1e-7, shape))
+    assert float(recon.abs().max()) > 2 ** 31 * 2e-7
+    torch.cuda.synchronize()
