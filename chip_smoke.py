@@ -17,7 +17,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    them, and ``max|recon − orig|`` over each mask must stay within
    ``eb + 2⁻²²·max|orig|``.  Kernel launch counts are reset just before
    and read just after; every kernel must have launched.  The brick
-   shapes the path sends kernels 1 and 2 are recorded;
+   shapes the path sends kernels 1 and 2 are recorded.  The read must
+   make fewer than 1,000 device launches (``torch.profiler``); the
+   finest level's placement (one ``index_copy_`` per shape group) is held
+   against a per-brick loop of slice copies on the same decoded bricks
+   and timed beside it in turns;
+2b. region serving on phase 2's snapshot: ``RegionServer(path,
+   device="cuda")`` with a cache of 25 % of the decoded level bytes
+   (150,994,944 B at 512³), on the reference bench's workload (six boxes
+   of side 170 stepping by 85).  The cold batch (launch counts reset
+   before and read after: kernels 2 and 4), the warm batch three times
+   (launches, busy share), the uncached ``read_roi`` replay and the cache
+   statistics are printed, with warm/cold beside the reference bench's 3×
+   bar (printed, not enforced).  Every crop, cold, warm and from a second
+   server fed by ``cache_export`` → ``cache_import`` (zero misses), must
+   equal ``read_roi`` and the slice of phase 2's decoded levels bit for
+   bit.  Then the GSP level of ``tests/card_reference`` is served through
+   its whole-level key: kernel 6 must launch, and the crop must equal the
+   reference's recon;
 3. kernels 1-4 against their plain PyTorch versions on the card, at the
    main path's shapes (exact agreement required), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
@@ -537,6 +554,155 @@ def k4_vs_serial(torch, ops, args, label: str, **kw) -> dict:
     return st
 
 
+def synced(torch, fn):
+    """``(fn(), wall seconds)``, the work ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def placement_turns(torch, tio, path: str, smi: str) -> dict:
+    """The reader's batched placement (one ``index_copy_`` per shape
+    group) against a per-brick loop of slice copies, written here, on the
+    same decoded bricks of the finest level: bit-identical, timed in turns
+    (batched, loop, loop, batched) and each under the profiler."""
+    with tio.TACZReader(path, device="cuda") as rd:
+        e = rd.levels[0]
+        groups = [(recon, [e.subblocks[p].origin for p in poss])
+                  for poss, recon in rd._decode_groups(
+                      0, [(sbi, None) for sbi in range(len(e.subblocks))])]
+
+        def batched():
+            acc = torch.zeros(e.grid_shape, dtype=torch.float32,
+                              device="cuda")
+            rd._place(acc, (0, 0, 0), groups)
+            return acc
+
+        def loop():
+            acc = torch.zeros(e.grid_shape, dtype=torch.float32,
+                              device="cuda")
+            for stack, origins in groups:
+                for brick, o in zip(stack, origins):
+                    acc[tuple(slice(a, a + n) for a, n
+                              in zip(o, brick.shape))] = brick
+            return acc
+
+        check(torch.equal(batched(), loop()),
+              "batched placement != the per-brick loop on the finest level")
+        out = {"card": smi, "bricks": len(e.subblocks),
+               "groups": len(groups), "batched_s": [], "loop_s": []}
+        for name, fn in (("batched_s", batched), ("loop_s", loop),
+                         ("loop_s", loop), ("batched_s", batched)):
+            out[name].append(synced(torch, fn)[1])
+        for name, fn in (("batched", batched), ("loop", loop)):
+            prof = device_profile(torch, fn)
+            out[f"{name}_launches"] = prof["kernel_launches"]
+            out[f"{name}_kernel_ms"] = prof["kernel_ms"]
+            out[f"{name}_wall_ms"] = prof["wall_ms"]
+    return out
+
+
+def region_workload() -> list:
+    """The reference bench's workload (``benchmarks/bench_region_serving
+    ._workload``) at ``SHAPE``: six boxes of a third of the side, stepping
+    by half a box, so neighbours share sub-blocks."""
+    side = max(4, SHAPE[0] // 3)
+    step = max(2, side // 2)
+    return [((ox, ox + side), (oy, oy + side), (0, side))
+            for ox in (0, step, 2 * step) for oy in (0, step)]
+
+
+def region_serving(torch, np, ops, tio, path: str, levels, smi: str,
+                   ) -> dict:
+    """Phase 2b: ``RegionServer`` on phase 2's snapshot, on the card, with
+    a cache of 25 % of the decoded level bytes: the cold batch (launch
+    counts reset just before and read just after; kernels 2 and 4 must
+    launch), the warm batch three times, the uncached ``read_roi`` replay,
+    and a second server warmed by ``cache_export`` → ``cache_import``.
+    Every crop equals ``read_roi`` and the slice of phase 2's decoded
+    levels bit for bit.  Then a GSP level (``tests/card_reference``)
+    served through its whole-level key: kernel 6 must launch."""
+    from repro_torch.serving import RegionServer
+
+    boxes = region_workload()
+    budget = sum(lv.numel() * lv.element_size() for lv in levels) // 4
+    out = {"card": smi, "boxes": boxes, "budget_bytes": budget}
+
+    def same(crops, label):
+        for per_box in crops:
+            for c in per_box:
+                want = levels[c.level][tuple(slice(lo, hi) for lo, hi in c.box)]
+                check(c.data.is_cuda and torch.equal(c.data, want),
+                      f"region serving: {label} crop of level {c.level} "
+                      f"box {c.box} != the decoded level's slice")
+
+    with RegionServer(path, cache_bytes=budget, device="cuda") as srv:
+        ops.reset_launches()
+        cold, out["cold_s"] = synced(torch, lambda: srv.get_regions(boxes))
+        out["launches"] = dict(ops.launches)
+        out["cold_stats"] = srv.cache.stats()
+        ops.reset_launches()
+        out["warm_s"] = []
+        for _ in range(3):
+            warm, t = synced(torch, lambda: srv.get_regions(boxes))
+            out["warm_s"].append(t)
+        out["warm_launches_3_batches"] = dict(ops.launches)
+        out["stats"] = srv.cache.stats()
+        check(all(b.is_cuda for b in srv.cache._od.values()),
+              "a cached brick is not in device memory")
+        out["cache_device_bytes"] = sum(
+            b.numel() * b.element_size() for b in srv.cache._od.values())
+        out["warm_profile"] = device_profile(
+            torch, lambda: srv.get_regions(boxes))
+        same(cold, "cold")
+        same(warm, "warm")
+        blob = srv.cache_export(srv.reader.subblock_keys())
+    out["export_bytes"] = len(blob)
+    with tio.TACZReader(path, device="cuda") as rd:
+        replay, out["read_roi_replay_s"] = synced(
+            torch, lambda: [rd.read_roi(b) for b in boxes])
+        same(replay, "read_roi")
+        for c, r in zip(cold, replay):
+            for a, b in zip(c, r):
+                check(torch.equal(a.data, b.data),
+                      "region serving: cold crop != read_roi")
+    with RegionServer(path, cache_bytes=budget, device="cuda") as srv2:
+        out["import"] = srv2.cache_import(blob)
+        imported, out["imported_warm_s"] = synced(
+            torch, lambda: srv2.get_regions(boxes))
+        out["imported_stats"] = srv2.cache.stats()
+        check(out["imported_stats"]["misses"] == 0,
+              f"imported cache missed: {out['imported_stats']}")
+        same(imported, "imported-cache")
+    warm_med = sorted(out["warm_s"])[1]
+    out["warm_over_cold"] = out["cold_s"] / warm_med
+    out["reference_bench_bar"] = 3.0
+    check(out["launches"]["huffdec"] > 0
+          and out["launches"]["lorenzo3d_recon_batched"] > 0,
+          f"kernels 2/4 never launched serving regions: {out['launches']}")
+    # a whole-level key: the TAC GSP level of tests/card_reference
+    gsp = os.path.join(HERE, "tests", "card_reference", "gsp_lorenzo.tacz")
+    with np.load(os.path.join(HERE, "tests", "card_reference",
+                              "gsp_lorenzo_recon.npz")) as z:
+        recon = z["recon"]
+    box = ((5, 47), (0, 64), (20, 33))
+    with RegionServer(gsp, device="cuda") as srv3:
+        ops.reset_launches()
+        crop, out["gsp_cold_s"] = synced(torch, lambda: srv3.get_roi(box))
+        out["gsp_launches"] = dict(ops.launches)
+        warm_crop = srv3.get_roi(box)
+    for c in (crop, warm_crop):
+        check(np.array_equal(c[0].data.cpu().numpy(), recon[tuple(
+            slice(lo, hi) for lo, hi in box)]),
+            "region serving: the GSP level's crop != the reference's recon")
+    check(out["gsp_launches"]["lorenzo3d_recon"] > 0,
+          f"kernel 6 never launched on a whole-level key: "
+          f"{out['gsp_launches']}")
+    return out
+
+
 def card_reference(torch, np, ops, tio, smi: str) -> dict:
     """Phase 6: the card's output held to files the reference wrote.  The
     golden fixtures decode on the card to ``expected.npz`` bit for bit;
@@ -1013,9 +1179,9 @@ def main() -> int:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stages = {}
-    with tempfile.TemporaryDirectory() as tmp, \
-            RecordBrickShapes(ops) as shapes2:
-        path = os.path.join(tmp, "snap.tacz")
+    snap_dir = tempfile.TemporaryDirectory()      # kept for phase 2b
+    with RecordBrickShapes(ops) as shapes2:
+        path = os.path.join(snap_dir.name, "snap.tacz")
         t0 = time.perf_counter()
         res = hybrid.compress_amr(ds, eb=eb, device="cuda")
         torch.cuda.synchronize()
@@ -1036,6 +1202,9 @@ def main() -> int:
         read_ab = read_turns(torch, ops, lambda: tio.read(path, device="cuda"))
         read_prof = device_profile(torch,
                                    lambda: tio.read(path, device="cuda"))
+        roi_prof = device_profile(
+            torch, lambda: tio.read_roi(path, ROI_BOX, device="cuda"))
+        placement = placement_turns(torch, tio, path, smi)
         with tio.TACZReader(path, device="cuda") as rd:
             check(rd.verify(), "container CRCs")
             entry0 = rd.levels[0]
@@ -1070,10 +1239,21 @@ def main() -> int:
           "turns): " + json.dumps({"card": smi, **read_ab}))
     print("main path read, device time by kernel: "
           + json.dumps({"card": smi, **read_prof}))
+    print("main path read_roi, device time by kernel: "
+          + json.dumps({"card": smi, **roi_prof}))
+    print("finest level placement, batched vs per-brick loop (s, in "
+          "turns): " + json.dumps(placement))
     for name in ("lorenzo3d_codes_batched", "lorenzo3d_recon_batched",
                  "hist", "huffdec"):
         check(launches[name] > 0,
               f"kernel {name} never launched on the main path")
+    check(read_prof["kernel_launches"] < 1000,
+          f"the read made {read_prof['kernel_launches']} launches")
+
+    # ------------------------------------------------ 2b. region serving
+    region = region_serving(torch, np, ops, tio, path, levels, smi)
+    print("region serving: " + json.dumps(region))
+    snap_dir.cleanup()
 
     # ------------------------------------------------- 3. kernels vs plain
     rows = []
@@ -1505,6 +1685,12 @@ def main() -> int:
     # ------------------------------------------------- 7. LM serving
     rows += lm_serving(torch, smi)
 
+    # launches on the region-serving phase (2b) beside each row's own path
+    for r in rows:
+        if r["name"] in ("lorenzo3d_recon_batched", "huffdec"):
+            r["region_launches"] = region["launches"][r["name"]]
+        elif r["name"] == "lorenzo3d_recon":
+            r["region_launches"] = region["gsp_launches"][r["name"]]
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,12 @@ is given:
   pass over the pooled symbol stream (torch ops).  Each payload lands at
   its own byte-aligned offset, so the bytes equal the serial oracle's
   per-payload ``packbits`` framing.
-* ``decode_payloads`` puts all payloads in one byte buffer and decodes
-  them in one call of ``kernels.ops.huffdec``: the CUDA kernel for a CUDA
-  device, its plain version on the CPU.  Errors are the oracle's,
-  including which payload's error is raised (the lowest-index one).
+* ``decode_payloads`` packs the payload bytes, offsets, counts and
+  codebook tables into one host buffer (:class:`HostStaging`, pinned for
+  a CUDA device), moves it with one copy and decodes every payload in one
+  call of ``kernels.ops.huffdec``: the CUDA kernel for a CUDA device, its
+  plain version on the CPU.  Errors are the oracle's, including which
+  payload's error is raised (the lowest-index one).
 
 The serial :func:`encode_stream` / :func:`decode_stream` are the bit-exact
 oracle, kept on the host with numpy.
@@ -24,8 +26,13 @@ import torch
 from ..kernels import ops, ref
 from . import huffman
 
-__all__ = ["TorchEngine", "encode_stream", "decode_stream",
-           "symbol_indices", "code_lengths"]
+__all__ = ["ENGINE_NAMES", "HostStaging", "HuffdecBatch", "TorchEngine",
+           "check_engine_name", "code_lengths", "decode_stream",
+           "encode_stream", "symbol_indices"]
+
+#: The reference's entropy-engine names.  Its engines are bit-identical,
+#: so the port decodes every one of them through kernel 4.
+ENGINE_NAMES = ("auto", "numpy", "batched", "pallas")
 
 _ERRORS = {1: "truncated bitstream", 2: "corrupt bitstream",
            3: "cannot decode symbols with an empty codebook"}
@@ -130,6 +137,13 @@ def code_lengths(cb: huffman.Codebook, data: torch.Tensor) -> torch.Tensor:
     return lengths.to(data.device)[symbol_indices(cb, data)]
 
 
+def check_engine_name(name: str) -> None:
+    """Raise ``ValueError`` unless ``name`` is one of :data:`ENGINE_NAMES`."""
+    if name not in ENGINE_NAMES:
+        raise ValueError(f"unknown entropy engine {name!r} "
+                         f"(expected one of {ENGINE_NAMES})")
+
+
 def _raise_payload_error(err: torch.Tensor) -> None:
     """Raise the oracle's error for the lowest-index failed payload."""
     bad = torch.nonzero(err).reshape(-1)
@@ -206,18 +220,39 @@ class TorchEngine:
 
     def decode_payloads(self, cb: huffman.Codebook, payloads, n_codes=None,
                         ) -> list[torch.Tensor]:
-        args = self.huffdec_args(cb, payloads, n_codes)
-        if args is None:
+        """Decode a batch in one launch of kernel 4."""
+        staging = HostStaging()
+        batch = self.stage(staging, cb, payloads, n_codes)
+        if batch is None:
             return []
-        out, err = ops.huffdec(*args)
+        return self.decode_staged(batch, staging.upload(self.device))
+
+    def decode_staged(self, batch: "HuffdecBatch", views,
+                      ) -> list[torch.Tensor]:
+        """Run kernel 4 on a batch whose host arrays were uploaded as
+        ``views`` (:meth:`HostStaging.upload`); one tensor per payload,
+        split by the batch's host spans."""
+        out, err = ops.huffdec(*batch.args(views))
         _raise_payload_error(err)
-        return list(torch.split(out, args[3].tolist()))
+        return list(torch.split(out, batch.spans))
 
     def huffdec_args(self, cb: huffman.Codebook, payloads, n_codes=None):
         """The argument tuple of ``kernels.ops.huffdec`` for a batch of
         payloads (one byte buffer, per-payload offsets and counts, the
         codebook tables) on this engine's device, or None for no
         payloads."""
+        staging = HostStaging()
+        batch = self.stage(staging, cb, payloads, n_codes)
+        return None if batch is None else batch.args(
+            staging.upload(self.device))
+
+    def stage(self, staging: "HostStaging", cb: huffman.Codebook, payloads,
+              n_codes=None, *, spans=None) -> "HuffdecBatch | None":
+        """Add a batch's host arrays to ``staging`` (payload bytes first,
+        then offsets, counts and the codebook tables); None for no
+        payloads.  With ``spans``, payload ``a``'s codes take ``spans[a]
+        >= n_codes[a]`` slots of the output, the slots past its codes
+        zeros: a prefix-limited decode in the same launch."""
         if n_codes is None:
             triples = [(_as_u8(b), int(nb), int(nc)) for b, nb, nc in payloads]
         else:
@@ -225,28 +260,86 @@ class TorchEngine:
                        in zip(payloads, n_codes, strict=True)]
         if not triples:
             return None
-        dev = self.device
         sizes = np.array([buf.size for buf, _, _ in triples], dtype=np.int64)
         nbits = np.minimum([nb for _, nb, _ in triples], 8 * sizes)
         n_dec = np.array([nc for _, _, nc in triples], dtype=np.int64)
+        span = n_dec if spans is None else np.asarray(spans, dtype=np.int64)
+        if span.shape != n_dec.shape or bool((span < n_dec).any()):
+            raise ValueError("each span must hold its payload's codes")
         maxlen = cb.max_length
         if maxlen > ref.HUFF_MAXLEN and len(cb.symbols) > 1 and n_dec.any():
             raise ValueError(f"codebook depth {maxlen} exceeds the decoder's "
                              f"{ref.HUFF_MAXLEN}-bit limit")
         maxlen = min(maxlen, ref.HUFF_MAXLEN)
 
-        def table(a) -> torch.Tensor:
+        def table(a) -> np.ndarray:
             t = np.zeros(maxlen + 1, dtype=np.int64)
             a = np.asarray(a, dtype=np.int64)[:maxlen + 1]
             t[:a.size] = a
-            return torch.from_numpy(t).to(dev)
-
-        def dev64(a) -> torch.Tensor:
-            return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+            return t
 
         data = np.concatenate([buf for buf, _, _ in triples])
-        return (torch.from_numpy(data).to(dev),
-                dev64(np.cumsum(sizes) - sizes), dev64(nbits), dev64(n_dec),
-                dev64(np.cumsum(n_dec) - n_dec), int(n_dec.sum()),
-                dev64(cb.symbols), table(cb.first_code),
-                table(cb.first_index), table(cb.count), maxlen)
+        parts = [staging.add(a) for a in (
+            data, np.cumsum(sizes) - sizes, nbits, n_dec,
+            np.cumsum(span) - span, np.asarray(cb.symbols, dtype=np.int64),
+            table(cb.first_code), table(cb.first_index), table(cb.count))]
+        return HuffdecBatch(parts, int(span.sum()), maxlen, span.tolist())
+
+
+class HuffdecBatch:
+    """A staged kernel-4 batch: where its arrays lie in a
+    :class:`HostStaging`, the output length and the host spans."""
+
+    def __init__(self, parts: list[int], n_out: int, maxlen: int,
+                 spans: list[int]):
+        self.parts, self.n_out, self.maxlen = parts, n_out, maxlen
+        self.spans = spans
+
+    def args(self, views) -> tuple:
+        """The argument tuple of ``kernels.ops.huffdec`` from the
+        uploaded views."""
+        data, byte_off, nbits, n_dec, out_off, symbols, fc, fi, cnt = (
+            views[i] for i in self.parts)
+        return (data, byte_off, nbits, n_dec, out_off, self.n_out, symbols,
+                fc, fi, cnt, self.maxlen)
+
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32}
+
+
+class HostStaging:
+    """One call's host arrays packed into one buffer, each part at an
+    8-byte-aligned offset, and moved to the device with one copy.
+
+    For a CUDA device the buffer is pinned (``torch.empty(...,
+    pin_memory=True)``) and the copy is ``non_blocking``: PyTorch's
+    caching host allocator keeps the block until the copy's stream is done
+    with it, so nothing here reuses a buffer.  On the CPU the views are of
+    the host buffer itself.  Parts are uint8, int64 or float32 arrays."""
+
+    def __init__(self):
+        self._parts: list[tuple[int, np.ndarray]] = []
+        self._size = 0
+
+    def add(self, a) -> int:
+        """Queue one array; returns its index in :meth:`upload`'s list."""
+        a = np.ascontiguousarray(a)
+        if a.dtype not in _TORCH_DTYPES:
+            raise TypeError(f"cannot stage a {a.dtype} array")
+        self._parts.append((self._size, a))
+        self._size += -(-a.nbytes // 8) * 8
+        return len(self._parts) - 1
+
+    def upload(self, device: str | torch.device) -> list[torch.Tensor]:
+        """Device views of every queued array, in :meth:`add` order."""
+        dev = torch.device(device)
+        host = torch.empty(max(self._size, 8), dtype=torch.uint8,
+                           pin_memory=dev.type == "cuda")
+        flat = host.numpy()
+        for off, a in self._parts:
+            flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        buf = host.to(dev, non_blocking=True)
+        return [buf[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype])
+                .reshape(a.shape) for off, a in self._parts]

@@ -5,19 +5,22 @@ an autotuner probed, with their sizes and measured metrics — as a framed
 ``TACF`` section between the index and the footer.  The footer locates
 only the index, so readers that predate the section skip it; this reader
 parses the gap and reports a damaged section as ``frontier_error``
-instead of failing.  This module holds the data model and the section
-framing; target selection and the tuner are not yet ported.
+instead of failing.  This module holds the data model, the section
+framing and the distortion-target grammar (:func:`parse_target`,
+:meth:`Frontier.select`); the tuner is not yet ported.
 """
 from __future__ import annotations
 
 import json
+import re
 import zlib
 from dataclasses import dataclass, field
 from struct import Struct
 
 __all__ = ["FRONTIER_MAGIC", "FRONTIER_VERSION", "Frontier",
-           "FrontierPoint", "SECTION_HEAD_SIZE", "pack_section",
-           "parse_section"]
+           "FrontierPoint", "HIGHER_IS_BETTER", "SECTION_HEAD_SIZE",
+           "Target", "TargetUnsatisfiable", "pack_section",
+           "parse_section", "parse_target"]
 
 FRONTIER_MAGIC = b"TACF"
 FRONTIER_VERSION = 1
@@ -27,6 +30,68 @@ FRONTIER_VERSION = 1
 #: (sorted keys, ``(",", ":")`` separators, UTF-8).
 _SECTION_HEAD = Struct("<4sHHII")
 SECTION_HEAD_SIZE = _SECTION_HEAD.size
+
+#: Improvement direction per metric name: ``True`` → larger is better
+#: (PSNR-style), ``False`` → smaller is better (error-style metrics).
+HIGHER_IS_BETTER = {"psnr": True, "psnr_u": True, "max_abs_error": False,
+                    "ps_error": False}
+
+_OPS = {">=": lambda a, b: a >= b, "<=": lambda a, b: a <= b,
+        ">": lambda a, b: a > b, "<": lambda a, b: a < b}
+
+_TARGET_RE = re.compile(r"^\s*([a-z_][a-z_0-9]*)\s*(>=|<=|>|<)\s*"
+                        r"([-+]?[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?)\s*$")
+
+
+class TargetUnsatisfiable(ValueError):
+    """No frontier point / variant satisfies the requested target;
+    :attr:`best` is the best value of its metric actually achievable."""
+
+    def __init__(self, target: "Target", best: float | None = None):
+        self.target = target
+        self.best = best
+        msg = f"no variant satisfies {target}"
+        if best is not None:
+            msg += f" (best available {target.metric}={best:g})"
+        super().__init__(msg)
+
+
+@dataclass(frozen=True)
+class Target:
+    """A parsed distortion target, e.g. ``psnr >= 60``."""
+
+    metric: str
+    op: str
+    value: float
+
+    def __str__(self) -> str:
+        return f"{self.metric}{self.op}{self.value:g}"
+
+    def satisfies(self, metrics: dict) -> bool:
+        """Whether a point's measured ``metrics`` meet this target (a
+        point that never measured :attr:`metric` does not)."""
+        got = metrics.get(self.metric)
+        if got is None:
+            return False
+        return _OPS[self.op](float(got), self.value)
+
+
+def parse_target(spec: str) -> Target:
+    """Parse ``"metric{>=,<=,>,<}value"`` (e.g. ``"psnr>=60"``).
+
+    :raises ValueError: on a malformed spec or an unknown metric name.
+    """
+    m = _TARGET_RE.match(str(spec))
+    if not m:
+        raise ValueError(
+            f"bad distortion target {spec!r} (want metric>=value, e.g. "
+            f"'psnr>=60'; ops: >=, <=, >, <)")
+    metric, op, value = m.group(1), m.group(2), float(m.group(3))
+    if metric not in HIGHER_IS_BETTER:
+        raise ValueError(
+            f"unknown target metric {metric!r} (known: "
+            f"{', '.join(sorted(HIGHER_IS_BETTER))})")
+    return Target(metric=metric, op=op, value=value)
 
 
 @dataclass
@@ -93,6 +158,28 @@ class Frontier:
         if not self.points:
             return None
         return self.points[self.default]
+
+    def best_value(self, metric: str) -> float | None:
+        """The best value of ``metric`` any point achieves (direction
+        per :data:`HIGHER_IS_BETTER`), or None if never measured."""
+        vals = [p.metrics[metric] for p in self.points
+                if metric in p.metrics]
+        if not vals:
+            return None
+        return max(vals) if HIGHER_IS_BETTER.get(metric, False) \
+            else min(vals)
+
+    def select(self, target: Target | str) -> FrontierPoint:
+        """The cheapest (fewest bits) point satisfying ``target``.
+
+        :raises TargetUnsatisfiable: when no point qualifies.
+        """
+        if isinstance(target, str):
+            target = parse_target(target)
+        ok = [p for p in self.points if target.satisfies(p.metrics)]
+        if not ok:
+            raise TargetUnsatisfiable(target, self.best_value(target.metric))
+        return min(ok, key=lambda p: p.bits)
 
 
 # ------------------------------ wire section -------------------------------

@@ -3,9 +3,10 @@
 The reader parses the footer + CRC'd index, then seeks straight to the
 byte ranges it needs (host I/O, CRCs and the zlib/zstd byte pass).  All
 Huffman payloads of one level that a call needs are decoded in one launch
-of kernel 4 on the reader's device, and each (shape, branch) group of
-bricks is reconstructed in one batch (Lorenzo bricks on kernel 2).
-Levels and crops come back as float32 tensors on that device,
+of kernel 4 on the reader's device, each (shape, branch) group of bricks
+is reconstructed in one batch (Lorenzo bricks on kernel 2) and placed
+with one scatter, and the host arrays of a call reach the device in one
+staged (pinned) copy.  Levels and crops come back as float32 tensors on that device,
 bit-identical to the compress-time reconstruction.  A gsp or global level
 is one payload of the whole grid: it decodes as a unit (region reads
 decode it fully, then crop).  Multi-part snapshots raise
@@ -30,9 +31,18 @@ from ..device import resolve_device
 from . import format as fmt
 from . import frontier as frt
 
-__all__ = ["ROILevel", "TACZReader", "open_snapshot", "read", "read_roi"]
+__all__ = ["ROILevel", "TACZReader", "WHOLE_LEVEL", "open_snapshot",
+           "probe_index_crc", "read", "read_roi"]
 
 Box = tuple[tuple[int, int], tuple[int, int], tuple[int, int]]
+
+#: Sub-block index standing for the single payload of a gsp/global level
+#: in a ``(level, sub_block)`` key (cache keys, shard placement).
+WHOLE_LEVEL = -1
+
+#: Most destination indices one placement scatter builds at a time
+#: (int64, 64 MiB): larger groups go in chunks of bricks.
+PLACE_CHUNK = 1 << 23
 
 
 @dataclass
@@ -73,15 +83,23 @@ class TACZReader:
 
     :param src: file path, raw ``bytes``/``bytearray``, or a seekable
         binary file object (not closed on :meth:`close`).
+    :param entropy_engine: one of the reference's engine names
+        (``"auto"``, ``"numpy"``, ``"batched"``, ``"pallas"``), accepted
+        for signature parity.  Its engines are bit-identical, so every
+        name decodes through kernel 4 on ``device``; the name is only
+        validated.
     :param device: where payloads decode (default ``"cuda"``).
-    :raises ValueError: if the bytes are not a valid TACZ container.
+    :raises ValueError: if the bytes are not a valid TACZ container, or
+        for an unknown engine name.
     :raises RuntimeError: for ``device="cuda"`` without a card.
     """
 
     _SHE_STRATEGIES = (fmt.STRATEGY_OPST, fmt.STRATEGY_AKDTREE,
                        fmt.STRATEGY_NAST)
 
-    def __init__(self, src, *, device: str | torch.device = "cuda"):
+    def __init__(self, src, *, entropy_engine: str = "auto",
+                 device: str | torch.device = "cuda"):
+        entropy.check_engine_name(entropy_engine)
         self.device = resolve_device(device)
         self._engine = entropy.TorchEngine(self.device)
         if isinstance(src, (bytes, bytearray)):
@@ -124,6 +142,8 @@ class TACZReader:
             raise
         self._codebooks: dict[int, huffman.Codebook] = {}
         self._masks: dict[int, torch.Tensor | None] = {}
+        # per level: sub-block origins and ends, (n, 3) int64
+        self._extents: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
     # ------------------------------ plumbing -------------------------------
 
@@ -177,11 +197,21 @@ class TACZReader:
                     self._section(e.mask_off, e.mask_len, e.mask_crc,
                                   "mask", li),
                     e.mask_compressor)
+                # the packed bits reach the device (an eighth of the
+                # bytes, in one staged copy) and are unpacked there
                 n = int(np.prod(e.shape))
-                bits = np.unpackbits(np.frombuffer(raw, dtype=np.uint8),
-                                     count=n)
-                self._masks[li] = torch.from_numpy(
-                    bits.astype(bool).reshape(e.shape)).to(self.device)
+                nbytes = -(-n // 8)
+                packed = np.frombuffer(raw, dtype=np.uint8)[:nbytes]
+                if packed.size < nbytes:      # np.unpackbits' zero padding
+                    packed = np.concatenate(
+                        [packed, np.zeros(nbytes - packed.size, np.uint8)])
+                staging = entropy.HostStaging()
+                staging.add(packed)
+                dev, = staging.upload(self.device)
+                shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
+                                      device=self.device)
+                bits = (dev[:, None] >> shifts) & 1
+                self._masks[li] = bits.reshape(-1)[:n].bool().reshape(e.shape)
         return self._masks[li]
 
     # ------------------------------ decoding -------------------------------
@@ -223,42 +253,49 @@ class TACZReader:
         return _decompress(payload[sb.betas_len:], sb.compressor), betas
 
     def _decode_payloads(self, li: int, jobs,
-                         ) -> list[tuple[torch.Tensor, np.ndarray | None]]:
-        """(device codes, host betas) per ``(sub-block entry, shape,
-        limit)`` job; every Huffman payload goes through one
-        ``decode_payloads`` launch.  With a ``limit`` only the leading
-        ``limit`` codes are decoded; the rest are zeros."""
-        out: list = [None] * len(jobs)
-        huff: list[tuple[int, tuple[bytes, int, int]]] = []
-        metas = []
-        for pos, (sb, shape, limit) in enumerate(jobs):
+                         ) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+        """(codes, betas) device tensors per ``(sub-block entry, shape,
+        limit)`` job.  The call's host arrays (payload bytes, kernel 4's
+        offsets, counts and tables, raw-codec codes, betas) reach the
+        device in one staged copy, and every Huffman payload decodes in
+        the same launch of kernel 4.  Each codes tensor has ``sb.n_codes``
+        entries; with a ``limit`` only the leading ``limit`` are decoded
+        and the rest are zeros."""
+        staging = entropy.HostStaging()
+        huff: list[tuple[bytes, int, int]] = []
+        spans: list[int] = []
+        parts: list[tuple[int | None, int | None]] = []
+        for sb, shape, limit in jobs:
             code_bytes, betas = self._payload_parts(li, sb, shape)
             n_decode = (sb.n_codes if limit is None
                         else min(int(limit), sb.n_codes))
-            metas.append((sb, n_decode, betas))
+            b_part = None if betas is None else staging.add(betas)
             if sb.codec == fmt.CODEC_HUFFMAN:
-                huff.append((pos, (code_bytes, sb.nbits, n_decode)))
+                huff.append((code_bytes, sb.nbits, n_decode))
+                spans.append(sb.n_codes)
+                parts.append((None, b_part))
             elif sb.codec in (fmt.CODEC_RAW_I16, fmt.CODEC_RAW_I32):
                 dt = "<i2" if sb.codec == fmt.CODEC_RAW_I16 else "<i4"
-                codes = np.frombuffer(code_bytes, dtype=dt, count=n_decode)
-                out[pos] = torch.from_numpy(codes.astype(np.int64)).to(
-                    self.device)
+                codes = np.zeros(sb.n_codes, dtype=np.int64)
+                codes[:n_decode] = np.frombuffer(code_bytes, dtype=dt,
+                                                 count=n_decode)
+                parts.append((staging.add(codes), b_part))
             else:
                 raise ValueError(f"unknown payload codec {sb.codec}")
-        if huff:
-            decoded = self._engine.decode_payloads(
-                self._codebook(li), [p for _, p in huff])
-            for (pos, _), codes in zip(huff, decoded):
-                out[pos] = codes
-        result = []
-        for codes, (sb, n_decode, betas) in zip(out, metas):
-            if n_decode < sb.n_codes:
-                full = torch.zeros(sb.n_codes, dtype=torch.int64,
-                                   device=self.device)
-                full[:n_decode] = codes
-                codes = full
-            result.append((codes, betas))
-        return result
+        batch = (self._engine.stage(staging, self._codebook(li), huff,
+                                    spans=spans) if huff else None)
+        views = staging.upload(self.device)
+        decoded = iter(self._engine.decode_staged(batch, views)
+                       if batch is not None else ())
+        return [(next(decoded) if c is None else views[c],
+                 None if b is None else views[b]) for c, b in parts]
+
+    def _subblock_codes(self, li: int, sb: fmt.SubBlockEntry,
+                        shape: tuple[int, ...], limit: int | None = None,
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Entropy-decode one payload → (codes, betas), no prediction
+        replay: the single-payload case of :meth:`_decode_payloads`."""
+        return self._decode_payloads(li, [(sb, shape, limit)])[0]
 
     def subblock_shape(self, li: int, sbi: int) -> tuple[int, ...]:
         """Decode shape of one sub-block payload: the brick for SHE
@@ -266,10 +303,17 @@ class TACZReader:
         single-payload levels."""
         e = self.levels[li]
         if e.strategy in self._SHE_STRATEGIES:
-            return tuple(int(s) for s in e.subblocks[sbi].size)
+            return e.subblocks[sbi].size      # a tuple of ints from the index
         if e.strategy == fmt.STRATEGY_GSP:
             return tuple(int(s) for s in e.grid_shape)
         return tuple(int(s) for s in e.shape)
+
+    def subblock_codes(self, li: int, sbi: int, limit: int | None = None,
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(codes, betas) of sub-block ``sbi`` of level ``li``."""
+        e = self.levels[li]
+        return self._subblock_codes(li, e.subblocks[sbi],
+                                    self.subblock_shape(li, sbi), limit)
 
     def decode_subblocks(self, li: int, sbis, limits=None,
                          ) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
@@ -277,39 +321,88 @@ class TACZReader:
         in input order; every Huffman payload of the batch decodes in one
         launch.  ``limits`` gives optional per-entry prefix limits."""
         e = self.levels[li]
-        jobs = [(e.subblocks[sbi], self.subblock_shape(li, sbi),
-                 None if limits is None else limits[pos])
-                for pos, sbi in enumerate(sbis)]
-        return [(codes, None if betas is None
-                 else torch.from_numpy(betas.copy()).to(self.device))
-                for codes, betas in self._decode_payloads(li, jobs)]
+        return self._decode_payloads(
+            li, [(e.subblocks[sbi], self.subblock_shape(li, sbi),
+                  None if limits is None else limits[pos])
+                 for pos, sbi in enumerate(sbis)])
 
-    def _decode_bricks(self, li: int, jobs) -> list[torch.Tensor]:
-        """Reconstructed bricks for many ``(sbi, limit)`` jobs of one SHE
-        level: one entropy launch over every payload, then one batched
-        reconstruction per (shape, branch) group."""
+    def _decode_subblock(self, li: int, sb: fmt.SubBlockEntry,
+                         shape: tuple[int, ...],
+                         limit: int | None = None) -> torch.Tensor:
+        """One payload's reconstructed brick, alone: the per-brick
+        reference the batched route (:meth:`_decode_groups`) is held to.
+        With a ``limit`` only cells whose code rectangle lies in the
+        prefix are specified."""
         e = self.levels[li]
-        sbis = [sbi for sbi, _ in jobs]
-        decoded = self._decode_payloads(
-            li, [(e.subblocks[sbi], self.subblock_shape(li, sbi), lim)
-                 for sbi, lim in jobs])
+        codes, betas = self._subblock_codes(li, sb, shape, limit)
+        return sz.decode_codes(codes, shape, e.eb,
+                               branch=fmt.BRANCH_NAMES[sb.branch],
+                               block=e.sz_block, betas=betas)
+
+    def _decode_groups(self, li: int, jobs,
+                       ) -> list[tuple[list[int], torch.Tensor]]:
+        """Reconstruct many ``(sbi, limit)`` jobs of one SHE level: one
+        entropy launch over every payload, then one batched reconstruction
+        per (shape, branch) group.  Returns ``(job positions, (n, *shape)
+        stack)`` per group, in first-appearance order."""
+        e = self.levels[li]
+        decoded = self.decode_subblocks(li, [sbi for sbi, _ in jobs],
+                                        [lim for _, lim in jobs])
         groups: dict[tuple[tuple[int, ...], int], list[int]] = {}
-        for pos, sbi in enumerate(sbis):
+        for pos, (sbi, _) in enumerate(jobs):
             key = (self.subblock_shape(li, sbi), e.subblocks[sbi].branch)
             groups.setdefault(key, []).append(pos)
-        out: list[torch.Tensor | None] = [None] * len(jobs)
+        out = []
         for (shape, branch), poss in groups.items():
             codes = torch.stack([decoded[p][0] for p in poss])
-            betas = None
-            if branch == fmt.BRANCH_REG:
-                betas = torch.from_numpy(
-                    np.stack([decoded[p][1] for p in poss])).to(self.device)
-            recon = sz.decode_codes_batched(
+            betas = (torch.stack([decoded[p][1] for p in poss])
+                     if branch == fmt.BRANCH_REG else None)
+            out.append((poss, sz.decode_codes_batched(
                 codes, shape, e.eb, branch=fmt.BRANCH_NAMES[branch],
-                block=e.sz_block, betas=betas)
+                block=e.sz_block, betas=betas)))
+        return out
+
+    def _decode_bricks(self, li: int, jobs) -> list[torch.Tensor]:
+        """One reconstructed brick per ``(sbi, limit)`` job of one SHE
+        level (views of :meth:`_decode_groups`' stacks)."""
+        out: list[torch.Tensor | None] = [None] * len(jobs)
+        for poss, recon in self._decode_groups(li, jobs):
             for p, brick in zip(poss, recon):
                 out[p] = brick
         return out
+
+    def _place(self, acc: torch.Tensor, lo: tuple[int, ...], groups) -> None:
+        """Write bricks into ``acc``, whose cell 0 sits at level cell
+        ``lo``: ``groups`` holds ``(stack (n, *shape), origins)`` pairs of
+        same-shape bricks.  Each group goes in with one ``index_copy_``
+        (in chunks of at most :data:`PLACE_CHUNK` values), its destination
+        indices computed on the device from its origins plus one
+        brick-local offset table; all those host arrays reach the device
+        in one staged copy.  Sub-blocks are disjoint, so no index repeats.
+        """
+        dims = acc.shape
+        strides = np.array([dims[1] * dims[2], dims[2], 1], dtype=np.int64)
+        staging = entropy.HostStaging()
+        local: dict[tuple[int, ...], int] = {}
+        plan = []
+        for stack, origins in groups:
+            shape = tuple(stack.shape[1:])
+            if shape not in local:
+                x, y, z = (np.arange(n, dtype=np.int64) * st
+                           for n, st in zip(shape, strides))
+                local[shape] = staging.add(
+                    (x[:, None, None] + y[None, :, None] + z).reshape(-1))
+            rel = np.asarray(origins, dtype=np.int64) - np.asarray(lo)
+            plan.append((stack, staging.add(rel @ strides), local[shape]))
+        views = staging.upload(acc.device)
+        flat = acc.view(-1)
+        for stack, base, offsets in plan:
+            base, offsets = views[base], views[offsets]
+            per = max(1, PLACE_CHUNK // offsets.numel())
+            for c0 in range(0, stack.shape[0], per):
+                idx = base[c0:c0 + per, None] + offsets[None, :]
+                flat.index_copy_(0, idx.reshape(-1),
+                                 stack[c0:c0 + per].reshape(-1))
 
     def read_level(self, li: int) -> torch.Tensor:
         """Full decode of one level: float32 at the level's original
@@ -322,15 +415,15 @@ class TACZReader:
         if e.strategy in self._SHE_STRATEGIES:
             acc = torch.zeros(e.grid_shape, dtype=torch.float32,
                               device=self.device)
-            bricks = self._decode_bricks(
+            groups = self._decode_groups(
                 li, [(sbi, None) for sbi in range(len(e.subblocks))])
-            for sb, brick in zip(e.subblocks, bricks):
-                acc[tuple(slice(o, o + s)
-                          for o, s in zip(sb.origin, sb.size))] = brick
+            self._place(acc, (0, 0, 0), [
+                (recon, [e.subblocks[p].origin for p in poss])
+                for poss, recon in groups])
             recon = acc[tuple(slice(0, s) for s in e.shape)]
             if mask is not None:
                 recon = torch.where(mask, recon, 0.0)
-            return recon.contiguous()
+            return _compact(recon)
         if e.strategy not in (fmt.STRATEGY_GSP, fmt.STRATEGY_GLOBAL):
             raise ValueError(f"unknown strategy {e.strategy}")
         shape = self.subblock_shape(li, 0)
@@ -344,17 +437,20 @@ class TACZReader:
                  else mask.cpu().numpy())
             grid = make_block_grid(np.zeros(e.shape, dtype=np.float32), m,
                                    unit=e.unit)
-            return gsp_unpad(recon, grid)[
-                tuple(slice(0, s) for s in e.shape)].contiguous()
+            return _compact(gsp_unpad(recon, grid)[
+                tuple(slice(0, s) for s in e.shape)])
         if mask is not None:
             recon = torch.where(mask, recon, 0.0)
-        return recon.contiguous()
+        return _compact(recon)
 
     def read(self) -> list[torch.Tensor]:
         """Full decode of every level, in file order."""
         return [self.read_level(i) for i in range(self.n_levels)]
 
     # ------------------------------ ROI decode -----------------------------
+    # read_roi and the serving layer (repro_torch.serving.regions) share box
+    # mapping, intersection and crop assembly; only where a decoded brick
+    # comes from differs (prefix-stop decode here, the brick cache there).
 
     def level_box(self, li: int, box: Box) -> Box:
         """Map a finest-grid box into level ``li`` cells (lows floored,
@@ -371,14 +467,55 @@ class TACZReader:
                                ) -> list[tuple[int, Box]]:
         """``(sub_block_index, intersection_box)`` of every sub-block of
         level ``li`` overlapping ``lbox`` (level cells), in index order."""
-        out: list[tuple[int, Box]] = []
-        for i, sb in enumerate(self.levels[li].subblocks):
-            isect = tuple(
-                (max(lo, o), min(hi, o + s))
-                for (lo, hi), o, s in zip(lbox, sb.origin, sb.size))
-            if all(hi > lo for lo, hi in isect):
-                out.append((i, isect))
+        if li not in self._extents:
+            sbs = self.levels[li].subblocks
+            org = np.array([sb.origin for sb in sbs],
+                           dtype=np.int64).reshape(-1, 3)
+            self._extents[li] = (org, org + np.array(
+                [sb.size for sb in sbs], dtype=np.int64).reshape(-1, 3))
+        org, end = self._extents[li]
+        box = np.asarray(lbox, dtype=np.int64).reshape(3, 2)
+        lo = np.maximum(box[:, 0], org)
+        hi = np.minimum(box[:, 1], end)
+        hit = np.flatnonzero((hi > lo).all(axis=1))
+        return [(i, tuple(zip(l, h))) for i, l, h
+                in zip(hit.tolist(), lo[hit].tolist(), hi[hit].tolist())]
+
+    def subblock_keys(self, levels: list[int] | None = None,
+                      ) -> list[tuple[int, int]]:
+        """Every ``(level, sub_block)`` key, file order: one per sub-block
+        of a SHE level, ``(level, WHOLE_LEVEL)`` for a gsp/global level.
+        The key universe of cache entries and shard placement.
+
+        :param levels: restrict to these level indices (default: all).
+        :raises IndexError: if ``levels`` names an out-of-range level.
+        """
+        lis = range(self.n_levels) if levels is None else levels
+        out: list[tuple[int, int]] = []
+        for li in lis:
+            e = self.levels[li]
+            if e.strategy in self._SHE_STRATEGIES:
+                out.extend((li, sbi) for sbi in range(len(e.subblocks)))
+            else:
+                out.append((li, WHOLE_LEVEL))
         return out
+
+    def level_signature(self, li: int) -> tuple:
+        """Content signature of one level, independent of byte placement:
+        the decode-relevant index fields and the CRC32 of every stored
+        section, not file offsets.  Equal signatures reconstruct equally;
+        the tuple equals the reference reader's field for field.
+
+        :raises IndexError: if ``li`` is out of range.
+        """
+        e = self.levels[li]
+        return (e.shape, e.grid_shape, e.strategy, e.algorithm, e.unit,
+                e.sz_block, e.ratio, e.eb, e.n_values,
+                e.codebook_crc & 0xFFFFFFFF, e.mask_len,
+                e.mask_crc & 0xFFFFFFFF, e.mask_compressor,
+                tuple((sb.origin, sb.size, sb.branch, sb.codec,
+                       sb.payload_len, sb.nbits, sb.n_codes, sb.betas_len,
+                       sb.crc & 0xFFFFFFFF) for sb in e.subblocks))
 
     def read_level_box(self, li: int, lbox: Box) -> torch.Tensor:
         """Decode one level's crop of a box given in *level* cells
@@ -390,41 +527,76 @@ class TACZReader:
         e = self.levels[li]
         clipped = tuple((min(max(int(lo), 0), s), min(max(int(hi), 0), s))
                         for (lo, hi), s in zip(lbox, e.shape))
-        return self._level_roi(li, clipped)
+        return self.assemble_level_roi(li, clipped, self._fetch_bricks_prefix,
+                                       self.read_level)
 
-    def _level_roi(self, li: int, lbox: Box) -> torch.Tensor:
+    def assemble_level_roi(self, li: int, lbox: Box, fetch_bricks,
+                           fetch_level, tasks=None) -> torch.Tensor:
+        """Assemble one level's crop from decoded bricks.
+
+        ``fetch_bricks(li, [(sbi, local_hi), ...])`` returns one brick per
+        job, sub-block ``sbi``'s, valid at least on brick-local cells below
+        ``local_hi``; ``fetch_level(li)`` the full level (gsp/global
+        levels).  ``tasks`` may carry ``intersecting_subblocks(li, lbox)``.
+        Whole bricks are placed, one scatter per shape group, into a zeroed
+        accumulator over the bounding box of the bricks and ``lbox``, which
+        is cropped to ``lbox`` once: sub-blocks are disjoint, and the cells
+        a prefix decode leaves unspecified lie outside ``lbox``.  The crop
+        owns storage of its own size: it shares none with a brick, a level
+        the fetchers return, or the accumulator.
+        """
+        e = self.levels[li]
         bshape = tuple(max(hi - lo, 0) for lo, hi in lbox)
         if 0 in bshape:
             return torch.zeros(bshape, dtype=torch.float32,
                                device=self.device)
-        e = self.levels[li]
         if e.strategy not in self._SHE_STRATEGIES:
             # one global payload: decode fully, then crop (interpolation
             # and padding are not block-local)
-            return self.read_level(li)[
-                tuple(slice(lo, hi) for lo, hi in lbox)].contiguous()
-        tasks = self.intersecting_subblocks(li, lbox)
-        acc = torch.zeros(bshape, dtype=torch.float32, device=self.device)
+            return fetch_level(li)[tuple(slice(lo, hi) for lo, hi in lbox)
+                                   ].clone(memory_format=torch.contiguous_format)
+        if tasks is None:
+            tasks = self.intersecting_subblocks(li, lbox)
         if not tasks:
-            return acc
-        jobs = []
-        for sbi, isect in tasks:
-            sb = e.subblocks[sbi]
-            local_hi = tuple(hi - o for (_, hi), o in zip(isect, sb.origin))
-            jobs.append((sbi, self._prefix_limit(sb, sb.size, e.sz_block,
-                                                 local_hi)))
-        for (sbi, isect), brick in zip(tasks, self._decode_bricks(li, jobs)):
-            sb = e.subblocks[sbi]
-            src = tuple(slice(lo - o, hi - o) for (lo, hi), o
-                        in zip(isect, sb.origin))
-            dst = tuple(slice(lo - b0, hi - b0) for (lo, hi), (b0, _)
-                        in zip(isect, lbox))
-            acc[dst] = brick[src]
+            return torch.zeros(bshape, dtype=torch.float32,
+                               device=self.device)
+        sbs = [e.subblocks[sbi] for sbi, _ in tasks]
+        jobs = [(sbi, tuple(hi - o for (_, hi), o in zip(isect, sb.origin)))
+                for (sbi, isect), sb in zip(tasks, sbs)]
+        bricks = fetch_bricks(li, jobs)
+        lo = tuple(min([b0] + [sb.origin[d] for sb in sbs])
+                   for d, (b0, _) in enumerate(lbox))
+        hi = tuple(max([b1] + [sb.origin[d] + sb.size[d] for sb in sbs])
+                   for d, (_, b1) in enumerate(lbox))
+        acc = torch.zeros(tuple(h - l for l, h in zip(lo, hi)),
+                          dtype=torch.float32, device=self.device)
+        by_shape: dict[tuple[int, ...], tuple[list, list]] = {}
+        for sb, brick in zip(sbs, bricks):
+            group = by_shape.setdefault(tuple(brick.shape), ([], []))
+            group[0].append(brick)
+            group[1].append(sb.origin)
+        self._place(acc, lo, [
+            (torch.stack(bs) if len(bs) > 1 else bs[0][None], origins)
+            for bs, origins in by_shape.values()])
+        crop = acc[tuple(slice(b0 - l, b1 - l)
+                         for (b0, b1), l in zip(lbox, lo))]
         mask = self._mask(li)
         if mask is not None:
-            acc = torch.where(mask[tuple(slice(lo, hi) for lo, hi in lbox)],
-                              acc, 0.0)
-        return acc
+            crop = torch.where(mask[tuple(slice(b0, b1) for b0, b1 in lbox)],
+                               crop, 0.0)
+        return _compact(crop)
+
+    def _fetch_bricks_prefix(self, li: int, jobs) -> list[torch.Tensor]:
+        """read_roi's brick source: each ``(sbi, local_hi)`` job decodes
+        only the payload prefix up to the box's high corner (C-order prefix
+        ⊇ Lorenzo code rectangle); one entropy launch + one batched recon
+        per (shape, branch) group."""
+        e = self.levels[li]
+        return self._decode_bricks(
+            li, [(sbi, self._prefix_limit(e.subblocks[sbi],
+                                          e.subblocks[sbi].size,
+                                          e.sz_block, local_hi))
+                 for sbi, local_hi in jobs])
 
     def read_roi(self, box: Box) -> list[ROILevel]:
         """Decode only the region of interest: ``box`` is three half-open
@@ -435,8 +607,10 @@ class TACZReader:
         out: list[ROILevel] = []
         for li, e in enumerate(self.levels):
             lbox = self.level_box(li, box)
+            data = self.assemble_level_roi(
+                li, lbox, self._fetch_bricks_prefix, self.read_level)
             out.append(ROILevel(level=li, ratio=max(int(e.ratio), 1),
-                                box=lbox, data=self._level_roi(li, lbox)))
+                                box=lbox, data=data))
         return out
 
     def verify(self) -> bool:
@@ -460,15 +634,48 @@ class TACZReader:
         return True
 
 
-def open_snapshot(src, *, device: str | torch.device = "cuda") -> TACZReader:
+def _compact(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous in storage of exactly its own size: a view of a
+    larger buffer is copied out, so holding it does not keep the buffer."""
+    if (t.is_contiguous() and t.untyped_storage().nbytes()
+            == t.numel() * t.element_size()):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _is_multipart(src) -> bool:
+    return isinstance(src, (str, os.PathLike)) and (
+        os.path.isdir(src) or os.path.basename(src) == "manifest.json")
+
+
+def probe_index_crc(path) -> int | None:
+    """A snapshot's identity CRC (its footer's index CRC), read from the
+    20-byte footer alone; the serving layer's hot-swap check.
+
+    :returns: the CRC as an unsigned 32-bit int, or None when the file is
+        missing, truncated or not a TACZ container.
+    :raises NotImplementedError: for a multi-part snapshot directory.
+    """
+    if _is_multipart(path):
+        raise NotImplementedError("multi-part snapshots are not yet ported")
+    try:
+        with open(path, "rb") as f:
+            f.seek(-fmt.FOOTER_SIZE, os.SEEK_END)
+            _, _, crc = fmt.parse_footer(f.read(fmt.FOOTER_SIZE))
+    except (OSError, ValueError):
+        return None
+    return crc & 0xFFFFFFFF
+
+
+def open_snapshot(src, *, entropy_engine: str = "auto",
+                  device: str | torch.device = "cuda") -> TACZReader:
     """Open a single-file snapshot (path, bytes or file object).
 
     :raises NotImplementedError: for a multi-part snapshot directory.
     """
-    if isinstance(src, (str, os.PathLike)) and (
-            os.path.isdir(src) or os.path.basename(src) == "manifest.json"):
+    if _is_multipart(src):
         raise NotImplementedError("multi-part snapshots are not yet ported")
-    return TACZReader(src, device=device)
+    return TACZReader(src, entropy_engine=entropy_engine, device=device)
 
 
 def read(path, *, device: str | torch.device = "cuda") -> list[torch.Tensor]:
