@@ -35,6 +35,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    bit.  Then the GSP level of ``tests/card_reference`` is served through
    its whole-level key: kernel 6 must launch, and the crop must equal the
    reference's recon;
+2c. multi-part snapshots of phase 2's data.  Each multi-part run is
+   read alone (launch counts set to 0 just before it and read just
+   after; each kernel on its path must launch), and the single-file
+   baselines and timed repeats run outside those windows:
+   ``write_multipart(parts=4)`` of phase 2's result, every level's
+   ``level_signature`` equal to the single file's, the
+   ``MultiPartReader(device="cuda")`` decode equal to phase 2's levels
+   bit for bit (kernels 4 and 2) and timed in turns with the single-file
+   read, kernel 4's launches per level (wrapper counts; the profiler's
+   kernel count beside them), the write timed in turns with the single
+   file's; the raw levels through ``ParallelTACZWriter(parts=4)`` in
+   thread mode (a CUDA stream per worker; kernels 1 and 3) and in
+   spawned processes (kernels 1 and 3 in the workers, whose own counts
+   are printed apart as ``process_worker_launches``), against one
+   ``TACZWriter``, in turns (the reference bench's 1.5× bar printed, not
+   enforced; the single and the thread-mode write also under the
+   profiler), each decode equal to phase 2's levels; the GSP level of
+   ``tests/card_reference`` through the writer's whole-level key (one
+   part owns it; its signature equals the reference's file's and it
+   decodes to the reference's recon: kernels 5 and 6); phase 2b's six
+   boxes served from the directory (cold: kernels 4 and 2) equal to the
+   single-file server's crops, cold and warm (three warm batches, each
+   server in turn), and a part-aligned shard server that opens no part
+   but its own;
 3. kernels 1-4 against their plain PyTorch versions on the card, at the
    main path's shapes (exact agreement required), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
@@ -80,8 +104,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    builds, through their C entries) and, at 128³, kernel 2's planes
    route on a one-brick stack;
 6. the card against the reference's own files: the golden fixtures
-   (``tests/golden/{v1,v2_zlib,truncated_tacf}.tacz``) decode on the card
-   to ``expected.npz`` bit for bit, and the TAC GSP level of
+   (``tests/golden/{v1,v2_zlib,truncated_tacf}.tacz`` and the two-part
+   ``multipart.taczd``) decode on the card to ``expected.npz`` bit for
+   bit, and the TAC GSP level of
    ``tests/card_reference`` and its TAC+ snapshot (128³) compress on the
    card to the reference's bytes and decode to the reference's recon;
 7. LM serving with an int8 KV cache, through the user entry points:
@@ -510,10 +535,11 @@ def read_turns(torch, ops, fn) -> dict:
     return out
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, count: str | None = None) -> dict:
     """One ``fn()`` under ``torch.profiler`` (after a warm-up): wall ms,
     summed kernel ms (its share of the wall is the device's busy share),
-    the kernel launches and the kernels that take most of the time."""
+    the kernel launches and the kernels that take most of the time; with
+    ``count``, also the launches of kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -531,10 +557,13 @@ def device_profile(torch, fn) -> dict:
           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     ev.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ev) / 1e3
-    return {"wall_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
-            "kernel_launches": sum(e.count for e in ev),
-            "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                    for e in ev[:8]]}
+    out = {"wall_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
+           "kernel_launches": sum(e.count for e in ev),
+           "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                   for e in ev[:8]]}
+    if count is not None:
+        out[f"{count}_launches"] = sum(e.count for e in ev if count in e.key)
+    return out
 
 
 def k4_stats(ops) -> dict:
@@ -703,6 +732,222 @@ def region_serving(torch, np, ops, tio, path: str, levels, smi: str,
     return out
 
 
+def card_fixture():
+    """The module ``tests/card_reference/make_card_reference.py`` (its
+    paths, its seeded level and its writer settings)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_card_reference",
+        os.path.join(HERE, "tests", "card_reference",
+                     "make_card_reference.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    return fixture
+
+
+def in_turns(torch, fns: dict, order: list[str]) -> dict:
+    """Wall seconds (ending in a synchronize) of each named ``fn()``, run
+    in ``order``; returns ``{name: [seconds, ...]}``."""
+    out = {name: [] for name in fns}
+    for name in order:
+        out[name].append(synced(torch, fns[name])[1])
+    return out
+
+
+def multipart(torch, np, ops, tio, ds, res, eb: float, path: str, levels,
+              smi: str) -> dict:
+    """Phase 2c: multi-part snapshots of phase 2's data on the card.
+
+    Each multi-part run is read alone: the launch counts are set to 0
+    just before it and read just after it, and every kernel on that run's
+    path must have launched (``out["launches"][run]``).  The runs are the
+    slice write of phase 2's compressed result (``write_multipart(parts=
+    4)``; no kernel on its path), the directory read (kernels 4 and 2),
+    per level the read of that level (kernel 4 once per part that holds
+    some of its payloads), the raw write in thread mode (kernels 1 and 3
+    in this process), the raw write in spawned processes (kernels 1 and 3
+    in the workers: their own counts, reported at ``close``, are printed
+    apart as ``process_worker_launches`` and never added to this
+    process's), the GSP level's write and read (kernels 5 and 6) and the
+    directory's serving, cold (kernels 4 and 2) and from a part-aligned
+    shard server.  The single-file baselines and the repeats timed in
+    turns run outside those windows.  Checks: each level's signature
+    equals the single file's; every decode equals phase 2's levels bit for
+    bit; the GSP level has one owner and decodes to the reference's recon;
+    the directory's crops equal the single-file server's, cold and warm;
+    the shard server opens only its own part."""
+    from repro_torch.io import manifest as mfst
+    from repro_torch.serving import RegionServer, ShardMap
+
+    def read_all(src):
+        with tio.open_snapshot(src, device="cuda") as rd:
+            return rd.read()
+
+    out = {"card": smi, "parts": 4, "launches": {}}
+
+    def window(run: str, fn, needs=()):
+        """``fn()`` alone between a reset and a read of the counts."""
+        ops.reset_launches()
+        got, sec = synced(torch, fn)
+        counts = {k: v for k, v in ops.launches.items() if v}
+        out["launches"][run] = counts
+        for name in needs:
+            check(counts.get(name, 0) > 0,
+                  f"kernel {name} never launched on the multi-part {run}")
+        return got, sec
+
+    tmp = tempfile.TemporaryDirectory(dir=os.path.dirname(path))
+    mdir = os.path.join(tmp.name, "compressed.taczd")
+    # ---- compressed levels: payload slices under the shared codebooks
+    window("write_compressed", lambda: tio.write_multipart(
+        mdir, res, parts=4, device="cuda"))
+    with tio.TACZReader(path, device="cuda") as srd, \
+            tio.open_snapshot(mdir, device="cuda") as mrd:
+        check(isinstance(mrd, tio.MultiPartReader), "not a multi-part reader")
+        for li in range(srd.n_levels):
+            check(mrd.level_signature(li) == srd.level_signature(li),
+                  f"multi-part level {li} signature != the single file's")
+        out["payloads_per_part"] = [
+            [len(idx) for idx in p["levels"]] for p in mrd.manifest["parts"]]
+    got, _ = window("read", lambda: read_all(mdir),
+                    needs=("huffdec", "lorenzo3d_recon_batched"))
+    for li, (g, want) in enumerate(zip(got, levels)):
+        check(torch.equal(g, want),
+              f"multi-part decode of level {li} != phase 2's level")
+    del got
+    out["k4_per_level"] = []
+    with tio.open_snapshot(mdir, device="cuda") as mrd:
+        for li in range(mrd.n_levels):
+            window(f"read_level_{li}", lambda: mrd.read_level(li),
+                   needs=("huffdec",))
+            out["k4_per_level"].append(
+                out["launches"][f"read_level_{li}"]["huffdec"])
+    out["write_compressed_s"] = in_turns(torch, {
+        "single": lambda: tio.write(os.path.join(tmp.name, "one.tacz"), res,
+                                    device="cuda"),
+        "multi": lambda: tio.write_multipart(mdir, res, parts=4,
+                                             device="cuda")},
+        ["single", "multi", "multi", "single"])
+    out["read_s"] = in_turns(torch, {
+        "single": lambda: tio.read(path, device="cuda"),
+        "multi": lambda: read_all(mdir)},
+        ["single", "multi", "multi", "single"])
+    # kernel 4 ends every call with one launch of its serial_kernel
+    out["read_profile"] = {
+        "single": device_profile(torch, lambda: tio.read(path, device="cuda"),
+                                 count="serial_kernel"),
+        "multi": device_profile(torch, lambda: read_all(mdir),
+                                count="serial_kernel")}
+
+    # ---- raw levels: every part compresses its own bricks
+    def single_writer():
+        with tio.TACZWriter(os.path.join(tmp.name, "one.tacz"), eb=eb,
+                            device="cuda") as w:
+            for lvl in ds.levels:
+                w.add_level(lvl.data, lvl.mask, ratio=lvl.ratio)
+
+    def parallel(mode):
+        def run():
+            with tio.ParallelTACZWriter(
+                    os.path.join(tmp.name, f"raw-{mode}.taczd"), parts=4,
+                    mode=mode, eb=eb, device="cuda") as w:
+                for lvl in ds.levels:
+                    w.add_level(lvl.data, lvl.mask, ratio=lvl.ratio)
+            return w
+        return run
+
+    window("write_thread", parallel("thread"),
+           needs=("lorenzo3d_codes_batched", "hist"))
+    w, _ = window("write_process", parallel("process"))
+    per_part = {mfst.part_name(pi): {k: v for k, v in c.items() if v}
+                for pi, c in sorted(w.worker_launches.items())}
+    out["process_worker_launches"] = per_part
+    for name in ("lorenzo3d_codes_batched", "hist"):
+        check(sum(c.get(name, 0) for c in per_part.values()) > 0,
+              f"kernel {name} never launched in a spawned part worker")
+    for name in ("raw-thread.taczd", "raw-process.taczd"):
+        got = read_all(os.path.join(tmp.name, name))
+        for li, (g, want) in enumerate(zip(got, levels)):
+            check(torch.equal(g, want),
+                  f"{name}: level {li} != phase 2's level")
+    out["write_raw_s"] = in_turns(torch, {
+        "single": single_writer, "thread": parallel("thread"),
+        "process": parallel("process")},
+        ["single", "thread", "process", "process", "thread", "single"])
+    got = read_all(os.path.join(tmp.name, "one.tacz"))
+    for li, (g, want) in enumerate(zip(got, levels)):
+        check(torch.equal(g, want), f"one.tacz: level {li} != phase 2's")
+    del got
+    out["write_raw_profile"] = {
+        name: device_profile(torch, fn) for name, fn in (
+            ("single", single_writer), ("thread", parallel("thread")))}
+    best = {k: min(v) for k, v in out["write_raw_s"].items()}
+    out["speedup_over_single"] = {k: best["single"] / best[k]
+                                  for k in ("thread", "process")}
+    out["reference_bench_bar"] = 1.5
+
+    # ---- a GSP level through its whole-level key (kernels 5 and 6)
+    fixture = card_fixture()
+    data, mask, geb = fixture.level()
+    gdir = os.path.join(tmp.name, "gsp.taczd")
+
+    def gsp_write():
+        with tio.ParallelTACZWriter(gdir, parts=4, eb=geb, device="cuda",
+                                    **fixture.WRITER) as w:
+            w.add_level(data, mask, ratio=1)
+    window("write_gsp", gsp_write, needs=("lorenzo3d_codes",))
+    owners = [p["levels"][0] for p in mfst.load(gdir)["parts"]]
+    check(sorted(sum(owners, [])) == [0], f"GSP level owners: {owners}")
+    with np.load(fixture.RECON) as z:
+        want_recon = z["recon"]
+    with tio.open_snapshot(gdir, device="cuda") as mrd, \
+            tio.TACZReader(fixture.CONTAINER, device="cuda") as srd:
+        check(mrd.level_signature(0) == srd.level_signature(0),
+              "the GSP level's part != the reference's level")
+        recon, _ = window("read_gsp", lambda: mrd.read_level(0),
+                          needs=("lorenzo3d_recon",))
+        check(np.array_equal(recon.cpu().numpy(), want_recon),
+              "the multi-part GSP level != the reference's recon")
+
+    # ---- serving the directory
+    boxes = region_workload()
+    with RegionServer(mdir, device="cuda") as msrv, \
+            RegionServer(path, device="cuda") as ssrv:
+        mgot, m_s = window("serve_cold", lambda: msrv.get_regions(boxes),
+                           needs=("huffdec", "lorenzo3d_recon_batched"))
+        sgot, s_s = synced(torch, lambda: ssrv.get_regions(boxes))
+        out["serve_cold_s"] = {"multi": [m_s], "single": [s_s]}
+        out["serve_warm_s"] = {"multi": [], "single": []}
+        for rep in ("cold", "warm", "warm", "warm"):
+            if rep == "warm":
+                mgot, m_s = synced(torch, lambda: msrv.get_regions(boxes))
+                sgot, s_s = synced(torch, lambda: ssrv.get_regions(boxes))
+                out["serve_warm_s"]["multi"].append(m_s)
+                out["serve_warm_s"]["single"].append(s_s)
+            for per_m, per_s in zip(mgot, sgot):
+                for a, b in zip(per_m, per_s):
+                    check(a.data.is_cuda and torch.equal(a.data, b.data),
+                          f"served {rep} crop of level {a.level} box "
+                          f"{a.box}: directory != single file")
+        partition = msrv.reader.partition
+    m = ShardMap.from_dict(partition)
+    sid = sorted(m.shards)[0]
+    with RegionServer(mdir, shard_map=m, shard_id=sid, device="cuda") as sh:
+        window("serve_shard", lambda: sh.get_regions(boxes))
+        out["shard_open_parts"] = sh.reader.open_parts
+        check(sh.reader.open_parts in ([], [0]),
+              f"shard {sid} opened {sh.reader.open_parts}")
+    # per kernel, the sum of its windows' counts (this process only)
+    out["launches_total"] = {
+        k: sum(c.get(k, 0) for c in out["launches"].values())
+        for k in ops.launches}
+    out["process_worker_launches_total"] = {
+        k: sum(c.get(k, 0) for c in per_part.values()) for k in ops.launches}
+    tmp.cleanup()
+    return out
+
+
 def card_reference(torch, np, ops, tio, smi: str) -> dict:
     """Phase 6: the card's output held to files the reference wrote.  The
     golden fixtures decode on the card to ``expected.npz`` bit for bit;
@@ -711,14 +956,8 @@ def card_reference(torch, np, ops, tio, smi: str) -> dict:
     reference's bytes and decodes on the card to the reference's recon,
     with kernels 5 and 6 launched on their ``tile = shape`` routes; so
     does its TAC+ snapshot (128³, two levels; kernels 1-4)."""
-    import importlib.util
-
     tests = os.path.join(HERE, "tests")
-    spec = importlib.util.spec_from_file_location(
-        "make_card_reference",
-        os.path.join(tests, "card_reference", "make_card_reference.py"))
-    fixture = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixture)
+    fixture = card_fixture()
     out = {"card": smi, "golden": {}}
     with np.load(os.path.join(tests, "golden", "expected.npz")) as z:
         expected = {k: z[k] for k in z.files}
@@ -732,6 +971,21 @@ def card_reference(torch, np, ops, tio, smi: str) -> dict:
                     got.cpu().numpy(), expected[f"level{li}"]),
                     f"golden {name} level {li} != expected.npz on the card")
             out["golden"][name] = rd.n_levels
+    # the two-part golden snapshot, through its manifest
+    ops.reset_launches()
+    with tio.open_snapshot(os.path.join(tests, "golden", "multipart.taczd"),
+                           device="cuda") as rd:
+        check(isinstance(rd, tio.MultiPartReader) and rd.verify(),
+              "golden multipart: manifest or part CRCs")
+        for li in range(rd.n_levels):
+            got = rd.read_level(li)
+            check(got.is_cuda and np.array_equal(
+                got.cpu().numpy(), expected[f"level{li}"]),
+                f"golden multipart level {li} != expected.npz on the card")
+        check(rd.frontier.default_point.metrics["psnr"] == 72.0,
+              "golden multipart: the manifest's frontier")
+        out["golden"]["multipart"] = rd.n_levels
+    out["golden_multipart_launches"] = dict(ops.launches)
     with open(fixture.CONTAINER, "rb") as f:
         want_bytes = f.read()
     with np.load(fixture.RECON) as z:
@@ -1253,6 +1507,10 @@ def main() -> int:
     # ------------------------------------------------ 2b. region serving
     region = region_serving(torch, np, ops, tio, path, levels, smi)
     print("region serving: " + json.dumps(region))
+
+    # --------------------------------------------- 2c. multi-part snapshots
+    mpart = multipart(torch, np, ops, tio, ds, res, eb, path, levels, smi)
+    print("multi-part: " + json.dumps(mpart))
     snap_dir.cleanup()
 
     # ------------------------------------------------- 3. kernels vs plain
@@ -1685,12 +1943,16 @@ def main() -> int:
     # ------------------------------------------------- 7. LM serving
     rows += lm_serving(torch, smi)
 
-    # launches on the region-serving phase (2b) beside each row's own path
+    # launches on the region-serving phase (2b) and the multi-part phase
+    # (2c) beside each row's own path
     for r in rows:
         if r["name"] in ("lorenzo3d_recon_batched", "huffdec"):
             r["region_launches"] = region["launches"][r["name"]]
         elif r["name"] == "lorenzo3d_recon":
             r["region_launches"] = region["gsp_launches"][r["name"]]
+        r["multipart_launches"] = mpart["launches_total"][r["name"]]
+        r["multipart_worker_launches"] = \
+            mpart["process_worker_launches_total"][r["name"]]
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

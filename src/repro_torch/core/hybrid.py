@@ -17,9 +17,9 @@ The strategy feeds the matching SZ path, on the device:
   boundaries — the artifact SHE removes).
 
 Level reconstructions are scattered back on the device, exact zeros
-outside the mask.  Partitioning is integer host logic (numpy).  The
-sequential SHE path (``batched=False``) is not ported and raises
-:class:`NotImplementedError`.
+outside the mask.  Partitioning is integer host logic (numpy).  The SHE
+path runs each same-shape group of bricks as one batch (``batched=True``)
+or brick by brick (``batched=False``); both give the same codes.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from .amr import AMRDataset
 from .blocks import BlockGrid, SubBlock, extract_subblock, make_block_grid
 from .gsp import gsp_meta_bits, gsp_pad, gsp_unpad
 from .opst import opst_partition
-from .she import she_encode
+from .she import check_engine_names, she_encode
 from .sz import SZResult, compress_interp, compress_lor_reg, compress_lorenzo
 
 __all__ = ["LevelArtifacts", "LevelResult", "AMRCompressionResult",
@@ -177,15 +177,21 @@ def compress_level(data: np.ndarray, mask: np.ndarray, *, eb: float,
                    she: bool = True, strategy: str | None = None,
                    sz_block: int = 6, batched: bool = True,
                    ratio: int = 1, keep_artifacts: bool = True,
+                   lorenzo_engine: str = "auto",
+                   entropy_engine: str = "auto",
                    device: str | torch.device = "cuda") -> LevelResult:
     """One level end to end on ``device``; ``recon`` is a device tensor.
 
-    :raises NotImplementedError: for the sequential SHE path
-        (``batched=False`` on a TAC+ level).
+    ``lorenzo_engine`` and ``entropy_engine`` take the reference's engine
+    names for signature parity; every name runs the same kernels.
+
+    :raises ValueError: for an unknown algorithm or engine name.
     """
     device = resolve_device(device)
     if algorithm not in ("lor_reg", "lorenzo", "interp"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    check_engine_names(lorenzo_engine=lorenzo_engine,
+                       entropy_engine=entropy_engine)
     grid, strategy, density, subblocks = partition_level(
         data, mask, unit=unit, algorithm=algorithm, she=she,
         strategy=strategy)
@@ -221,11 +227,8 @@ def compress_level(data: np.ndarray, mask: np.ndarray, *, eb: float,
                     in zip(sb.cell_origin(u), sb.cell_size(u)))] = brick
 
     if she and algorithm == "lor_reg":
-        if not batched:
-            raise NotImplementedError("the sequential batched=False path is "
-                                      "not yet ported")
         enc = she_encode([extract_subblock(grid, sb) for sb in subblocks],
-                         eb, block=sz_block, device=device)
+                         eb, block=sz_block, batched=batched, device=device)
         for sb, r in zip(subblocks, enc.results):
             place(sb, r.recon)
         art = None
@@ -279,14 +282,20 @@ def compress_amr(ds: AMRDataset, *, eb: float | list[float],
                  she: bool = True, strategy: str | None = None,
                  sz_block: int = 6, batched: bool = True,
                  keep_artifacts: bool = True,
+                 lorenzo_engine: str = "auto",
+                 entropy_engine: str = "auto",
                  device: str | torch.device = "cuda") -> AMRCompressionResult:
     """Level-wise TAC/TAC+ over a whole AMR dataset on ``device``.
 
-    ``eb`` may be a scalar or one bound per level.  ``unit`` is the
-    finest level's unit-block edge; coarser levels use
+    ``eb`` may be a scalar or one bound per level (see
+    :func:`repro_torch.core.adaptive_eb.level_error_bounds`).  ``unit`` is
+    the finest level's unit-block edge; coarser levels use
     ``max(2, unit // ratio)``.  ``keep_artifacts=True`` keeps what
-    :func:`repro_torch.io.write` needs.
+    :func:`repro_torch.io.write` needs.  ``batched`` and the engine names
+    are :func:`compress_level`'s.
     """
+    check_engine_names(lorenzo_engine=lorenzo_engine,
+                       entropy_engine=entropy_engine)
     device = resolve_device(device)
     ebs = eb if isinstance(eb, (list, tuple)) else [eb] * ds.n_levels
     if len(ebs) != ds.n_levels:

@@ -2,9 +2,9 @@
 
 The single hash rule that both sides of the multi-host pipeline share:
 
-  * the **write side** (the multi-part writer, not yet ported)
-    partitions each level's ``(level, sub_block)`` keys over the part
-    files of a multi-part snapshot, and
+  * the **write side** (``repro_torch.io.parallel``) partitions each
+    level's ``(level, sub_block)`` keys over the part files of a
+    multi-part snapshot, and
   * the **serving side** (``repro_torch.serving.sharded.ShardMap``)
     places the same keys onto shard servers.
 

@@ -9,8 +9,9 @@ with one scatter, and the host arrays of a call reach the device in one
 staged (pinned) copy.  Levels and crops come back as float32 tensors on that device,
 bit-identical to the compress-time reconstruction.  A gsp or global level
 is one payload of the whole grid: it decodes as a unit (region reads
-decode it fully, then crop).  Multi-part snapshots raise
-:class:`NotImplementedError`.
+decode it fully, then crop).  :func:`open_snapshot` opens a multi-part
+snapshot directory as a :class:`repro_torch.io.parallel.MultiPartReader`
+behind the same surface.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..core.gsp import gsp_unpad
 from ..device import resolve_device
 from . import format as fmt
 from . import frontier as frt
+from . import manifest as _manifest
 
 __all__ = ["ROILevel", "TACZReader", "WHOLE_LEVEL", "open_snapshot",
            "probe_index_crc", "read", "read_roi"]
@@ -643,21 +645,18 @@ def _compact(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _is_multipart(src) -> bool:
-    return isinstance(src, (str, os.PathLike)) and (
-        os.path.isdir(src) or os.path.basename(src) == "manifest.json")
-
-
 def probe_index_crc(path) -> int | None:
-    """A snapshot's identity CRC (its footer's index CRC), read from the
-    20-byte footer alone; the serving layer's hot-swap check.
+    """A snapshot's identity CRC, the serving layer's hot-swap check: the
+    index CRC from a single file's 20-byte footer, or the manifest's own
+    CRC for a multi-part snapshot directory (or its ``manifest.json``;
+    the manifest is the commit point).
 
     :returns: the CRC as an unsigned 32-bit int, or None when the file is
-        missing, truncated or not a TACZ container.
-    :raises NotImplementedError: for a multi-part snapshot directory.
+        missing, truncated or not a TACZ container (or the manifest fails
+        validation).
     """
-    if _is_multipart(path):
-        raise NotImplementedError("multi-part snapshots are not yet ported")
+    if _manifest.is_multipart(path):
+        return _manifest.probe_crc(path)
     try:
         with open(path, "rb") as f:
             f.seek(-fmt.FOOTER_SIZE, os.SEEK_END)
@@ -669,12 +668,18 @@ def probe_index_crc(path) -> int | None:
 
 def open_snapshot(src, *, entropy_engine: str = "auto",
                   device: str | torch.device = "cuda") -> TACZReader:
-    """Open a single-file snapshot (path, bytes or file object).
+    """Open a snapshot, single-file or multi-part, behind one surface: a
+    snapshot directory holding a ``manifest.json`` (or that file) yields a
+    :class:`repro_torch.io.parallel.MultiPartReader`; a ``.tacz`` path,
+    bytes or a seekable file object a :class:`TACZReader`.
 
-    :raises NotImplementedError: for a multi-part snapshot directory.
+    :raises ValueError: if the snapshot fails validation.
+    :raises OSError: if the path cannot be opened.
     """
-    if _is_multipart(src):
-        raise NotImplementedError("multi-part snapshots are not yet ported")
+    if _manifest.is_multipart(src):
+        from .parallel import MultiPartReader
+        return MultiPartReader(src, entropy_engine=entropy_engine,
+                               device=device)
     return TACZReader(src, entropy_engine=entropy_engine, device=device)
 
 

@@ -5,8 +5,10 @@
   ``AMRDataset``.
 * :class:`TACZWriter` — streaming: ``add_level(data, mask)`` hands raw
   levels to a background encoder thread (bounded queue → double
-  buffering); ``close()`` writes the index and publishes the file
-  atomically (tmp file + ``os.replace``).
+  buffering), or encodes them inline with ``background=False``;
+  ``close()`` writes the index and publishes the file atomically (tmp
+  file + ``os.replace``), or with ``publish=False`` leaves the finished
+  tmp file for a multi-part writer's two-phase commit.
 
 The bytes are the reference writer's for the same compressed state: the
 payloads of a level are packed on the device in one batched pass
@@ -22,6 +24,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 import weakref
 import zlib
 
@@ -33,7 +36,9 @@ from ..core.amr import AMRDataset
 from ..core.compat import HAVE_ZSTD, zstd_compress
 from ..core.hybrid import AMRCompressionResult, LevelResult, compress_level
 from ..core.sz import SZResult
+from ..core.she import check_engine_names
 from ..device import resolve_device
+from ..obs import metrics as obsm
 from . import format as fmt
 from . import frontier as frt
 
@@ -103,6 +108,7 @@ def _betas_bytes(results: list[SZResult]) -> list[bytes]:
 
 
 def pack_level(lr: LevelResult, *, payload_codec: str = "auto",
+               entropy_engine: str = "auto",
                ) -> tuple[bytes, fmt.LevelEntry]:
     """Serialize one compressed level into (section blob, index entry)
     with blob-relative offsets; the caller places the blob and calls
@@ -111,8 +117,14 @@ def pack_level(lr: LevelResult, *, payload_codec: str = "auto",
     ``payload_codec`` selects the lossless byte pass over each payload's
     packed-Huffman bytes (betas prefixes stay raw).  A gsp/global level
     reuses the codebook and packed payload its compress-time entropy
-    stage made (``SZResult.extras["entropy"]``).
+    stage made (``SZResult.extras["entropy"]``).  A level whose artifacts
+    hold no results (a multi-part writer's stub for a level whose every
+    sub-block lives in other parts) packs to a head and mask only.
+    ``entropy_engine`` is one of the reference's engine names, validated
+    only: the payloads pack in one pass on the codes' device whatever the
+    name, and the bytes do not depend on it.
     """
+    entropy.check_engine_name(entropy_engine)
     art = lr.artifacts
     if art is None:
         raise ValueError(
@@ -220,6 +232,19 @@ def _nudge(q: queue.Queue) -> None:
         pass
 
 
+def _reap_sync(f, tmp: str) -> None:
+    """GC finalizer for a ``background=False`` writer dropped without
+    ``close()``/``abort()``: close the fd and drop the unpublished tmp."""
+    try:
+        f.close()
+    except OSError:      # pragma: no cover - already closed
+        pass
+    try:
+        os.remove(tmp)
+    except OSError:
+        pass
+
+
 def _worker_loop(wref, q: queue.Queue, f, tmp: str) -> None:
     """Encoder-thread body.  Holds only a weakref to the writer, so an
     abandoned writer is collected; the thread then closes the fd, drops
@@ -230,11 +255,7 @@ def _worker_loop(wref, q: queue.Queue, f, tmp: str) -> None:
         try:
             if item is _SENTINEL or w is None:
                 if w is None:
-                    f.close()
-                    try:
-                        os.remove(tmp)
-                    except OSError:
-                        pass
+                    _reap_sync(f, tmp)
                 return
             if w._err is None and not w._aborted:
                 w._append_level(w._encode(item))
@@ -252,8 +273,14 @@ class TACZWriter:
     ``add_level`` snapshots a raw level and returns; a worker thread runs
     the TAC+ pipeline on ``device`` and appends the level's sections.
     The bounded queue (``queue_depth``) double-buffers producer and
-    encoder.  The file is written to ``<path>.tmp`` and moved into place
-    by :meth:`close`; readers never observe a partial file.
+    encoder.  ``background=False`` encodes inline on the caller's thread
+    instead (``add_level`` then blocks), which is what a caller that is
+    already a dedicated worker wants: each part worker of
+    :mod:`repro_torch.io.parallel` writes this way.  The file is written
+    to ``<path>.tmp`` and moved into place by :meth:`close`; readers never
+    observe a partial file.  A writer dropped without ``close()`` or
+    ``abort()`` is reaped at collection (fd closed, tmp removed) and
+    never published.
 
     :param path: destination ``.tacz`` path.
     :param eb: default absolute error bound for :meth:`add_level`.
@@ -266,45 +293,70 @@ class TACZWriter:
     :param strategy: partitioning strategy override (default: chosen per
         level from its density).
     :param sz_block: Lor/Reg regression block edge.
+    :param batched: run SHE levels' bricks in same-shape batches
+        (``False``: brick by brick; the bytes are the same).
+    :param lorenzo_engine: the reference's Lorenzo engine names
+        (``"auto"``, ``"numpy"``, ``"pallas"``), validated only.
+    :param entropy_engine: the reference's entropy engine names, validated
+        only; every name packs on ``device`` and the bytes do not depend
+        on it.
     :param payload_codec: ``"auto"`` (zstd, zlib fallback), ``"zstd"``,
         ``"zlib"`` or ``"none"``.
     :param queue_depth: bounded encode queue length (≥1).
+    :param background: encode on a background thread (default) or inline.
     :param device: where levels compress (default ``"cuda"``).
-    :raises ValueError: on an unknown ``payload_codec``.
+    :raises ValueError: on an unknown ``payload_codec`` or engine name.
     :raises RuntimeError: for ``device="cuda"`` without a card.
     """
 
     def __init__(self, path: str, *, eb: float | None = None, unit: int = 8,
                  algorithm: str = "lor_reg", she: bool = True,
-                 strategy: str | None = None,
-                 sz_block: int = 6, payload_codec: str = "auto",
-                 queue_depth: int = 2,
+                 strategy: str | None = None, sz_block: int = 6,
+                 batched: bool = True, lorenzo_engine: str = "auto",
+                 entropy_engine: str = "auto", payload_codec: str = "auto",
+                 queue_depth: int = 2, background: bool = True,
                  device: str | torch.device = "cuda"):
         resolve_payload_codec(payload_codec)   # fail fast on bad names
+        check_engine_names(lorenzo_engine=lorenzo_engine,
+                           entropy_engine=entropy_engine)
         self.device = resolve_device(device)
         self.path = str(path)
         self._tmp = self.path + ".tmp"
         self._payload_codec = payload_codec
         self._defaults = dict(eb=eb, unit=unit, algorithm=algorithm, she=she,
-                              strategy=strategy, sz_block=sz_block)
+                              strategy=strategy, sz_block=sz_block,
+                              batched=batched)
         self._f = open(self._tmp, "wb")
         self._f.write(fmt.pack_header())
         self._off = fmt.HEADER_SIZE
         self._entries: list[fmt.LevelEntry] = []
         self._frontier: frt.Frontier | None = None
-        #: index CRC of the published file (set by :meth:`close`)
+        #: index CRC of the finished file (set by :meth:`close`)
         self.index_crc: int | None = None
         self._err: BaseException | None = None
+        # plain stage totals of this writer; a process-mode part worker
+        # sends them home, where its registry is not scraped
+        self._obs = {"levels": 0, "encode_seconds": 0.0,
+                     "pack_seconds": 0.0, "publish_seconds": 0.0,
+                     "bytes": 0}
+        self._background = bool(background)
         self._finalized = False
         self._aborted = False
         self._sentinel_sent = False
-        self._queue: queue.Queue = queue.Queue(maxsize=max(1, queue_depth))
-        self._thread = threading.Thread(
-            target=_worker_loop,
-            args=(weakref.ref(self), self._queue, self._f, self._tmp),
-            daemon=True)
-        self._thread.start()
-        self._reaper = weakref.finalize(self, _nudge, self._queue)
+        if self._background:
+            self._queue: queue.Queue | None = queue.Queue(
+                maxsize=max(1, queue_depth))
+            self._thread: threading.Thread | None = threading.Thread(
+                target=_worker_loop,
+                args=(weakref.ref(self), self._queue, self._f, self._tmp),
+                daemon=True)
+            self._thread.start()
+            self._reaper = weakref.finalize(self, _nudge, self._queue)
+        else:
+            self._queue = None
+            self._thread = None
+            self._reaper = weakref.finalize(self, _reap_sync, self._f,
+                                            self._tmp)
 
     def add_level(self, data: np.ndarray, mask: np.ndarray | None = None, *,
                   eb: float | None = None, ratio: int = 1,
@@ -319,7 +371,7 @@ class TACZWriter:
         data = np.array(data, dtype=np.float32, copy=True)
         mask = (data != 0) if mask is None else np.array(mask, dtype=bool,
                                                          copy=True)
-        self._queue.put(("raw", data, mask, float(eb), int(ratio), int(unit)))
+        self._put(("raw", data, mask, float(eb), int(ratio), int(unit)))
 
     def add_compressed(self, lr: LevelResult) -> None:
         """Queue an already-compressed level (needs ``artifacts``)."""
@@ -330,7 +382,7 @@ class TACZWriter:
                 "non-SHE path is not indexable (compress with she=True or "
                 "strategy='gsp'), and compression must run with "
                 "keep_artifacts=True")
-        self._queue.put(("level", lr))
+        self._put(("level", lr))
 
     def set_frontier(self, frontier: frt.Frontier | None) -> None:
         """Attach a rate–distortion frontier, written by :meth:`close` as
@@ -338,10 +390,14 @@ class TACZWriter:
         self._check_live()
         self._frontier = frontier
 
-    def close(self) -> str:
+    def close(self, *, publish: bool = True) -> str:
         """Drain the queue, write index + footer, publish atomically.
 
         Raises the encoder's error, if any, after dropping the tmp file.
+        ``publish=False`` finishes the file (index, footer, fsync, fd
+        closed) but leaves it at ``<path>.tmp`` and returns that path: a
+        multi-part writer renames its parts only once every one of them
+        has finished.
         """
         if self._finalized:
             return self.path
@@ -351,28 +407,36 @@ class TACZWriter:
         try:
             if self._err is not None:
                 raise self._err
-            index = fmt.pack_index(self._entries)
-            self._f.write(index)
-            self.index_crc = fmt.index_crc(index)
-            if self._frontier is not None:
-                self._f.write(frt.pack_section(self._frontier))
-            self._f.write(fmt.pack_footer(self._off, len(index),
-                                          self.index_crc))
-            self._f.flush()
-            os.fsync(self._f.fileno())
-            self._f.close()
-            os.replace(self._tmp, self.path)
+            with obsm.timed(obsm.WRITER_LEVEL_SECONDS.labels("publish"),
+                            "publish"):
+                t0 = time.perf_counter()
+                index = fmt.pack_index(self._entries)
+                self._f.write(index)
+                self.index_crc = fmt.index_crc(index)
+                if self._frontier is not None:
+                    self._f.write(frt.pack_section(self._frontier))
+                self._f.write(fmt.pack_footer(self._off, len(index),
+                                              self.index_crc))
+                self._f.flush()
+                os.fsync(self._f.fileno())
+                self._f.close()
+                if publish:
+                    os.replace(self._tmp, self.path)
+                self._obs["publish_seconds"] += time.perf_counter() - t0
         except BaseException:
             self.abort()
             raise
         self._finalized = True
-        return self.path
+        return self.path if publish else self._tmp
 
     def abort(self) -> None:
         """Drop the partial file (used on error paths)."""
         self._aborted = True
         self._stop_worker()
-        self._f.close()
+        try:
+            self._f.close()
+        except OSError:  # pragma: no cover - double close
+            pass
         try:
             os.remove(self._tmp)
         except OSError:
@@ -391,8 +455,10 @@ class TACZWriter:
         if not self._sentinel_sent:
             self._sentinel_sent = True
             self._reaper.detach()   # orderly shutdown owns cleanup now
-            self._queue.put(_SENTINEL)
-        self._thread.join()
+            if self._background:
+                self._queue.put(_SENTINEL)
+        if self._thread is not None:
+            self._thread.join()
 
     def _check_live(self) -> None:
         if self._finalized or self._aborted or self._sentinel_sent:
@@ -400,24 +466,53 @@ class TACZWriter:
         if self._err is not None:
             raise self._err
 
+    def _put(self, item) -> None:
+        if self._background:
+            self._queue.put(item)
+            return
+        try:                  # inline encode: errors surface at once
+            self._append_level(self._encode(item))
+        except BaseException as exc:
+            self._err = exc   # close() keeps refusing to publish
+            raise
+
     def _encode(self, item) -> LevelResult:
         if item[0] == "level":
             return item[1]
         _, data, mask, eb, ratio, unit = item
         d = self._defaults
-        return compress_level(data, mask, eb=eb, unit=unit,
-                              algorithm=d["algorithm"], she=d["she"],
-                              strategy=d["strategy"],
-                              sz_block=d["sz_block"],
-                              ratio=ratio, keep_artifacts=True,
-                              device=self.device)
+        with obsm.timed(obsm.WRITER_LEVEL_SECONDS.labels("encode"),
+                        "encode"):
+            t0 = time.perf_counter()
+            lr = compress_level(data, mask, eb=eb, unit=unit,
+                                algorithm=d["algorithm"], she=d["she"],
+                                strategy=d["strategy"],
+                                sz_block=d["sz_block"], batched=d["batched"],
+                                ratio=ratio, keep_artifacts=True,
+                                device=self.device)
+            self._obs["encode_seconds"] += time.perf_counter() - t0
+            return lr
 
     def _append_level(self, lr: LevelResult) -> None:
-        blob, entry = pack_level(lr, payload_codec=self._payload_codec)
-        entry.shift_offsets(self._off)
-        self._f.write(blob)
-        self._off += len(blob)
-        self._entries.append(entry)
+        with obsm.timed(obsm.WRITER_LEVEL_SECONDS.labels("pack"), "pack"):
+            t0 = time.perf_counter()
+            blob, entry = pack_level(lr, payload_codec=self._payload_codec)
+            entry.shift_offsets(self._off)
+            self._f.write(blob)
+            self._off += len(blob)
+            self._entries.append(entry)
+            self._obs["pack_seconds"] += time.perf_counter() - t0
+            self._obs["levels"] += 1
+            self._obs["bytes"] += len(blob)
+        obsm.WRITER_LEVELS.inc()
+        obsm.WRITER_BYTES.inc(len(blob))
+
+    def obs_summary(self) -> dict:
+        """This writer's stage totals as a plain dict: ``levels``,
+        ``encode_seconds``, ``pack_seconds``, ``publish_seconds`` and
+        ``bytes`` (the reference's keys).  A process-mode part worker
+        returns it to the producer, which folds it into its registry."""
+        return dict(self._obs)
 
 
 def write(path: str, obj, *, eb: float | list[float] | None = None,

@@ -36,6 +36,7 @@ group_dequant             repro/kernels/qdq.py:64                  csrc/qdq.cu
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -49,7 +50,8 @@ __all__ = ["launches", "reset_launches", "codes_route",
            "huffdec_plan", "HUFF_CHUNK_BITS", "huffdec_stats",
            "group_quant", "quantize_kv_into", "group_dequant"]
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
+#: Kernel launches per wrapper since the last :func:`reset_launches`,
+#: totals over every thread of the process (the updates hold a lock).
 launches = {"lorenzo3d_codes_batched": 0, "lorenzo3d_recon_batched": 0,
             "lorenzo3d_codes": 0, "lorenzo3d_recon": 0, "hist": 0,
             "huffdec": 0, "group_quant": 0, "group_dequant": 0}
@@ -81,15 +83,20 @@ RECON3D_MAX_Z = 4096
 #: Bits per chunk of the parallel Huffman decode (kernel 4).
 HUFF_CHUNK_BITS = 64
 
-#: Device int32 tensor of the last CUDA :func:`huffdec` call: [chunks,
-#: sync passes run, payloads walked serially, chunks decoded in each pass].
-#: Only :func:`huffdec` writes it; reading it synchronises.
+#: Device int32 tensor of the last CUDA :func:`huffdec` call, from
+#: whichever thread made it: [chunks, sync passes run, payloads walked
+#: serially, chunks decoded in each pass].  Only :func:`huffdec` writes
+#: it; reading it synchronises.
 huffdec_stats: torch.Tensor | None = None
 
 
+_launch_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launch_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -126,7 +133,8 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    launches[name] += 1
+    with _launch_lock:
+        launches[name] += 1
 
 
 def codes_route(x: torch.Tensor) -> str:

@@ -9,10 +9,10 @@ Every instrumented component records into one module-level
   * One scrape covers everything in the process: a shard's cache,
     planner, handoff and server latency.
 
-The catalog below holds the families the region server records, under
-the reference's names (``repro.obs.metrics``), so a scrape of either
-package reads alike; the compression, writer, router, HTTP and SLO
-families arrive with the modules that record them.  Bucket
+The catalog below holds the families the region server and the TACZ
+writers record, under the reference's names (``repro.obs.metrics``), so
+a scrape of either package reads alike; the compression, router, HTTP
+and SLO families arrive with the modules that record them.  Bucket
 choices: request/stage latencies share :data:`~repro_torch.obs.registry.
 DEFAULT_TIME_BUCKETS` (100 µs–10 s) so quantiles are comparable across
 stages.
@@ -26,6 +26,7 @@ from .trace import trace as _trace
 
 __all__ = [
     "REGISTRY", "set_enabled", "is_enabled", "timed",
+    "WRITER_LEVEL_SECONDS", "WRITER_BYTES", "WRITER_LEVELS",
     "PLANNER_SUBBLOCKS", "PLANNER_DECODE_SECONDS", "PLANNER_DECODED_BYTES",
     "SERVER_REQUEST_SECONDS", "SERVER_REGIONS",
     "CACHE_HITS", "CACHE_MISSES", "CACHE_EVICTIONS",
@@ -79,6 +80,22 @@ class timed:
         if self._span is not None:
             self._span.__exit__(*exc)
 
+
+# ------------------------------ writers ----------------------------------
+
+WRITER_LEVEL_SECONDS = REGISTRY.histogram(
+    "tacz_writer_level_seconds",
+    "TACZWriter per-level stage wall time "
+    "(stage: encode | pack | publish).",
+    labels=("stage",))
+
+WRITER_BYTES = REGISTRY.counter(
+    "tacz_writer_bytes_total",
+    "Compressed bytes appended to .tacz files (payload sections).")
+
+WRITER_LEVELS = REGISTRY.counter(
+    "tacz_writer_levels_total",
+    "AMR levels encoded and appended by writers.")
 
 # ------------------------------ planner ----------------------------------
 

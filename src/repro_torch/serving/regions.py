@@ -15,11 +15,14 @@ cache is what makes them cheap.  Three layers, as in the reference's
     of *uncached* sub-blocks and decodes them per level: one launch of
     kernel 4 over the level's missing payloads, one batched
     reconstruction per (shape, branch) group (kernel 2 for Lorenzo
-    bricks).  A whole-level key goes through ``read_level`` (kernel 6 for
-    a global Lorenzo level).
+    bricks).  On a multi-part snapshot that is one launch of kernel 4 per
+    part holding missing payloads (codebooks are local to a part).  A
+    whole-level key goes through ``read_level`` (kernel 6 for a global
+    Lorenzo level).
   * :class:`RegionServer` — ``get_region(level, box)`` /
-    ``get_regions(boxes)`` over one reader + cache + planner, with
-    snapshot hot-swap keyed on the TACZ footer's index CRC.
+    ``get_regions(boxes)`` over one reader + cache + planner, for a
+    ``.tacz`` file or a multi-part snapshot directory, with snapshot
+    hot-swap keyed on the footer's index CRC or the manifest's CRC.
 
 Assembly is the reader's own code path
 (:meth:`~repro_torch.io.reader.TACZReader.assemble_level_roi`), so every
@@ -262,11 +265,12 @@ class DecodePlanner:
     ``plan`` resolves (level, box) queries against the reader's index;
     ``fetch`` dedupes the union of needed sub-blocks, consults the cache
     once per unique key and decodes only the misses: per level, one
-    launch of kernel 4 over every missing payload and one batched
-    reconstruction per (shape, branch) group.
+    launch of kernel 4 over every missing payload (per part of a
+    multi-part snapshot) and one batched reconstruction per (shape,
+    branch) group.
 
-    :param reader: the open :class:`~repro_torch.io.TACZReader` to plan
-        against.
+    :param reader: the open :class:`~repro_torch.io.TACZReader` (or
+        :class:`~repro_torch.io.MultiPartReader`) to plan against.
     :param owned: optional set of ``(level, sub_block)`` keys this planner
         may decode (a shard's slice of ``reader.subblock_keys()``); foreign
         sub-blocks are dropped from ``tasks`` and foreign whole-level
@@ -377,8 +381,9 @@ class RegionServer:
     a whole batch at once; ``get_roi(box)`` mirrors ``read_roi``.  Crops
     are float32 tensors on ``device`` and never alias a cache entry.
 
-    Hot swap: :meth:`maybe_reload` re-reads the file's 20-byte footer and
-    compares the index CRC with the serving snapshot's; on change the
+    Hot swap: :meth:`maybe_reload` re-reads the file's 20-byte footer (a
+    directory's manifest) and compares its CRC with the serving
+    snapshot's; on change the
     reader is reopened and cache entries of levels whose
     :meth:`~repro_torch.io.TACZReader.level_signature` is unchanged are
     carried over.  ``auto_reload=True`` runs the check before every batch.
@@ -387,7 +392,11 @@ class RegionServer:
     sub-blocks the map assigns to that shard; foreign sub-blocks are never
     decoded or cached (crops cover them with zeros).
 
-    :param path: path of the single-file ``.tacz`` snapshot to serve.
+    :param path: the snapshot to serve: a ``.tacz`` file, or a multi-part
+        snapshot directory (opened by
+        :func:`repro_torch.io.open_snapshot`; the reader surface is the
+        same, and a server whose ``shard_map`` comes from the manifest's
+        ``partition`` opens only its own part).
     :param cache_bytes: :class:`SubBlockCache` byte budget, in device
         memory (~25 % of the decoded level bytes suits overlapping
         workloads).
@@ -401,9 +410,8 @@ class RegionServer:
         kernel 4 (the reference's engines are bit-identical).
     :param device: where bricks decode and stay (default ``"cuda"``).
     :raises ValueError: if only one of ``shard_map``/``shard_id`` is given,
-        or the file fails TACZ validation.
+        or the snapshot fails TACZ validation.
     :raises RuntimeError: for ``device="cuda"`` without a card.
-    :raises NotImplementedError: for a multi-part snapshot directory.
     """
 
     def __init__(self, path, *, cache_bytes: int = 256 << 20,
@@ -475,8 +483,8 @@ class RegionServer:
     def maybe_reload(self) -> bool:
         """Swap to a republished snapshot; True when a swap happened.
 
-        Cheap (one footer read) and safe to call per request.  A missing
-        or truncated file keeps the current snapshot serving.  Cache
+        Cheap (one footer or manifest read) and safe to call per request.
+        A missing or truncated file keeps the current snapshot serving.  Cache
         entries are carried over for every level whose content signature
         matches the new snapshot; entries for changed levels are dropped.
         """

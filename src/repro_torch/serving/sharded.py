@@ -38,9 +38,10 @@ class ShardMap:
     from the same serialized config (:meth:`to_json`/:meth:`from_json`).
 
     The scoring function itself lives in :mod:`repro_torch.io.placement`:
-    the same rule the reference's multi-part writer partitions part files
-    with, so a map built from a multi-part manifest's ``partition``
-    config assigns each shard exactly the keys its part file holds.
+    the same rule the multi-part writer (:mod:`repro_torch.io.parallel`)
+    partitions part files with, so a map built from a multi-part
+    manifest's ``partition`` config assigns each shard exactly the keys
+    its part file holds.
 
     :param shards: shard identifiers (non-empty unique strings) — usually
         the names the deployment uses to look up endpoints.

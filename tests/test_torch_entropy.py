@@ -94,7 +94,11 @@ def test_she_encode_matches_reference():
         [r.payload_bits for r in want.results]
     assert huffman.serialize_codebook(got.codebook) == \
         rhuffman.serialize_codebook(want.codebook)
-    with pytest.raises(NotImplementedError):
-        she.she_encode(bricks, 0.05, shared=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        she.she_encode(bricks, 0.05, batched=False, device="cpu")
+    # the per-block baseline and the per-brick route: exact as well
+    for kw in ({"shared": False}, {"batched": False}):
+        want = rshe.she_encode(bricks, 0.05, lorenzo_engine="numpy", **kw)
+        got = she.she_encode(bricks, 0.05, device="cpu", **kw)
+        assert (got.payload_bits, got.codebook_bits, got.meta_bits) == \
+            (want.payload_bits, want.codebook_bits, want.meta_bits)
+        assert [(r.payload_bits, r.codebook_bits) for r in got.results] == \
+            [(r.payload_bits, r.codebook_bits) for r in want.results]

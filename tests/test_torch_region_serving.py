@@ -18,6 +18,7 @@ CPU tests' bodies and fixtures), so they run on the card's machine with
 ``pytest --noconftest -m cuda``: they serve the golden v1 fixture and
 ``tests/card_reference/gsp_lorenzo.tacz`` (kernel 6) on the card.
 """
+import json
 import os
 import threading
 from types import SimpleNamespace
@@ -546,10 +547,18 @@ def test_probe_index_crc_bad_files_and_multipart(tmp_path, snapshots):
     cut = tmp_path / "cut.tacz"
     cut.write_bytes(body[:-7])
     assert treader.probe_index_crc(str(cut)) is None
-    with pytest.raises(NotImplementedError, match="multi-part"):
-        treader.probe_index_crc(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="multi-part"):
+    # a directory without a manifest is no snapshot; a multi-part one is
+    # identified by its manifest's CRC
+    assert treader.probe_index_crc(str(tmp_path)) is None
+    with pytest.raises(OSError):
         RegionServer(str(tmp_path), device="cpu")
+    gold = os.path.join(HERE, "golden", "multipart.taczd")
+    with open(os.path.join(gold, "manifest.json")) as f:
+        crc = json.load(f)["crc32"]
+    assert treader.probe_index_crc(gold) == crc
+    assert treader.probe_index_crc(os.path.join(gold, "manifest.json")) == crc
+    with RegionServer(gold, device="cpu") as srv:
+        assert srv.snapshot_crc == crc
 
 
 @pytest.mark.parametrize("engine", ["auto", "numpy", "batched", "pallas"])
