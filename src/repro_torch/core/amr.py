@@ -36,6 +36,7 @@ __all__ = [
     "AMRDataset",
     "gaussian_random_field",
     "synthetic_amr",
+    "uniform_resolution",
     "NYX_LIKE_PRESETS",
 ]
 
@@ -225,6 +226,23 @@ def synthetic_amr(finest_shape: tuple[int, int, int] = (64, 64, 64), *,
     ds = AMRDataset(levels=levels, name=name)
     assert ds.check_tiling(), "synthetic AMR violated the tiling invariant"
     return ds
+
+
+def uniform_resolution(ds: AMRDataset) -> np.ndarray:
+    """Up-sample every level to the finest resolution and combine (Fig. 2).
+
+    This is the representation post-analysis runs on (power spectrum, halo
+    finder) and the input of the 3D baseline compressor.  A numpy array,
+    as the dataset is.
+    """
+    out = np.zeros(ds.finest_shape, dtype=np.float32)
+    for l in ds.levels:
+        up = np.repeat(np.repeat(np.repeat(l.data, l.ratio, 0), l.ratio, 1),
+                       l.ratio, 2)
+        upm = np.repeat(np.repeat(np.repeat(l.mask, l.ratio, 0), l.ratio, 1),
+                        l.ratio, 2)
+        out = np.where(upm, up, out)
+    return out
 
 
 # Table I datasets re-scaled to laptop-size grids: same level structure and

@@ -7,7 +7,7 @@ only the index, so readers that predate the section skip it; this reader
 parses the gap and reports a damaged section as ``frontier_error``
 instead of failing.  This module holds the data model, the section
 framing and the distortion-target grammar (:func:`parse_target`,
-:meth:`Frontier.select`); the tuner is not yet ported.
+:meth:`Frontier.select`); :mod:`repro_torch.tuning` records frontiers.
 """
 from __future__ import annotations
 

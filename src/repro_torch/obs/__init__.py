@@ -1,12 +1,13 @@
 """``repro_torch.obs`` — dependency-free observability, copied from the
 reference's ``repro.obs``: a thread-safe metrics registry with Prometheus
 text exposition (:mod:`.registry`), nested timing spans and request IDs
-(:mod:`.trace`), and the process-wide default registry with the metric
-catalog (:mod:`.metrics`).  The region server records into them.  The
-exposition parser, the fleet collector and the SLO engine are not yet
-ported.
+(:mod:`.trace`), the process-wide default registry with the metric
+catalog (:mod:`.metrics`), and the exposition parser (:mod:`.expo`).
+The region server, its async core and HTTP endpoint record into them.
+The fleet collector and the SLO engine are not yet ported.
 """
-from . import metrics
+from . import expo, metrics
+from .expo import ParsedFamily, ParsedHistogram
 from .metrics import REGISTRY, is_enabled, set_enabled, timed
 from .registry import (DEFAULT_TIME_BUCKETS, Counter, Gauge, Histogram,
                        MetricsRegistry, quantile_from_buckets)
@@ -19,4 +20,5 @@ __all__ = [
     "Span", "trace", "root_span", "current_span",
     "new_request_id", "REQUEST_ID_HEADER",
     "REGISTRY", "metrics", "set_enabled", "is_enabled", "timed",
+    "expo", "ParsedFamily", "ParsedHistogram",
 ]

@@ -9,10 +9,11 @@ Every instrumented component records into one module-level
   * One scrape covers everything in the process: a shard's cache,
     planner, handoff and server latency.
 
-The catalog below holds the families the region server and the TACZ
-writers record, under the reference's names (``repro.obs.metrics``), so
-a scrape of either package reads alike; the compression, router, HTTP
-and SLO families arrive with the modules that record them.  Bucket
+The catalog below holds the families the region server, its async
+serving core and HTTP endpoint, and the TACZ writers record, under the
+reference's names (``repro.obs.metrics``), so a scrape of either package
+reads alike; the compression, router and SLO families arrive with the
+modules that record them.  Bucket
 choices: request/stage latencies share :data:`~repro_torch.obs.registry.
 DEFAULT_TIME_BUCKETS` (100 µs–10 s) so quantiles are comparable across
 stages.
@@ -29,9 +30,11 @@ __all__ = [
     "WRITER_LEVEL_SECONDS", "WRITER_BYTES", "WRITER_LEVELS",
     "PLANNER_SUBBLOCKS", "PLANNER_DECODE_SECONDS", "PLANNER_DECODED_BYTES",
     "SERVER_REQUEST_SECONDS", "SERVER_REGIONS",
+    "SERVER_BACKPRESSURE", "SERVER_DECODE_UNITS", "SERVER_QUEUE_DEPTH",
     "CACHE_HITS", "CACHE_MISSES", "CACHE_EVICTIONS",
     "CACHE_ENTRIES", "CACHE_BYTES", "CACHE_BUDGET_BYTES",
     "HANDOFF_KEYS", "HANDOFF_BYTES",
+    "HTTP_REQUESTS", "HTTP_REQUEST_SECONDS",
     "VARIANT_REQUESTS", "VARIANT_FALLBACKS", "VARIANT_UNSATISFIED",
     "VARIANT_LABEL_BUDGET",
 ]
@@ -125,6 +128,25 @@ SERVER_REGIONS = REGISTRY.counter(
     "tacz_server_regions_total",
     "Region boxes served by RegionServer.get_regions.")
 
+# Admission control (repro_torch.serving.core.AsyncServingCore): decode
+# work is bounded; what the bound rejects or queues must be visible.
+
+SERVER_BACKPRESSURE = REGISTRY.counter(
+    "tacz_server_backpressure_total",
+    "Batches rejected by decode admission control "
+    "(reason: queue_full | draining).",
+    labels=("reason",))
+
+SERVER_DECODE_UNITS = REGISTRY.counter(
+    "tacz_server_decode_units_total",
+    "Per-level decode units executed by the AsyncServingCore worker "
+    "pool (an oversized batch splits into one unit per level).")
+
+SERVER_QUEUE_DEPTH = REGISTRY.gauge(
+    "tacz_server_queue_depth",
+    "Decode units currently admitted (queued + running) in the "
+    "AsyncServingCore.")
+
 # Cache gauges are refreshed from SubBlockCache.stats() at scrape/stat
 # time (the cache keeps its own lifetime counters across hot swaps).
 CACHE_HITS = REGISTRY.gauge(
@@ -167,6 +189,19 @@ HANDOFF_BYTES = REGISTRY.counter(
     "Decoded-brick payload bytes moved by the cache-handoff protocol "
     "(direction: export | import).",
     labels=("direction",))
+
+
+# -------------------------------- http -----------------------------------
+
+HTTP_REQUESTS = REGISTRY.counter(
+    "tacz_http_requests_total",
+    "HTTP requests served, by route and status code.",
+    labels=("route", "status"))
+
+HTTP_REQUEST_SECONDS = REGISTRY.histogram(
+    "tacz_http_request_seconds",
+    "HTTP request handling wall time, by route.",
+    labels=("route",))
 
 
 # ------------------------------- variants ---------------------------------

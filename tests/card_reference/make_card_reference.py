@@ -1,5 +1,5 @@
-"""Regenerate the card-reference fixtures: one TAC GSP level and one
-TAC+ snapshot, written by the reference.
+"""Regenerate the card-reference fixtures: one TAC GSP level, one TAC+
+snapshot and one tuned variant set, written by the reference.
 
 Run from the repo root::
 
@@ -19,7 +19,16 @@ The reference's numpy host path (``repro``) writes
   ``tacplus.tacz``, and the SHA-256 of each level's recon as read back
   (float32 bytes) into ``tacplus_recon.json``.  Its largest stack of
   16³ bricks holds more than 2¹⁷ values, so that kernel 1 takes its
-  plane walk on the card.
+  plane walk on the card;
+* the variant set ``write_variant_set`` tunes and writes for the
+  reference tuning tests' dataset (:data:`TUNED_DATASET`, 32³, two
+  levels) and targets (:data:`TUNED_TARGETS`), default ladder, into
+  ``tuned.taczv/`` (``hi.tacz``, ``lo.tacz``, ``variants.json``), and
+  each variant's tuned ``ebs``, bits, metrics and the SHA-256 of each
+  level it decodes to into ``tuned.json``.  Payloads are priced without
+  the zstd pass (:func:`huffman_pricing`): with ``zstandard`` installed
+  the bits are ``min(Huffman, zstd)``, so the tuner's bits, and the
+  choices they steer, would follow the machine.
 
 The payload codec is pinned: ``"auto"`` picks zstd only where
 ``zstandard`` is installed, so the bytes would follow the machine.  The
@@ -31,7 +40,9 @@ Only :func:`main` and the ``write_*`` functions import the reference:
 the card's tests and ``chip_smoke.py`` import this module for
 :func:`level`, :data:`TACPLUS` and the paths.
 """
+import contextlib
 import hashlib
+import importlib
 import json
 import os
 import sys
@@ -43,6 +54,13 @@ CONTAINER = os.path.join(HERE, "gsp_lorenzo.tacz")
 RECON = os.path.join(HERE, "gsp_lorenzo_recon.npz")
 TACPLUS_CONTAINER = os.path.join(HERE, "tacplus.tacz")
 TACPLUS_RECON = os.path.join(HERE, "tacplus_recon.json")
+TUNED_SET = os.path.join(HERE, "tuned.taczv")
+TUNED_JSON = os.path.join(HERE, "tuned.json")
+#: ``synthetic_amr`` arguments and targets of the tuned variant set
+TUNED_DATASET = dict(finest_shape=(32, 32, 32), densities=[0.35, 0.65],
+                     refine_block=4, seed=5)
+TUNED_TARGETS = {"hi": "psnr>=70", "lo": "psnr>=50"}
+TUNED_DEFAULT = "lo"
 #: ``synthetic_amr`` arguments of the TAC+ snapshot (both packages'
 #: generators give the same levels)
 TACPLUS = dict(finest_shape=(128, 128, 128), densities=[0.23, 0.77],
@@ -111,6 +129,50 @@ def write_tacplus_reference(path: str) -> list[str]:
     return [digest(r) for r in rio.read(path)]
 
 
+def tuned_summary(set_dir: str, read) -> dict:
+    """Each variant's catalog row (``ebs``, ``bits``, ``metrics``) and the
+    digests of the levels ``read(path)`` decodes its file to."""
+    with open(os.path.join(set_dir, "variants.json")) as f:
+        catalog = json.load(f)
+    return {"default": catalog["default"], "variants": {
+        v["name"]: {"ebs": v["ebs"], "bits": v["bits"],
+                    "metrics": v["metrics"],
+                    "levels": [digest(r) for r in
+                               read(os.path.join(set_dir, v["file"]))]}
+        for v in catalog["variants"]}}
+
+
+@contextlib.contextmanager
+def huffman_pricing(package: str):
+    """While active, ``package`` (``"repro"`` or ``"repro_torch"``)
+    prices code streams by their Huffman bits alone, as on a machine
+    without ``zstandard``; the file bytes do not change."""
+    mods = [importlib.import_module(f"{package}.core.{m}")
+            for m in ("she", "sz")]
+    saved = [m.zstd_size_bits for m in mods]
+    for m in mods:
+        m.zstd_size_bits = lambda buf, **kw: None
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.zstd_size_bits = fn
+
+
+def write_tuned_reference(set_dir: str) -> dict:
+    """Tune and write the variant set with the reference into
+    ``set_dir``; returns :func:`tuned_summary` of it."""
+    from repro import io as rio
+    from repro.core import amr
+    from repro.tuning import write_variant_set
+
+    ds = amr.synthetic_amr(**TUNED_DATASET)
+    with huffman_pricing("repro"):
+        write_variant_set(set_dir, ds, TUNED_TARGETS, default=TUNED_DEFAULT,
+                          payload_codec="none")
+    return tuned_summary(set_dir, rio.read)
+
+
 def main() -> None:
     recon = write_reference(CONTAINER)
     np.savez_compressed(RECON, recon=recon)
@@ -118,7 +180,13 @@ def main() -> None:
     with open(TACPLUS_RECON, "w") as f:
         json.dump({"levels": levels}, f, indent=1)
         f.write("\n")
-    for p in (CONTAINER, RECON, TACPLUS_CONTAINER, TACPLUS_RECON):
+    tuned = write_tuned_reference(TUNED_SET)
+    with open(TUNED_JSON, "w") as f:
+        json.dump(tuned, f, indent=1, sort_keys=True)
+        f.write("\n")
+    for p in (CONTAINER, RECON, TACPLUS_CONTAINER, TACPLUS_RECON,
+              *(os.path.join(TUNED_SET, n)
+                for n in sorted(os.listdir(TUNED_SET))), TUNED_JSON):
         print(f"{p}: {os.path.getsize(p)} bytes")
 
 

@@ -15,7 +15,15 @@ files the reference wrote:
 * one TAC+ snapshot (the ``run1_z10`` structure at 128³, seed 10)
   compresses on the card to the reference's bytes and decodes on the
   card to the reference's recon (held by SHA-256 per level); kernels 1
-  to 4 run there, kernel 1 on its plane walk.
+  to 4 run there, kernel 1 on its plane walk;
+* one variant set (the reference tuning tests' 32³ dataset, ``hi``:
+  ``psnr>=70``, ``lo``: ``psnr>=50``) tuned on the card reaches the
+  reference's bounds and bits (payloads priced without the zstd pass
+  in both, so the bits do not follow ``zstandard``'s presence), decodes
+  to the reference's recon, and
+  restates its metrics exactly, twice in a row (``psnr``, ``psnr_u`` and
+  ``max_abs_error`` equal to the reference's; ``ps_error`` within 1e-12,
+  as ``torch.fft`` differs from pocketfft in the last bits).
 
 The ``cuda`` tests import no JAX, so they run on the card's machine with
 ``pytest --noconftest -m cuda``.  The CPU tests regenerate the fixtures
@@ -34,7 +42,9 @@ import torch
 from repro_torch import io as tio
 from repro_torch.convert import dataset_from_arrays
 from repro_torch.core import amr, hybrid
+from repro_torch.io import variants as vrt
 from repro_torch.kernels import ops
+from repro_torch.tuning import measure_metrics, write_variant_set
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(HERE, "golden")
@@ -190,3 +200,72 @@ def test_gsp_level_decodes_to_reference_recon_on_card():
                         device=dev)
     np.testing.assert_array_equal(roi.data.cpu().numpy(),
                                   _recon()[5:40, 0:64, 17:18])
+
+
+# ------------------------------ tuned variant set ---------------------------
+
+
+def _tuned() -> dict:
+    with open(fixture.TUNED_JSON) as f:
+        return json.load(f)
+
+
+def _port_tune(set_dir: str, device: str) -> dict:
+    """The port's variant set of the fixture's dataset and targets on
+    ``device``; returns its summary, the levels decoded on ``device``."""
+    ds = amr.synthetic_amr(**fixture.TUNED_DATASET)
+    with fixture.huffman_pricing("repro_torch"):
+        write_variant_set(set_dir, ds, fixture.TUNED_TARGETS,
+                          default=fixture.TUNED_DEFAULT,
+                          payload_codec="none", device=device)
+    return fixture.tuned_summary(set_dir, lambda p: [
+        r.cpu().numpy() for r in tio.read(p, device=device)])
+
+
+def _tuned_match(got: dict, want: dict) -> None:
+    assert got["default"] == want["default"]
+    assert list(got["variants"]) == list(want["variants"])
+    for name, w in want["variants"].items():
+        g = got["variants"][name]
+        assert (g["ebs"], g["bits"], g["levels"]) == \
+            (w["ebs"], w["bits"], w["levels"]), name
+        for k in ("psnr", "psnr_u", "max_abs_error"):
+            assert g["metrics"][k] == w["metrics"][k], (name, k)
+        assert abs(g["metrics"]["ps_error"] - w["metrics"]["ps_error"]) \
+            <= 1e-12
+
+
+def test_tuned_fixture_regenerates(tmp_path):
+    set_dir = str(tmp_path / "ref.taczv")
+    assert fixture.write_tuned_reference(set_dir) == _tuned()
+    for name in sorted(os.listdir(fixture.TUNED_SET)):
+        assert _bytes(os.path.join(set_dir, name)) == \
+            _bytes(os.path.join(fixture.TUNED_SET, name)), name
+
+
+def test_port_tunes_to_tuned_fixture_on_cpu(tmp_path):
+    _tuned_match(_port_tune(str(tmp_path / "port.taczv"), "cpu"), _tuned())
+
+
+@pytest.mark.cuda
+def test_tuned_set_on_card(tmp_path):
+    dev = _card()
+    ops.reset_launches()
+    set_dir = str(tmp_path / "card.taczv")
+    got = _port_tune(set_dir, dev)
+    for name in ("lorenzo3d_codes_batched", "hist", "huffdec",
+                 "lorenzo3d_recon_batched"):
+        assert ops.launches[name] > 0, name
+    _tuned_match(got, _tuned())
+    # the catalog's metrics, restated from each decoded variant on the
+    # card, exactly and twice in a row
+    ds = amr.synthetic_amr(**fixture.TUNED_DATASET)
+    for entry in vrt.load_catalog(set_dir)["variants"]:
+        levels = tio.read(os.path.join(set_dir, entry["file"]), device=dev)
+        res = hybrid.AMRCompressionResult(levels=[
+            hybrid.LevelResult(strategy="", algorithm="", she=True,
+                               payload_bits=0, codebook_bits=0, meta_bits=0,
+                               recon=r, n_values=0, density=0.0, eb=0.0)
+            for r in levels], method="decoded")
+        first = measure_metrics(ds, res)
+        assert first == measure_metrics(ds, res) == entry["metrics"]
