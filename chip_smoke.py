@@ -80,6 +80,28 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``psnr>=500`` and ``psnr==60`` are HTTP 400.  The cold HTTP batch is
    read alone (kernels 2 and 4); cold and warm batches are timed in turns
    beside an in-process ``VariantServer``'s and profiled;
+2e. sharded serving, load and SLOs on phase 2's snapshot, every server
+   and the router on the card in this process (``sharded_serving``): the
+   reference bench's eight boxes tiling the domain, one cache budget
+   (1.05 × the largest shard's slice of the working set) for a single
+   server and two shard-filtered servers (``ShardMap(["s0", "s1"])``)
+   behind ``serve``; ``ShardedRegionRouter(device="cuda")`` over the two;
+   the fleet's cold batch read alone (kernels 2 and 4), three warm
+   passes each in turns beside the bench's bar (fleet faster; printed,
+   not enforced), a warm fleet batch profiled.  Then ``s1`` stopped: the
+   fallback read alone, at most one launch of kernel 4 a fallback
+   (shard, level) group.  Then the reference load bench's settings
+   (Zipf, 32 queries, seed 11, 100 requests/s offered, concurrency 4,
+   250 requests, 10 % verified against the port's reader on the card)
+   through the mounted router, a ``FleetCollector`` over the fleet and
+   the bench's three pinned SLO rules, and the grow run (``s2`` at
+   request 125, cache handoff, ``apply_shard_map``).  Gates: every crop
+   equals the single server's and the decoded level's slice; shards
+   cache only their own keys; no errors, no mismatches, the verdict
+   passes, keys handed off and dropped on ``reshard``, the hit rate
+   holds within 0.10 across the swap; each of the five stage timers
+   (``prequant``, ``branch_score``, ``entropy``, ``compress_level``,
+   ``entropy_decode``) observed in phase 2's compress and read;
 3. kernels 1-4 against their plain PyTorch versions on the card, at the
    main path's shapes (exact agreement required), with CUDA-event times
    of the kernel, the plain version and, where one PyTorch call computes
@@ -560,15 +582,18 @@ def read_turns(torch, ops, fn) -> dict:
     return out
 
 
-def device_profile(torch, fn, count: str | None = None) -> dict:
-    """One ``fn()`` under ``torch.profiler`` (after a warm-up): wall ms,
-    summed kernel ms (its share of the wall is the device's busy share),
-    the kernel launches and the kernels that take most of the time; with
-    ``count``, also the launches of kernels whose name holds it."""
+def device_profile(torch, fn, count: str | None = None,
+                   warm_up: bool = True) -> dict:
+    """One ``fn()`` under ``torch.profiler`` (after a warm-up, unless the
+    caller has just run it): wall ms, summed kernel ms (its share of the
+    wall is the device's busy share), the kernel launches and the kernels
+    that take most of the time; with ``count``, also the launches of
+    kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1192,6 +1217,316 @@ def tuning_serving(torch, np, ops, tio, ds, smi: str) -> dict:
     return out
 
 
+def stage_timer_readings(obsm) -> dict:
+    """``{stage: (count, sum s)}`` of the five stage timers in the port's
+    registry: ``tacz_compress_stage_seconds`` by stage,
+    ``tacz_compress_level_seconds`` over its strategies and
+    ``tacz_entropy_decode_seconds``."""
+    snap = obsm.REGISTRY.snapshot()
+    stages = snap["tacz_compress_stage_seconds"]["series"]
+    out = {}
+    for stage in ("prequant", "branch_score", "entropy"):
+        s = stages.get(f"stage={stage}", {"count": 0, "sum": 0.0})
+        out[stage] = (s["count"], s["sum"])
+    lv = snap["tacz_compress_level_seconds"]["series"].values()
+    out["compress_level"] = (sum(v["count"] for v in lv),
+                             sum(v["sum"] for v in lv))
+    ed = snap["tacz_entropy_decode_seconds"]["series"].get(
+        "_", {"count": 0, "sum": 0.0})
+    out["entropy_decode"] = (ed["count"], ed["sum"])
+    return out
+
+
+def timer_delta(after: dict, before: dict) -> dict:
+    return {k: {"count": after[k][0] - before[k][0],
+                "sum_s": after[k][1] - before[k][1]} for k in after}
+
+
+def sharded_workload() -> list:
+    """The reference bench's working set (``benchmarks/
+    bench_sharded_serving._workload``) at ``SHAPE``: eight boxes tiling the
+    domain in 2×2×2 halves, so every sub-block is in the working set."""
+    h = [max(1, s // 2) for s in SHAPE]
+    return [((ox, ox + h[0]), (oy, oy + h[1]), (oz, oz + h[2]))
+            for ox in (0, h[0]) for oy in (0, h[1]) for oz in (0, h[2])]
+
+
+#: the reference bench's pinned SLO set (``benchmarks/bench_loadgen.py``
+#: ``SLO_RULES``), as ``(name, kind, op, threshold, params)``
+SLO_SPEC = [
+    ("errors", "error_rate", "<", 0.001,
+     {"metric": "tacz_http_requests_total"}),
+    ("tail_spread", "quantile_ratio", "<=", 150.0,
+     {"metric": "tacz_server_request_seconds", "q_hi": 0.99, "q_lo": 0.50}),
+    ("fleet_up", "up", ">=", 1.0, {}),
+]
+LOAD_RATE, LOAD_REQUESTS, LOAD_POPULATION = 100.0, 250, 32
+
+
+def hit_rate(before: list, after: list) -> float:
+    """Fleet cache hit rate between two lists of ``cache.stats()``
+    (servers added after ``before`` count from zero), as the reference
+    bench computes it."""
+    hits = misses = 0
+    for i, b in enumerate(after):
+        a = before[i] if i < len(before) else {"hits": 0, "misses": 0}
+        hits += b["hits"] - a["hits"]
+        misses += b["misses"] - a["misses"]
+    total = hits + misses
+    return hits / total if total else 1.0
+
+
+def sharded_serving(torch, np, ops, tio, path: str, levels, smi: str,
+                    dev: str = "cuda") -> dict:
+    """Phase 2e: sharded region serving, load and SLOs on phase 2's
+    snapshot, every server and the router on the card, in this process.
+
+    1. The reference bench's sharded-vs-single setup: the eight boxes
+       tiling the domain, one cache budget for every server (1.05 × the
+       largest shard's slice of the working set), a single unsharded
+       server behind ``serve`` + ``RegionClient`` against two
+       shard-filtered servers behind ``serve`` + ``ShardedRegionRouter``;
+       the fleet's cold batch read alone (kernels 2 and 4 must launch),
+       three warm passes each in turns, the bench's bar (fleet faster)
+       printed, one warm fleet batch profiled.  Gates: every router crop
+       equals the single server's and the slice of phase 2's decoded
+       levels; each shard caches only keys it owns.
+    2. ``s1`` stopped: the crops still equal, the router falls back, and
+       the fallback (read alone) makes at most one launch of kernel 4 a
+       fallback (shard, level) group.
+    3. The reference bench's load and SLO run: a new ``s1``, the router
+       mounted behind ``serve``, ``ZipfWorkload(SHAPE, population=32,
+       seed=11)`` through ``client_fetch(RegionClient(router_url))`` at
+       100 requests/s offered, concurrency 4, 250 requests, 10 % verified
+       against the port's reader on the card; a ``FleetCollector`` over
+       the two shards and the router, judged by the bench's three pinned
+       rules; then the grow run, ``s2`` started at request 125 on
+       ``ShardMap.grow``, the moved bricks handed over by
+       ``/v1/cache/export`` → ``/v1/cache/import``, the router swapped by
+       ``apply_shard_map``.  Gates: no errors and no mismatches in either
+       run, the verdict passes, some keys are handed off, the old owners
+       drop the moved keys on ``reshard``, and the post-swap hit rate is
+       at least the pre-swap rate less 0.10."""
+    import threading
+
+    from repro_torch.io.reader import WHOLE_LEVEL
+    from repro_torch.obs import FleetCollector, SLOEngine, SLORule
+    from repro_torch.serving import (LoadGenerator, RegionClient,
+                                     ShardedRegionRouter, ShardMap,
+                                     ZipfWorkload, client_fetch, serve)
+    from repro_torch.serving.regions import DecodePlanner
+
+    boxes = sharded_workload()
+    smap = ShardMap(["s0", "s1"])
+    with tio.TACZReader(path, device=dev) as rd:
+        plans = DecodePlanner(rd).plan(
+            [(li, b) for b in boxes for li in range(rd.n_levels)])
+        per_key = {}
+        for p in plans:
+            for li, sbi in p.keys():
+                shape = (rd.levels[li].shape if sbi == WHOLE_LEVEL
+                         else rd.subblock_shape(li, sbi))
+                per_key[(li, sbi)] = int(np.prod(shape)) * 4
+        all_keys = rd.subblock_keys()
+    slices = {sid: sum(b for k, b in per_key.items() if smap.owner(k) == sid)
+              for sid in smap.shards}
+    budget = max(4096, int(1.05 * max(slices.values())))
+    out = {"card": smi, "boxes": len(boxes),
+           "working_set_bytes": sum(per_key.values()),
+           "shard_slice_bytes": slices, "budget_bytes": budget}
+    servers: dict = {}
+
+    def start(name: str, **kw) -> str:
+        httpd = serve(path, port=0, cache_bytes=budget, device=dev, **kw)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        servers[name] = (httpd, th)
+        return f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def stop(name: str) -> None:
+        httpd, th = servers.pop(name)
+        httpd.shutdown()
+        httpd.server_close()
+        if name != "router":          # the router closes once, below
+            httpd.region_server.close()
+        th.join(timeout=30)
+
+    def same(crops, label: str, single_crops=None) -> None:
+        for b, per_box in enumerate(crops):
+            for i, c in enumerate(per_box):
+                want = levels[c.level][tuple(slice(lo, hi)
+                                             for lo, hi in c.box)]
+                check(c.data.device.type == dev
+                      and torch.equal(c.data, want),
+                      f"sharded: {label} crop of level {c.level} box "
+                      f"{c.box} != the decoded level's slice")
+                if single_crops is not None:
+                    check(np.array_equal(c.data.cpu().numpy(),
+                                         single_crops[b][i].data),
+                          f"sharded: {label} crop of level {c.level} box "
+                          f"{c.box} != the single server's")
+
+    router = None
+    try:
+        # 1. sharded against single, the reference bench's setup
+        single = RegionClient(start("single"), timeout=300.0)
+        urls = {sid: start(sid, shard_map=smap, shard_id=sid)
+                for sid in smap.shards}
+        router = ShardedRegionRouter(path, smap, urls, device=dev,
+                                     timeout=300.0)
+        single_crops, out["single_cold_s"] = synced(
+            torch, lambda: single.regions(boxes))
+        ops.reset_launches()
+        cold, out["fleet_cold_s"] = synced(
+            torch, lambda: router.get_regions(boxes))
+        launches = {"fleet_cold": dict(ops.launches)}
+        for name in ("huffdec", "lorenzo3d_recon_batched"):
+            check(launches["fleet_cold"][name] > 0,
+                  f"kernel {name} never launched on the fleet's cold batch")
+        same(cold, "cold", single_crops)
+        fleet_warm = single_warm = None
+
+        def fleet_batch():
+            nonlocal fleet_warm
+            fleet_warm = router.get_regions(boxes)
+
+        def single_batch():
+            nonlocal single_warm
+            single_warm = single.regions(boxes)
+
+        turns = in_turns(torch, {"single_warm_s": single_batch,
+                                 "fleet_warm_s": fleet_batch},
+                         ["single_warm_s", "fleet_warm_s", "fleet_warm_s",
+                          "single_warm_s", "single_warm_s", "fleet_warm_s"])
+        out.update(turns)
+        same(fleet_warm, "warm", single_warm)
+        med = {k: sorted(v)[1] for k, v in turns.items()}
+        out["fleet_over_single"] = med["single_warm_s"] / med["fleet_warm_s"]
+        out["reference_bench_bar"] = 1.0
+        out["single_stats"] = servers["single"][0].region_server.cache.stats()
+        for sid in smap.shards:
+            rs = servers[sid][0].region_server
+            out[f"{sid}_stats"] = rs.cache.stats()
+            owned = {k for k in all_keys if smap.owner(k) == sid}
+            check(all((k[1], k[2]) in owned for k in rs.cache._od),
+                  f"shard {sid} cached a key it does not own")
+            check(all(b.device.type == dev for b in rs.cache._od.values()),
+                  f"shard {sid} cached a brick off the card")
+        out["fleet_warm_profile"] = device_profile(torch, fleet_batch,
+                                                   warm_up=False)
+        out["router_counters_warm"] = dict(router.counters)
+        check(router.counters["local_fallbacks"] == 0,
+              f"the live fleet fell back: {router.counters}")
+        del cold, fleet_warm, single_warm, single_crops
+        stop("single")
+
+        # 2. one shard down: the fallback, read alone
+        stop("s1")
+        before = router.counters["local_fallbacks"]
+        ops.reset_launches()
+        down, out["one_down_s"] = synced(
+            torch, lambda: router.get_regions(boxes))
+        launches["fallback"] = dict(ops.launches)
+        groups = router.counters["local_fallbacks"] - before
+        out["fallback_groups"] = groups
+        same(down, "one-shard-down")
+        del down
+        check(groups > 0, "no group fell back with s1 down")
+        check(0 < launches["fallback"]["huffdec"] <= groups,
+              f"the fallback made {launches['fallback']['huffdec']} K4 "
+              f"launches for {groups} (shard, level) groups")
+        out["sharded_launches"] = launches
+
+        # 3. load and SLOs, then the grow run
+        urls["s1"] = start("s1", shard_map=smap, shard_id="s1")
+        router.apply_shard_map(smap, urls)
+        rhttpd = serve(router, port=0)
+        rth = threading.Thread(target=rhttpd.serve_forever, daemon=True)
+        rth.start()
+        servers["router"] = (rhttpd, rth)
+        router_url = f"http://127.0.0.1:{rhttpd.server_address[1]}"
+        client = RegionClient(router_url, timeout=300.0)
+        wl = ZipfWorkload(SHAPE, levels=(0,), population=LOAD_POPULATION,
+                          seed=11)
+        t0 = time.perf_counter()
+        for q in wl.queries:              # warm pass, as the bench's
+            client.regions([q.box], levels=list(q.levels))
+        out["warm_pass_s"] = time.perf_counter() - t0
+        col = FleetCollector({**urls, "router": router_url}, window=64,
+                             timeout=60.0)
+        eng = SLOEngine(col, [SLORule(n, k, op, t, params=p)
+                              for n, k, op, t, p in SLO_SPEC])
+        col.poll()
+        new_map, moved = smap.grow("s2", all_keys)
+        grow = {"moved_keys": len(moved), "imported": 0}
+        swap_stats: list = []
+        shard_names = ["s0", "s1"]
+
+        def fleet_cache() -> list:
+            return [dict(servers[n][0].region_server.cache.stats())
+                    for n in shard_names]
+
+        def grow_fleet() -> None:
+            url2 = start("s2", shard_map=new_map, shard_id="s2")
+            shard_names.append("s2")
+            dst = RegionClient(url2, timeout=300.0)
+            for sid in smap.shards:       # the old owners export
+                blob = RegionClient(urls[sid], timeout=300.0).cache_export(
+                    moved)
+                grow["handoff_bytes"] = grow.get("handoff_bytes", 0) \
+                    + len(blob)
+                grow["imported"] += dst.cache_import(blob)["imported"]
+            router.apply_shard_map(new_map, {**urls, "s2": url2})
+            swap_stats.extend(fleet_cache())
+
+        with tio.TACZReader(path, device=dev) as rd:
+            gen = LoadGenerator(client_fetch(client), wl, rate=LOAD_RATE,
+                                concurrency=4, verify_reader=rd,
+                                verify_fraction=0.1, seed=1)
+            report = gen.run(LOAD_REQUESTS)
+            pre_stats = fleet_cache()
+            grow_report = gen.run(LOAD_REQUESTS,
+                                  actions={LOAD_REQUESTS // 2: grow_fleet})
+            post_stats = fleet_cache()
+        col.poll()
+        eng.evaluate()
+        verdict = eng.verdict()
+        dropped = sum(servers[sid][0].region_server.reshard(new_map)
+                      for sid in smap.shards)
+        pre_rate = hit_rate(pre_stats, swap_stats[:len(pre_stats)])
+        post_rate = hit_rate(swap_stats, post_stats)
+        out["load"] = {"steady": report.to_dict(),
+                       "grow": grow_report.to_dict(),
+                       "max_lag_s": [report.max_lag_s,
+                                     grow_report.max_lag_s],
+                       "errors": [report.error_messages[:3],
+                                  grow_report.error_messages[:3]]}
+        out["grow"] = {**grow, "reshard_dropped": dropped,
+                       "hit_rate_pre": pre_rate, "hit_rate_post": post_rate}
+        out["slo"] = verdict
+        out["slo_report"] = eng.report()
+        out["router_counters"] = dict(router.counters)
+        for label, rep in (("steady", report), ("grow", grow_report)):
+            check(rep.errors == 0,
+                  f"load ({label}): {rep.errors} errors: "
+                  f"{rep.error_messages[:3]}")
+            check(rep.verified > 0 and rep.mismatches == 0,
+                  f"load ({label}): verified {rep.verified}, mismatches "
+                  f"{rep.mismatches}")
+        check(verdict["passed"], f"pinned SLO set failed: {verdict}")
+        check(grow["imported"] > 0, "the grow run handed off no brick")
+        check(dropped > 0, "the old owners dropped nothing on reshard")
+        check(post_rate >= pre_rate - 0.10,
+              f"hit rate fell from {pre_rate} to {post_rate} across the "
+              f"swap")
+    finally:
+        for name in list(servers):
+            stop(name)
+        if router is not None:
+            router.close()
+    return out
+
+
 def card_reference(torch, np, ops, tio, smi: str) -> dict:
     """Phase 6: the card's output held to files the reference wrote.  The
     golden fixtures decode on the card to ``expected.npz`` bit for bit;
@@ -1643,6 +1978,7 @@ def main() -> int:
     from repro_torch.core import amr, gsp, hybrid
     from repro_torch.core.entropy import TorchEngine
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.obs import metrics as obsm
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1677,20 +2013,24 @@ def main() -> int:
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stages = {}
-    snap_dir = tempfile.TemporaryDirectory()      # kept for phase 2b
+    snap_dir = tempfile.TemporaryDirectory()      # kept to phase 2e
+    timers = [stage_timer_readings(obsm)]         # phase 2e prints them
     with RecordBrickShapes(ops) as shapes2:
         path = os.path.join(snap_dir.name, "snap.tacz")
         t0 = time.perf_counter()
         res = hybrid.compress_amr(ds, eb=eb, device="cuda")
         torch.cuda.synchronize()
         stages["compress_s"] = time.perf_counter() - t0
+        timers.append(stage_timer_readings(obsm))
         t0 = time.perf_counter()
         tio.write(path, res, device="cuda")
         stages["write_s"] = time.perf_counter() - t0
+        timers.append(stage_timer_readings(obsm))
         t0 = time.perf_counter()
         levels = tio.read(path, device="cuda")
         torch.cuda.synchronize()
         stages["read_s"] = time.perf_counter() - t0
+        timers.append(stage_timer_readings(obsm))
         t0 = time.perf_counter()
         roi = tio.read_roi(path, ROI_BOX, device="cuda")
         torch.cuda.synchronize()
@@ -1755,11 +2095,30 @@ def main() -> int:
     # --------------------------------------------- 2c. multi-part snapshots
     mpart = multipart(torch, np, ops, tio, ds, res, eb, path, levels, smi)
     print("multi-part: " + json.dumps(mpart))
-    snap_dir.cleanup()
 
     # ------------------------------- 2d. tuning and variant serving
     tuning = tuning_serving(torch, np, ops, tio, ds, smi)
     print("variant serving: " + json.dumps(tuning["serving"]))
+
+    # ------------------------ 2e. sharded serving, load and SLOs
+    t0 = time.perf_counter()
+    shard = sharded_serving(torch, np, ops, tio, path, levels, smi)
+    shard["phase_s"] = time.perf_counter() - t0
+    snap_dir.cleanup()
+    # the stage timers phase 2's compress and read recorded
+    shard["stage_timers"] = {
+        "compress": timer_delta(timers[1], timers[0]),
+        "read": timer_delta(timers[3], timers[2])}
+    print("sharded serving: " + json.dumps(shard))
+    for name in ("prequant", "branch_score", "entropy", "compress_level"):
+        check(shard["stage_timers"]["compress"][name]["count"] > 0,
+              f"stage timer {name} never observed in phase 2's compress")
+    check(shard["stage_timers"]["read"]["entropy_decode"]["count"] > 0,
+          "stage timer entropy_decode never observed in phase 2's read")
+    print("sharded serving: fleet warm batch "
+          f"{shard['fleet_warm_s']} s against the single server's "
+          f"{shard['single_warm_s']} s (the bench's bar: fleet faster; "
+          f"{shard['fleet_over_single']:.3f}x) [{smi}]")
 
     # ------------------------------------------------- 3. kernels vs plain
     rows = []
@@ -2206,6 +2565,10 @@ def main() -> int:
             "tune": tuning["tune_launches"][r["name"]],
             "write": tuning["write_launches"][r["name"]],
             "http_cold": tuning["serving"]["http_cold_launches"][r["name"]]}
+        # phase 2e: the fleet's cold batch and the one-shard-down fallback
+        r["sharded_launches"] = {
+            run: counts[r["name"]]
+            for run, counts in shard["sharded_launches"].items()}
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

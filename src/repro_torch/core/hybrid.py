@@ -23,12 +23,15 @@ or brick by brick (``batched=False``); both give the same codes.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
+from ..obs import metrics as obsm
 from . import huffman
 from .akdtree import akdtree_partition
 from .amr import AMRDataset
@@ -183,11 +186,36 @@ def compress_level(data: np.ndarray, mask: np.ndarray, *, eb: float,
     """One level end to end on ``device``; ``recon`` is a device tensor.
 
     ``lorenzo_engine`` and ``entropy_engine`` take the reference's engine
-    names for signature parity; every name runs the same kernels.
+    names for signature parity; every name runs the same kernels.  The
+    level's wall time goes into ``tacz_compress_level_seconds{strategy}``
+    under a ``compress_level`` span, ending where the recon is ready (the
+    stage timings — prequant, branch_score, entropy — are recorded inside
+    sz/she).
 
     :raises ValueError: for an unknown algorithm or engine name.
     """
     device = resolve_device(device)
+    with obs.trace("compress_level"):
+        t0 = time.perf_counter()
+        res = _compress_level(
+            data, mask, eb=eb, unit=unit, algorithm=algorithm, she=she,
+            strategy=strategy, sz_block=sz_block, batched=batched,
+            ratio=ratio, keep_artifacts=keep_artifacts,
+            lorenzo_engine=lorenzo_engine, entropy_engine=entropy_engine,
+            device=device)
+        hist = obsm.COMPRESS_LEVEL_SECONDS.labels(res.strategy)
+        if device.type == "cuda" and obs.is_enabled():
+            torch.cuda.current_stream(device).synchronize()
+        hist.observe(time.perf_counter() - t0)
+        return res
+
+
+def _compress_level(data: np.ndarray, mask: np.ndarray, *, eb: float,
+                    unit: int, algorithm: str, she: bool,
+                    strategy: str | None, sz_block: int, batched: bool,
+                    ratio: int, keep_artifacts: bool, lorenzo_engine: str,
+                    entropy_engine: str, device: torch.device,
+                    ) -> LevelResult:
     if algorithm not in ("lor_reg", "lorenzo", "interp"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     check_engine_names(lorenzo_engine=lorenzo_engine,

@@ -19,6 +19,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs import metrics as obsm
 from . import entropy, huffman
 from .compat import HAVE_ZSTD, zstd_size_bits
 from .sz import SZResult, compress_lor_reg, compress_lor_reg_batched
@@ -92,29 +93,33 @@ def _shared_entropy_stage(results: list[SZResult], *, use_zstd: bool,
                           device: torch.device,
                           ) -> tuple[int, int, huffman.Codebook]:
     """One histogram → one codebook → exact payload pricing (and one
-    encode for the zstd pass when zstandard is installed)."""
-    all_codes = (torch.cat([r.codes for r in results]) if results
-                 else torch.zeros(0, dtype=torch.int64, device=device))
-    symbols, freqs = aggregate_histogram(all_codes)
-    cb = huffman.build_codebook(symbols=symbols, freqs=freqs)
-    lengths = entropy.code_lengths(cb, all_codes)
-    payload = int(lengths.sum())
-    if use_zstd and HAVE_ZSTD and payload:
-        (blob, _), = entropy.TorchEngine(device).encode_payloads(
-            cb, [all_codes])
-        zbits = zstd_size_bits(blob)
-        if zbits is not None:
-            payload = min(payload, zbits)
-    # per-brick payloads (diagnostics only; totals use the shared stream)
-    if results:
-        sizes = torch.tensor([r.codes.numel() for r in results],
-                             device=lengths.device)
-        ends = torch.cumsum(sizes, 0)
-        cum = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
-        per = cum[ends] - cum[ends - sizes]
-        for r, bits in zip(results, per.tolist()):
-            r.payload_bits = int(bits)
-    return int(payload), huffman.codebook_size_bits(cb), cb
+    encode for the zstd pass when zstandard is installed).  Timed as the
+    ``entropy`` stage; the histogram and the pricing come to the host, so
+    the stage ends with its work done."""
+    with obsm.timed(obsm.COMPRESS_STAGE_SECONDS.labels("entropy"),
+                    "entropy"):
+        all_codes = (torch.cat([r.codes for r in results]) if results
+                     else torch.zeros(0, dtype=torch.int64, device=device))
+        symbols, freqs = aggregate_histogram(all_codes)
+        cb = huffman.build_codebook(symbols=symbols, freqs=freqs)
+        lengths = entropy.code_lengths(cb, all_codes)
+        payload = int(lengths.sum())
+        if use_zstd and HAVE_ZSTD and payload:
+            (blob, _), = entropy.TorchEngine(device).encode_payloads(
+                cb, [all_codes])
+            zbits = zstd_size_bits(blob)
+            if zbits is not None:
+                payload = min(payload, zbits)
+        # per-brick payloads (diagnostics only; totals use the shared stream)
+        if results:
+            sizes = torch.tensor([r.codes.numel() for r in results],
+                                 device=lengths.device)
+            ends = torch.cumsum(sizes, 0)
+            cum = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
+            per = cum[ends] - cum[ends - sizes]
+            for r, bits in zip(results, per.tolist()):
+                r.payload_bits = int(bits)
+        return int(payload), huffman.codebook_size_bits(cb), cb
 
 
 def encode_brick_payloads(cb: huffman.Codebook, codes_list, *,

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.ref import true_divide
+from ..obs import metrics as obsm
 from . import entropy, huffman
 from .compat import zstd_size_bits
 
@@ -552,21 +553,30 @@ def compress_lor_reg_batched(x: torch.Tensor, eb: float, *, block: int = 6
     bshape = tuple(x.shape[1:])
     b, _ = reg_block_grid(bshape, block)
 
-    codes_lor = ops.lorenzo3d_codes_batched(x, eb)
-    cost_lor = _code_cost_bits_rows(codes_lor)
-    n_blocks = 0
-    if b >= 2:
-        xb, bgrid = _block_view_batched(x, b)
-        betas, fit = _regression_fit(xb, b)
-        codes_reg = torch.round(
-            true_divide(xb.double() - fit, 2.0 * eb)).long()
-        n_blocks = int(np.prod(bgrid))
-        cost_reg = _code_cost_bits_rows(codes_reg) + n_blocks * 4 * 32
-        use_reg = cost_reg < cost_lor
-    else:
-        use_reg = torch.zeros(n, dtype=torch.bool, device=x.device)
+    # --- Lorenzo branch: kernel 1; the stage ends where its codes are
+    # ready, so the timer synchronizes (only while the registry is on)
+    with obsm.timed(obsm.COMPRESS_STAGE_SECONDS.labels("prequant"),
+                    "prequant", sync=x.device):
+        codes_lor = ops.lorenzo3d_codes_batched(x, eb)
 
-    use = use_reg.tolist()
+    # --- Regression branch: per-block plane fits + branch scoring; the
+    # choice comes to the host, which ends the stage
+    with obsm.timed(obsm.COMPRESS_STAGE_SECONDS.labels("branch_score"),
+                    "branch_score"):
+        cost_lor = _code_cost_bits_rows(codes_lor)
+        n_blocks = 0
+        if b >= 2:
+            xb, bgrid = _block_view_batched(x, b)
+            betas, fit = _regression_fit(xb, b)
+            codes_reg = torch.round(
+                true_divide(xb.double() - fit, 2.0 * eb)).long()
+            n_blocks = int(np.prod(bgrid))
+            cost_reg = _code_cost_bits_rows(codes_reg) + n_blocks * 4 * 32
+            use_reg = cost_reg < cost_lor
+        else:
+            use_reg = torch.zeros(n, dtype=torch.bool, device=x.device)
+        use = use_reg.tolist()
+
     lor_idx = torch.tensor([i for i in range(n) if not use[i]],
                            dtype=torch.int64, device=x.device)
     reg_idx = torch.tensor([i for i in range(n) if use[i]],

@@ -29,6 +29,7 @@ from ..core.blocks import make_block_grid
 from ..core.compat import HAVE_ZSTD, zstd_decompress
 from ..core.gsp import gsp_unpad
 from ..device import resolve_device
+from ..obs import metrics as obsm
 from . import format as fmt
 from . import frontier as frt
 from . import manifest as _manifest
@@ -41,6 +42,12 @@ Box = tuple[tuple[int, int], tuple[int, int], tuple[int, int]]
 #: Sub-block index standing for the single payload of a gsp/global level
 #: in a ``(level, sub_block)`` key (cache keys, shard placement).
 WHOLE_LEVEL = -1
+
+#: Boxes covering at most this many unit blocks find their sub-blocks
+#: through a level's unit-block map (``intersecting_subblocks``).
+SMALL_BOX_UNITS = 64
+#: Largest unit-block map a level keeps (int32 entries, 16 MiB).
+OWNER_MAP_MAX = 1 << 22
 
 #: Most destination indices one placement scatter builds at a time
 #: (int64, 64 MiB): larger groups go in chunks of bricks.
@@ -144,8 +151,9 @@ class TACZReader:
             raise
         self._codebooks: dict[int, huffman.Codebook] = {}
         self._masks: dict[int, torch.Tensor | None] = {}
-        # per level: sub-block origins and ends, (n, 3) int64
-        self._extents: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        # per level: sub-block origins and ends, (n, 3) int64, and the
+        # unit-block map of ``_subblock_index``
+        self._extents: dict[int, tuple] = {}
 
     # ------------------------------ plumbing -------------------------------
 
@@ -287,8 +295,12 @@ class TACZReader:
         batch = (self._engine.stage(staging, self._codebook(li), huff,
                                     spans=spans) if huff else None)
         views = staging.upload(self.device)
-        decoded = iter(self._engine.decode_staged(batch, views)
-                       if batch is not None else ())
+        decoded = iter(())
+        if batch is not None:
+            # kernel 4; the timer waits for its codes (registry enabled)
+            with obsm.timed(obsm.ENTROPY_DECODE_SECONDS.labels(),
+                            "entropy_decode", sync=self.device):
+                decoded = iter(self._engine.decode_staged(batch, views))
         return [(next(decoded) if c is None else views[c],
                  None if b is None else views[b]) for c, b in parts]
 
@@ -468,20 +480,68 @@ class TACZReader:
     def intersecting_subblocks(self, li: int, lbox: Box,
                                ) -> list[tuple[int, Box]]:
         """``(sub_block_index, intersection_box)`` of every sub-block of
-        level ``li`` overlapping ``lbox`` (level cells), in index order."""
+        level ``li`` overlapping ``lbox`` (level cells), in index order.
+
+        A box covering at most :data:`SMALL_BOX_UNITS` unit blocks (a
+        router's part, a small region) finds its candidates in the
+        level's map of unit blocks to sub-blocks and intersects them in
+        Python; a larger one scans every sub-block's extent with numpy.
+        Many small queries from many serving threads then make no numpy
+        call, each of which would hand the interpreter lock over."""
         if li not in self._extents:
-            sbs = self.levels[li].subblocks
-            org = np.array([sb.origin for sb in sbs],
-                           dtype=np.int64).reshape(-1, 3)
-            self._extents[li] = (org, org + np.array(
-                [sb.size for sb in sbs], dtype=np.int64).reshape(-1, 3))
-        org, end = self._extents[li]
+            self._extents[li] = self._subblock_index(li)
+        org, end, owners = self._extents[li]
+        if owners is not None:
+            owner, unit, org_l, end_l = owners
+            sl = tuple(slice(max(int(lo), 0) // unit, -(-int(hi) // unit))
+                       for lo, hi in lbox)
+            n_units = 1
+            for s_ in sl:
+                n_units *= max(s_.stop - s_.start, 0)
+            if n_units <= SMALL_BOX_UNITS:
+                ids = set()
+                if n_units:
+                    for plane in owner[sl].tolist():
+                        for row in plane:
+                            ids.update(row)
+                out = []
+                for i in sorted(ids - {-1}):
+                    lo = tuple(max(int(b0), o) for (b0, _), o
+                               in zip(lbox, org_l[i]))
+                    hi = tuple(min(int(b1), e_) for (_, b1), e_
+                               in zip(lbox, end_l[i]))
+                    if all(h > l for l, h in zip(lo, hi)):
+                        out.append((i, tuple(zip(lo, hi))))
+                return out
         box = np.asarray(lbox, dtype=np.int64).reshape(3, 2)
         lo = np.maximum(box[:, 0], org)
         hi = np.minimum(box[:, 1], end)
         hit = np.flatnonzero((hi > lo).all(axis=1))
         return [(i, tuple(zip(l, h))) for i, l, h
                 in zip(hit.tolist(), lo[hit].tolist(), hi[hit].tolist())]
+
+    def _subblock_index(self, li: int):
+        """``(origins, ends, owners)`` of level ``li``'s sub-blocks:
+        ``owners`` is ``(unit-block → sub-block index map (-1: none),
+        unit, origins, ends as lists)`` when every sub-block lies on the
+        unit-block grid, else None."""
+        e = self.levels[li]
+        org = np.array([sb.origin for sb in e.subblocks],
+                       dtype=np.int64).reshape(-1, 3)
+        end = org + np.array([sb.size for sb in e.subblocks],
+                             dtype=np.int64).reshape(-1, 3)
+        unit = int(e.unit)
+        if (e.rank != 3 or unit < 1 or not len(org) or (org % unit).any()
+                or (end % unit).any()):
+            return org, end, None
+        uorg, uend = org // unit, end // unit
+        dims = tuple(int(v) for v in uend.max(axis=0))
+        if int(np.prod(dims)) > OWNER_MAP_MAX:
+            return org, end, None
+        owner = np.full(dims, -1, dtype=np.int32)
+        for i, (a, b) in enumerate(zip(uorg.tolist(), uend.tolist())):
+            owner[a[0]:b[0], a[1]:b[1], a[2]:b[2]] = i
+        return org, end, (owner, unit, org.tolist(), end.tolist())
 
     def subblock_keys(self, levels: list[int] | None = None,
                       ) -> list[tuple[int, int]]:
@@ -566,6 +626,16 @@ class TACZReader:
         jobs = [(sbi, tuple(hi - o for (_, hi), o in zip(isect, sb.origin)))
                 for (sbi, isect), sb in zip(tasks, sbs)]
         bricks = fetch_bricks(li, jobs)
+        if len(tasks) == 1 and tasks[0][1] == tuple(lbox):
+            # the box lies inside one sub-block (a router's part): its
+            # crop is the brick's slice, copied out, with no placement
+            crop = bricks[0][tuple(slice(lo - o, hi - o) for (lo, hi), o
+                                   in zip(lbox, sbs[0].origin))]
+            mask = self._mask(li)
+            if mask is None:
+                return crop.clone(memory_format=torch.contiguous_format)
+            return torch.where(mask[tuple(slice(b0, b1) for b0, b1 in lbox)],
+                               crop, 0.0)
         lo = tuple(min([b0] + [sb.origin[d] for sb in sbs])
                    for d, (b0, _) in enumerate(lbox))
         hi = tuple(max([b1] + [sb.origin[d] + sb.size[d] for sb in sbs])

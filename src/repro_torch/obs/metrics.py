@@ -6,14 +6,14 @@ Every instrumented component records into one module-level
   * Lifetime totals must survive a ``RegionServer`` hot swap (the server
     object is rebuilt; the registry is not) — the same property the
     sub-block cache's hit/miss counters already have.
-  * One scrape covers everything in the process: a shard's cache,
-    planner, handoff and server latency.
+  * One ``GET /v1/metrics`` scrape covers everything in the process: a
+    shard's cache + planner + server latency, and — when a router runs
+    in the same process — the router's fan-out series too.
 
-The catalog below holds the families the region server, its async
-serving core and HTTP endpoint, and the TACZ writers record, under the
-reference's names (``repro.obs.metrics``), so a scrape of either package
-reads alike; the compression, router and SLO families arrive with the
-modules that record them.  Bucket
+The catalog below holds every family of the reference's catalog
+(``repro.obs.metrics``) under the same names, help texts, labels and
+buckets, so a scrape of either package parses to the same family set and
+either package's fleet collector and SLO engine read both.  Bucket
 choices: request/stage latencies share :data:`~repro_torch.obs.registry.
 DEFAULT_TIME_BUCKETS` (100 µs–10 s) so quantiles are comparable across
 stages.
@@ -27,16 +27,22 @@ from .trace import trace as _trace
 
 __all__ = [
     "REGISTRY", "set_enabled", "is_enabled", "timed",
+    "COMPRESS_STAGE_SECONDS", "COMPRESS_LEVEL_SECONDS",
     "WRITER_LEVEL_SECONDS", "WRITER_BYTES", "WRITER_LEVELS",
     "PLANNER_SUBBLOCKS", "PLANNER_DECODE_SECONDS", "PLANNER_DECODED_BYTES",
+    "ENTROPY_DECODE_SECONDS",
     "SERVER_REQUEST_SECONDS", "SERVER_REGIONS",
     "SERVER_BACKPRESSURE", "SERVER_DECODE_UNITS", "SERVER_QUEUE_DEPTH",
     "CACHE_HITS", "CACHE_MISSES", "CACHE_EVICTIONS",
     "CACHE_ENTRIES", "CACHE_BYTES", "CACHE_BUDGET_BYTES",
     "HANDOFF_KEYS", "HANDOFF_BYTES",
+    "ROUTER_SHARD_SECONDS", "ROUTER_BATCHES", "ROUTER_SHARD_REQUESTS",
+    "ROUTER_ENDPOINT_FAILURES", "ROUTER_LOCAL_FALLBACKS",
+    "ROUTER_RETRIES", "ROUTER_DEMOTIONS", "ROUTER_BATCH_SECONDS",
     "HTTP_REQUESTS", "HTTP_REQUEST_SECONDS",
     "VARIANT_REQUESTS", "VARIANT_FALLBACKS", "VARIANT_UNSATISFIED",
     "VARIANT_LABEL_BUDGET",
+    "SLO_FIRING", "SLO_STATE", "SLO_VALUE",
 ]
 
 #: The process-wide default registry.  Components import this; tests
@@ -63,14 +69,24 @@ class timed:
     the scrape surface, the span feeds per-request response metadata.
     The trace half is the shared no-op outside a root span, and the
     histogram's ``observe`` is a no-op when the registry is disabled.
+
+    ``sync`` names the device whose work the region launches.  Kernels
+    run asynchronously, so on a CUDA device the clock would stop at the
+    last launch, not at the end of the work: with ``sync`` the current
+    stream is synchronized before the clock is read — only while the
+    histogram's registry is enabled and no exception is in flight, so a
+    disabled registry adds no synchronize.  Regions that already end in
+    a host wait (a ``.cpu()``, ``.item()`` or ``.tolist()``) pass none.
     """
 
-    __slots__ = ("_hist", "_span", "_t0")
+    __slots__ = ("_hist", "_span", "_t0", "_sync")
 
-    def __init__(self, hist_child, span_name: str | None = None):
+    def __init__(self, hist_child, span_name: str | None = None, *,
+                 sync=None):
         self._hist = hist_child
         self._span = _trace(span_name) if span_name else None
         self._t0 = 0.0
+        self._sync = sync
 
     def __enter__(self) -> "timed":
         if self._span is not None:
@@ -79,10 +95,30 @@ class timed:
         return self
 
     def __exit__(self, *exc) -> None:
+        dev = self._sync
+        if (dev is not None and exc[0] is None
+                and getattr(dev, "type", None) == "cuda"
+                and self._hist._reg.enabled):
+            import torch
+            torch.cuda.current_stream(dev).synchronize()
         self._hist.observe(time.perf_counter() - self._t0)
         if self._span is not None:
             self._span.__exit__(*exc)
 
+
+# --------------------------- compression ---------------------------------
+
+COMPRESS_STAGE_SECONDS = REGISTRY.histogram(
+    "tacz_compress_stage_seconds",
+    "Per-stage wall time inside compress_level "
+    "(stage: prequant | branch_score | entropy).",
+    labels=("stage",))
+
+COMPRESS_LEVEL_SECONDS = REGISTRY.histogram(
+    "tacz_compress_level_seconds",
+    "End-to-end compress_level wall time, labeled by the resolved "
+    "strategy (gsp | opst | akdtree | nast).",
+    labels=("strategy",))
 
 # ------------------------------ writers ----------------------------------
 
@@ -117,6 +153,11 @@ PLANNER_DECODED_BYTES = REGISTRY.counter(
     "tacz_planner_decoded_bytes_total",
     "Decoded float32 bytes produced by DecodePlanner.fetch "
     "(cache-miss path only).")
+
+ENTROPY_DECODE_SECONDS = REGISTRY.histogram(
+    "tacz_entropy_decode_seconds",
+    "Wall time of EntropyEngine payload-decode launches inside "
+    "TACZReader.decode_subblocks.")
 
 # ------------------------------- server ----------------------------------
 
@@ -191,6 +232,43 @@ HANDOFF_BYTES = REGISTRY.counter(
     labels=("direction",))
 
 
+# ------------------------------- router ----------------------------------
+
+ROUTER_SHARD_SECONDS = REGISTRY.histogram(
+    "tacz_router_shard_seconds",
+    "Per-shard fan-out wall time inside ShardedRegionRouter.get_regions "
+    "(one observation per (shard, level) group).",
+    labels=("shard",))
+
+ROUTER_BATCHES = REGISTRY.counter(
+    "tacz_router_batches_total",
+    "Batches routed by ShardedRegionRouter.get_regions.")
+
+ROUTER_SHARD_REQUESTS = REGISTRY.counter(
+    "tacz_router_shard_requests_total",
+    "Shard-group fetches issued by the router.")
+
+ROUTER_ENDPOINT_FAILURES = REGISTRY.counter(
+    "tacz_router_endpoint_failures_total",
+    "Endpoint attempts that raised (before any retry/fallback).")
+
+ROUTER_LOCAL_FALLBACKS = REGISTRY.counter(
+    "tacz_router_local_fallbacks_total",
+    "Shard groups served by the router's local reader fallback.")
+
+ROUTER_RETRIES = REGISTRY.counter(
+    "tacz_router_retries_total",
+    "Endpoint attempts beyond the first within one shard group.")
+
+ROUTER_DEMOTIONS = REGISTRY.counter(
+    "tacz_router_endpoint_demotions_total",
+    "healthy-to-unhealthy endpoint transitions recorded by the router.")
+
+ROUTER_BATCH_SECONDS = REGISTRY.histogram(
+    "tacz_router_batch_seconds",
+    "End-to-end ShardedRegionRouter.get_regions latency per batch "
+    "(scatter + gather + paste).")
+
 # -------------------------------- http -----------------------------------
 
 HTTP_REQUESTS = REGISTRY.counter(
@@ -229,4 +307,24 @@ VARIANT_FALLBACKS = REGISTRY.counter(
 VARIANT_UNSATISFIED = REGISTRY.counter(
     "tacz_variant_unsatisfied_total",
     "Distortion-target requests rejected because no variant satisfies "
-    "the target (TargetUnsatisfiable).")
+    "the target (HTTP 400).")
+
+# --------------------------------- slo ------------------------------------
+# The SLO engine (repro_torch.obs.slo) exports its alert state back into the
+# registry, so the alert plane is itself scrapable.
+
+SLO_FIRING = REGISTRY.gauge(
+    "tacz_slo_firing",
+    "1 while the named SLO rule is firing, else 0.",
+    labels=("rule",))
+
+SLO_STATE = REGISTRY.gauge(
+    "tacz_slo_state",
+    "Alert state of the named SLO rule "
+    "(0=ok 1=pending 2=firing 3=resolved).",
+    labels=("rule",))
+
+SLO_VALUE = REGISTRY.gauge(
+    "tacz_slo_value",
+    "Last evaluated value of the named SLO rule's expression.",
+    labels=("rule",))

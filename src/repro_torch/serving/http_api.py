@@ -58,7 +58,7 @@ is full the endpoint answers **429** (503 while draining) with a
 counted in ``tacz_server_backpressure_total``.  Idle keep-alive
 connections time out after ``keepalive_timeout`` seconds so they cannot
 pin accept-pool workers (clients transparently reconnect).  Binary
-payloads are written from the host copy via ``memoryview`` slices.
+payloads go to the socket from that host copy, a batch's in one write.
 
 Access logging: one structured record per request (method, path, status,
 duration_ms, request_id) through the ``repro_torch.serving.http`` logger at
@@ -121,20 +121,17 @@ def parse_box(s: str):
     return tuple(box)
 
 
-def _host_frames(crops) -> list[memoryview]:
-    """Each crop's C-order ``<f4`` bytes, after one device-to-host copy of
-    the whole batch."""
-    if not crops:
-        return []
-    flat = torch.cat([c.reshape(-1).to(torch.float32) for c in crops])
+def _host_payload(crops) -> tuple[memoryview, list[int]]:
+    """The crops' C-order ``<f4`` bytes back to back (the wire's payload
+    section), after one device-to-host copy of the whole batch, and each
+    crop's byte count."""
+    sizes = [4 * c.numel() for c in crops]
+    if not sum(sizes):         # memoryview cannot cast an empty array
+        return memoryview(b""), sizes
+    flat = torch.cat([c.reshape(-1) if c.dtype == torch.float32
+                      else c.reshape(-1).float() for c in crops])
     host = np.ascontiguousarray(flat.cpu().numpy(), dtype="<f4")
-    mv = memoryview(host).cast("B")
-    frames, off = [], 0
-    for c in crops:
-        n = 4 * c.numel()
-        frames.append(mv[off:off + n])
-        off += n
-    return frames
+    return memoryview(host).cast("B"), sizes
 
 
 class RegionRequestHandler(BaseHTTPRequestHandler):
@@ -368,7 +365,7 @@ class RegionRequestHandler(BaseHTTPRequestHandler):
             return self._fail(500, f"region decode failed: {exc}")
         # the crop comes to the host once and goes to the socket as is
         # (wfile is unbuffered, so write() is a direct sendall)
-        body, = _host_frames([roi.data])
+        body, _ = _host_payload([roi.data])
         self.send_response(200)
         self.send_header("Content-Type", "application/octet-stream")
         self.send_header("Content-Length", str(len(body)))
@@ -429,11 +426,11 @@ class RegionRequestHandler(BaseHTTPRequestHandler):
             return self._fail(400, f"bad regions request: {exc}")
         except Exception as exc:       # corrupt payload, missing codec, ...
             return self._fail(500, f"region decode failed: {exc}")
-        # payload section: the batch's crops come to the host in one copy
-        # and each is written to the socket as a memoryview slice of it
-        frames = _host_frames([roi.data for per_box in results
-                               for roi in per_box])
-        it = iter(frames)
+        # payload section: the batch's crops come to the host in one copy,
+        # which goes to the socket in one write
+        payload, sizes = _host_payload([roi.data for per_box in results
+                                        for roi in per_box])
+        it = iter(sizes)
         total = 0
         header: dict = {"snapshot_crc": crc,
                         "request_id": self._request_id,
@@ -442,12 +439,12 @@ class RegionRequestHandler(BaseHTTPRequestHandler):
         for per_box in results:
             rows = []
             for roi in per_box:
-                mv = next(it)
+                nbytes = next(it)
                 rows.append({"level": roi.level, "ratio": roi.ratio,
                              "box": [list(r) for r in roi.box],
                              "shape": list(roi.shape),
-                             "offset": total, "nbytes": len(mv)})
-                total += len(mv)
+                             "offset": total, "nbytes": nbytes})
+                total += nbytes
             header["results"].append(rows)
         hdr = json.dumps(header).encode()
         self.send_response(200)
@@ -456,8 +453,7 @@ class RegionRequestHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(struct.pack("<I", len(hdr)))
         self.wfile.write(hdr)
-        for mv in frames:
-            self.wfile.write(mv)
+        self.wfile.write(payload)
 
     # --------------------------- cache handoff ----------------------------
 

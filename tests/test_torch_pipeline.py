@@ -215,6 +215,9 @@ def test_import_hygiene():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.serving.sharded', 'repro_torch.serving.loadgen',\n"
+        "        'repro_torch.obs.collect', 'repro_torch.obs.slo'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
