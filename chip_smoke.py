@@ -185,7 +185,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    must equal the composed route (two kernel-7 calls and four slice
    copies, with either route of kernel 7) and the plain version; the
    three are timed from CUDA graphs in turns, and the host's time per
-   call of the fused and the composed write in turns.
+   call of the fused and the composed write in turns;
+8. mixture-of-experts serving, through the user entry points, with
+   phase 7's traffic: granite-moe-1b-a400m at full width and depth (24
+   layers, d_model 1024, 32 experts, top-8, d_ff 512 per expert) and
+   qwen3-moe-30b-a3b at full width with 8 of its 48 layers (d_model 2048,
+   128 experts, top-8, d_ff 768), each initialised on the card from a
+   seeded generator (an expert leaf at one expert matrix's ``1/√fan_in``),
+   its ``param_counts`` equal to the reference's figures.  Each int8
+   ``generate`` is read alone: kernel 7 exactly ``2 + layers · steps``
+   times (770 and 258), kernel 8 never.  Granite also runs the bf16 cache
+   (greedy agreement ≥ 50 %), the cache read-back (kernel 8 launched, the
+   dequantized cache within ``scale/2`` plus float32 rounding), and
+   prefill/decode consistency at a drop-free capacity (``capacity_factor
+   = n_experts / experts_per_token``, 4): phase 7's three gates, the
+   float32 one with every token routed as the full prefill routed it (a
+   router near-tie that the cache's rounding flips moves a token by a
+   whole expert's share; the flipped tokens are counted), and, unpinned,
+   the float32 int8 cache at most 1e-2 above the bf16 cache.  Printed
+   for both: init s, prefill s, decode ms a step, peak device bytes, and
+   a ``torch.profiler`` breakdown of one decode step with the MoE
+   layer's routing, dispatch and expert operators named.
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -218,6 +238,16 @@ LM_ARCH = "deepseek_7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
 LM_SEED = 13
 QDQ = ("group_quant", "group_dequant")
+# phase 8: (arch, layers kept (None: all), (total, active) parameters by
+# the reference's param_counts at that depth)
+MOE_CASES = (("granite_moe_1b_a400m", None, (1384963072, 478993408)),
+             ("qwen3_moe_30b_a3b", 8, (5531797504, 1001949184)))
+MOE_SEED = 17
+# the MoE layer's routing, dispatch and expert operators
+MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
+                "aten::searchsorted", "aten::index_copy_",
+                "aten::repeat_interleave", "aten::index_add_", "aten::bmm",
+                "aten::index", "aten::cat")
 # phase 2d: the variant set and the reference bench's --quick rungs
 VARIANT_TARGETS = {"hi": "psnr>=70", "lo": "psnr>=50",
                    "ps": "ps_error<=0.01"}
@@ -583,12 +613,13 @@ def read_turns(torch, ops, fn) -> dict:
 
 
 def device_profile(torch, fn, count: str | None = None,
-                   warm_up: bool = True) -> dict:
+                   warm_up: bool = True, aten_ops: tuple = ()) -> dict:
     """One ``fn()`` under ``torch.profiler`` (after a warm-up, unless the
     caller has just run it): wall ms, summed kernel ms (its share of the
     wall is the device's busy share), the kernel launches and the kernels
     that take most of the time; with ``count``, also the launches of
-    kernels whose name holds it."""
+    kernels whose name holds it; with ``aten_ops``, each named operator's
+    calls and the device ms of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -613,6 +644,12 @@ def device_profile(torch, fn, count: str | None = None,
                    for e in ev[:8]]}
     if count is not None:
         out[f"{count}_launches"] = sum(e.count for e in ev if count in e.key)
+    if aten_ops:
+        by_op = {e.key: e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CPU and e.key in aten_ops}
+        out["aten_ops"] = {k: (by_op[k].count,
+                               by_op[k].device_time_total / 1e3)
+                           for k in aten_ops if k in by_op}
     return out
 
 
@@ -1630,19 +1667,81 @@ def card_reference(torch, np, ops, tio, smi: str) -> dict:
     return out
 
 
-def lm_consistency(torch, cfg, params, prompts, run) -> float:
+class PinRouting:
+    """Routes the MoE layers of later passes as a recorded pass routed
+    them.
+
+    ``run(fn, seq, pos0, record)`` runs ``fn`` with
+    ``models.moe._route`` (the top-k of each token group) wrapped.  The
+    groups of a pass come layer by layer, each layer's groups in token
+    order over ``batch`` sequences of ``seq`` positions from ``pos0``.
+    A recording pass keeps every token's top-k experts by (layer,
+    sequence, position); a later pass sends each token to the experts
+    recorded at its (layer, sequence, position), with its own
+    probabilities as gates, and counts the tokens whose own top-k set
+    differs (``flips``)."""
+
+    def __init__(self, torch, n_layers: int, batch: int):
+        from repro_torch.models import moe
+        self.torch, self.moe = torch, moe
+        self.n_layers, self.batch = n_layers, batch
+        self.table = None
+        self.flips = 0
+
+    def run(self, fn, seq: int, pos0: int, record: bool):
+        torch, orig = self.torch, self.moe._route
+        state = {"layer": 0, "offset": 0}
+        rows = [[] for _ in range(self.n_layers)]
+
+        def route(probs, k):
+            vals, idx = orig(probs, k)
+            g, layer, off = probs.shape[0], state["layer"], state["offset"]
+            if record:
+                rows[layer].append(idx)
+            else:
+                f = torch.arange(off, off + g, device=probs.device)
+                pinned = self.table[layer, f // seq, f % seq + pos0]
+                self.flips = self.flips + (
+                    idx.sort(1).values != pinned.sort(1).values).any(1).sum()
+                idx, vals = pinned, probs.gather(1, pinned)
+            state["offset"] = off + g
+            if state["offset"] == self.batch * seq:
+                state["layer"], state["offset"] = layer + 1, 0
+            return vals, idx
+
+        self.moe._route = route
+        try:
+            out = fn()
+        finally:
+            self.moe._route = orig
+        if record:
+            self.table = torch.stack([torch.cat(r).reshape(
+                self.batch, seq, -1) for r in rows])
+        return out
+
+
+def lm_consistency(torch, cfg, params, prompts, run,
+                   pin: PinRouting | None = None) -> float:
     """Relative max error between the last-position logits of a prefill
     over all prompt tokens and those of a prefill over all but the last
-    plus one decode step of the last, with ``run``'s cache."""
+    plus one decode step of the last, with ``run``'s cache.  With
+    ``pin``, the full prefill records the MoE routing and the other two
+    passes are routed as it routed them."""
     from repro_torch.serving import make_prefill_step, make_serve_step
     from repro_torch.serving.engine import grow_cache
 
-    full, _ = make_prefill_step(cfg, run)(params, {"tokens": prompts})
-    _, state = make_prefill_step(cfg, run)(params,
-                                           {"tokens": prompts[:, :-1]})
-    dec, _ = make_serve_step(cfg, run)(
-        params, grow_cache(state, 1), {"tokens": prompts[:, -1:]},
-        prompts.shape[1] - 1)
+    S = prompts.shape[1]
+
+    def run_pass(fn, seq, pos0, record):
+        return fn() if pin is None else pin.run(fn, seq, pos0, record)
+
+    full, _ = run_pass(lambda: make_prefill_step(cfg, run)(
+        params, {"tokens": prompts}), S, 0, True)
+    _, state = run_pass(lambda: make_prefill_step(cfg, run)(
+        params, {"tokens": prompts[:, :-1]}), S - 1, 0, False)
+    dec, _ = run_pass(lambda: make_serve_step(cfg, run)(
+        params, grow_cache(state, 1), {"tokens": prompts[:, -1:]}, S - 1),
+        1, S - 1, False)
     full, dec = full.float(), dec.float()
     check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
           "non-finite logits")
@@ -1665,18 +1764,69 @@ def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
             "decode_3_steps": device_profile(torch, decode_3_steps)}
 
 
+def cache_readback(torch, cfg, params, prompts) -> tuple:
+    """The cache's conversion and read-back: a bf16 prefill cache of
+    ``prompts`` through ``quantize_prefill_cache`` and ``dequantize_kv``,
+    the launch counts reset just before and read just after.  Returns
+    ``(bf16 cache, every kernel's launches, worst |dequantized − bf16| /
+    scale)``; the
+    bound is ``1/2 + 2⁻¹⁵`` (half a step, plus the float32 rounding of
+    x/scale and of q·scale)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (dequantize_kv, make_prefill_step,
+                                     quantize_prefill_cache)
+
+    _, cache_b = make_prefill_step(cfg, RunConfig(kv_quant=False))(
+        params, {"tokens": prompts})
+    ops.reset_launches()
+    cache_q = quantize_prefill_cache(cfg, cache_b)
+    deq = {name: dequantize_kv(cache_q[name], cache_q[name + "_scale"],
+                               torch.float32) for name in ("k", "v")}
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    worst = 0.0
+    for name in ("k", "v"):
+        for li in range(cfg.n_layers):
+            err = (deq[name][li] - cache_b[name][li].float()).abs()
+            scale = cache_q[name + "_scale"][li][..., None]
+            worst = max(worst, float((err / scale).max()))
+        del err
+    return cache_b, launches, worst
+
+
+def step_times(torch, eng, params, prompts, st: dict, tag: str) -> None:
+    """Into ``st``: the prefill's seconds and the median decode step's ms
+    (and tokens/s) over ``LM_NEW`` greedy steps, each synchronised."""
+    import statistics
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(params, prompts, LM_PROMPT + LM_NEW)
+    torch.cuda.synchronize()
+    st[f"prefill_{tag}_s"] = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1)
+    steps = []
+    for i in range(LM_NEW):
+        t0 = time.perf_counter()
+        logits, state = eng.decode(params, state, tok, LM_PROMPT + i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.argmax(logits, dim=-1)
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
+    med = statistics.median(steps)
+    st[f"decode_{tag}_ms_per_token"] = med
+    st[f"decode_{tag}_tokens_per_s"] = LM_BATCH / med * 1e3
+
+
 def lm_serving(torch, smi: str) -> list[dict]:
     """Phase 7: LM serving with an int8 KV cache at deepseek-7b's full
     width and depth.  Returns the kernel rows of kernels 7 and 8."""
-    import statistics
-
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models import layers, model
     from repro_torch.models.attention import init_kv_cache
-    from repro_torch.serving import (ServingEngine, dequantize_kv,
-                                     make_prefill_step,
-                                     quantize_prefill_cache)
+    from repro_torch.serving import ServingEngine
 
     dev = torch.device("cuda")
     check(torch.get_float32_matmul_precision() == "highest",
@@ -1738,29 +1888,12 @@ def lm_serving(torch, smi: str) -> list[dict]:
     expect(st["greedy_agreement"] >= 0.5,
            f"int8 and bf16 caches agree on {st['greedy_agreement']} < 0.5")
 
-    # ---- path 2, the cache's conversion and read-back: a full-width bf16
-    # prefill cache through quantize_prefill_cache and dequantize_kv,
-    # counts reset before, read after
-    _, cache_b = make_prefill_step(cfg, run_b)(params, {"tokens": prompts})
-    ops.reset_launches()
-    cache_q = quantize_prefill_cache(cfg, cache_b)
-    deq = {name: dequantize_kv(cache_q[name], cache_q[name + "_scale"],
-                               torch.float32) for name in ("k", "v")}
-    torch.cuda.synchronize()
-    per_readback = {k: ops.launches[k] for k in QDQ}
+    # ---- path 2, the cache's conversion and read-back
+    cache_b, readback, worst = cache_readback(torch, cfg, params, prompts)
+    per_readback = {k: readback[k] for k in QDQ}
     st["launches_per_cache_readback"] = per_readback
     expect(per_readback["group_dequant"] > 0,
            "kernel group_dequant never launched by dequantize_kv")
-    # the dequantized int8 cache within scale/2 of the bf16 cache (plus
-    # the float32 rounding of x/scale and of q·scale: 2⁻¹⁵ of the scale)
-    worst = 0.0
-    for name in ("k", "v"):
-        for li in range(cfg.n_layers):
-            err = (deq[name][li] - cache_b[name][li].float()).abs()
-            scale = cache_q[name + "_scale"][li][..., None]
-            worst = max(worst, float((err / scale).max()))
-        del err
-    del deq, cache_q
     st["dequant_err_over_scale"] = worst
     expect(worst <= 0.5 + 2.0 ** -15, f"dequant error {worst} · scale")
 
@@ -1787,24 +1920,7 @@ def lm_serving(torch, smi: str) -> list[dict]:
 
     # ---- step times: prefill, and each decode step, synchronised
     for tag, eng in (("int8", eng_q), ("bf16", eng_b)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, state = eng.prefill(params, prompts, LM_PROMPT + LM_NEW)
-        torch.cuda.synchronize()
-        st[f"prefill_{tag}_s"] = time.perf_counter() - t0
-        tok = torch.argmax(logits, dim=-1)
-        steps = []
-        for i in range(LM_NEW):
-            t0 = time.perf_counter()
-            logits, state = eng.decode(params, state, tok, LM_PROMPT + i)
-            torch.cuda.synchronize()
-            steps.append((time.perf_counter() - t0) * 1e3)
-            tok = torch.argmax(logits, dim=-1)
-        check(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
-        med = statistics.median(steps)
-        st[f"decode_{tag}_ms_per_token"] = med
-        st[f"decode_{tag}_tokens_per_s"] = LM_BATCH / med * 1e3
-        del state
+        step_times(torch, eng, params, prompts, st, tag)
     print("LM serving: " + json.dumps(st))
     print("LM serving, device time by kernel: " + json.dumps(
         lm_profile(torch, eng_q, params, prompts, smi)))
@@ -1962,6 +2078,172 @@ def lm_serving(torch, smi: str) -> list[dict]:
     torch.cuda.empty_cache()
     check(not failed, "; ".join(failed))
     return rows
+
+
+def moe_serving(torch, smi: str) -> dict:
+    """Phase 8: mixture-of-experts serving, through the user entry points.
+    Returns the printed readings with each run's launch counts."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, model
+    from repro_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    run_q, run_b = RunConfig(kv_quant=True), RunConfig(kv_quant=False)
+    out = {"card": smi, "launches": {}}
+    failed = []
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    for arch, depth, counts in MOE_CASES:
+        full = get_config(arch)
+        cfg = full if depth is None else replace(full, n_layers=depth)
+        tag = arch.split("_")[0]
+        st = {"card": smi, "arch": arch, "layers": cfg.n_layers,
+              "of_layers": full.n_layers, "d_model": cfg.d_model,
+              "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+              "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+              "param_counts": model.param_counts(cfg), "batch": LM_BATCH,
+              "prompt": LM_PROMPT, "new_tokens": LM_NEW}
+        check(st["param_counts"] == counts,
+              f"{arch}: param_counts {st['param_counts']} != {counts}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = layers.init_from_specs(
+            model.model_specs(cfg),
+            torch.Generator(device=dev).manual_seed(MOE_SEED), device=dev)
+        torch.cuda.synchronize()
+        st["init_s"] = time.perf_counter() - t0
+        prompts = torch.randint(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+            generator=torch.Generator().manual_seed(MOE_SEED)).to(dev)
+        engines = {"int8": ServingEngine(cfg, run_q, device=dev)}
+        if depth is None:
+            engines["bf16"] = ServingEngine(cfg, run_b, device=dev)
+
+        # ---- generate with the int8 cache: counts reset just before and
+        # read just after; K7 on the prefill stacks, then one fused write a
+        # layer and decode step, never K8
+        ids = {}
+        for ctag, eng in engines.items():
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            ids[ctag] = eng.generate(params, prompts, new_tokens=LM_NEW)
+            torch.cuda.synchronize()
+            st[f"generate_{ctag}_s"] = time.perf_counter() - t0
+            st[f"peak_device_bytes_generate_{ctag}"] = \
+                torch.cuda.max_memory_allocated()
+            if ctag == "int8":
+                got = {k: ops.launches[k] for k in ops.launches}
+                out["launches"][f"{tag}_generate_int8"] = got
+                want = 2 + cfg.n_layers * LM_NEW
+                expect(got["group_quant"] == want and
+                       got["group_dequant"] == 0,
+                       f"{arch}: generate launched K7 {got['group_quant']} "
+                       f"times (not {want}) and K8 {got['group_dequant']}")
+            check(tuple(ids[ctag].shape) == (LM_BATCH, LM_NEW),
+                  f"{arch}: ids {tuple(ids[ctag].shape)}")
+            check(int(ids[ctag].min()) >= 0
+                  and int(ids[ctag].max()) < cfg.vocab_size,
+                  f"{arch}: generated ids out of range")
+        if "bf16" in ids:
+            st["greedy_agreement"] = float(
+                (ids["int8"] == ids["bf16"]).float().mean())
+            expect(st["greedy_agreement"] >= 0.5,
+                   f"{arch}: int8 and bf16 caches agree on "
+                   f"{st['greedy_agreement']} < 0.5")
+        for ctag, eng in engines.items():
+            step_times(torch, eng, params, prompts, st, ctag)
+
+        # ---- one decode step under the profiler (int8 cache)
+        eng = engines["int8"]
+        logits, state = eng.prefill(params, prompts, LM_PROMPT + 1)
+        tok = torch.argmax(logits, dim=-1)
+        st["decode_step_profile"] = device_profile(
+            torch, lambda: eng.decode(params, state, tok, LM_PROMPT),
+            aten_ops=MOE_ATEN_OPS)
+        del logits, state
+
+        if depth is None:
+            # ---- the cache's conversion and read-back: K8
+            cache_b, got, worst = cache_readback(torch, cfg, params, prompts)
+            del cache_b
+            out["launches"][f"{tag}_readback"] = got
+            st["dequant_err_over_scale"] = worst
+            expect(got["group_dequant"] > 0,
+                   f"{arch}: dequantize_kv never launched K8")
+            expect(worst <= 0.5 + 2.0 ** -15,
+                   f"{arch}: dequant error {worst} · scale")
+            t0 = time.perf_counter()
+            consistency = moe_consistency(torch, cfg, params, prompts)
+            st.update(consistency, consistency_s=time.perf_counter() - t0)
+            rel2 = consistency["consistency_rel_bf16_2_layers"]
+            expect(rel2 <= 1e-2, f"{arch}: two-layer bf16 consistency "
+                                 f"{rel2} > 1e-2")
+            rel_q = consistency[f"consistency_rel_int8_{cfg.n_layers}_layers"]
+            rel_b = consistency[f"consistency_rel_bf16_{cfg.n_layers}_layers"]
+            expect(rel_q <= rel_b + 1e-2, f"{arch}: int8 consistency {rel_q} "
+                                          f"> bf16's {rel_b} + 1e-2")
+            # a token whose top-k set the cache's rounding flips takes a
+            # whole expert's share apart (ROADMAP.md, queue 3): phase 7's
+            # float32 gate holds with the routing pinned; unpinned, the
+            # int8 cache adds at most 1e-2 to the bf16 cache's reading
+            rel32 = consistency["float32_pinned_consistency_rel_int8_cache"]
+            expect(rel32 <= 1e-2, f"{arch}: float32 int8-cache consistency, "
+                                  f"routing pinned, {rel32} > 1e-2")
+            rel_q = consistency["float32_consistency_rel_int8_cache"]
+            rel_b = consistency["float32_consistency_rel_bf16_cache"]
+            expect(rel_q <= rel_b + 1e-2, f"{arch}: float32 int8 consistency "
+                                          f"{rel_q} > bf16's {rel_b} + 1e-2")
+        del params
+        torch.cuda.empty_cache()
+        print(f"MoE serving, {arch}: " + json.dumps(st))
+        out[tag] = st
+    check(not failed, "; ".join(failed))
+    return out
+
+
+def moe_consistency(torch, cfg, params, prompts) -> dict:
+    """Prefill/decode consistency (:func:`lm_consistency`) at a drop-free
+    capacity, ``capacity_factor = n_experts / experts_per_token``: then
+    every group's capacity is at least its token count, so the 1,024-token
+    prefill and the one-token decode step drop nothing.  bf16 and int8
+    caches on the first two layers and at full depth, then both again with
+    the same weights in float32 (``params`` is converted in place)."""
+    from repro_torch.configs import RunConfig
+
+    cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    runs = (("int8", RunConfig(kv_quant=True)),
+            ("bf16", RunConfig(kv_quant=False)))
+    cut_params = dict(params, layers={
+        blk: {k: w[:2] for k, w in leaves.items()}
+        for blk, leaves in params["layers"].items()})
+    st = {"consistency_capacity_factor": cfg.capacity_factor}
+    for depth, c, p in ((2, replace(cfg, n_layers=2), cut_params),
+                        (cfg.n_layers, cfg, params)):
+        for tag, run in runs:
+            st[f"consistency_rel_{tag}_{depth}_layers"] = lm_consistency(
+                torch, c, p, prompts, run)
+    del cut_params
+    for tree in [params] + [v for v in params["layers"].values()]:
+        for k, w in tree.items():
+            if not isinstance(w, dict):
+                tree[k] = w.float()
+    torch.cuda.empty_cache()
+    cfg32 = replace(cfg, dtype="float32")
+    for tag, run in runs:
+        st[f"float32_consistency_rel_{tag}_cache"] = lm_consistency(
+            torch, cfg32, params, prompts, run)
+        # the same with every token routed as the full prefill routed it:
+        # what is left is the cache's rounding through a smooth model
+        pin = PinRouting(torch, cfg.n_layers, prompts.shape[0])
+        st[f"float32_pinned_consistency_rel_{tag}_cache"] = lm_consistency(
+            torch, cfg32, params, prompts, run, pin=pin)
+        st[f"float32_routing_flips_{tag}_cache"] = int(pin.flips)
+    return st
 
 
 def main() -> int:
@@ -2550,6 +2832,12 @@ def main() -> int:
     # ------------------------------------------------- 7. LM serving
     rows += lm_serving(torch, smi)
 
+    # ------------------------------------------------- 8. MoE serving
+    t0 = time.perf_counter()
+    moe = moe_serving(torch, smi)
+    print(f"MoE serving: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(moe["launches"]))
+
     # launches on the region-serving phase (2b) and the multi-part phase
     # (2c) beside each row's own path
     for r in rows:
@@ -2569,6 +2857,9 @@ def main() -> int:
         r["sharded_launches"] = {
             run: counts[r["name"]]
             for run, counts in shard["sharded_launches"].items()}
+        # phase 8: each int8 generate and granite's cache read-back
+        r["moe_launches"] = {run: counts[r["name"]]
+                             for run, counts in moe["launches"].items()}
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,15 @@ class ModelConfig:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if serve-time state is O(1) in context (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
 
 @dataclass(frozen=True)
 class RunConfig:

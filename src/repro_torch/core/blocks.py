@@ -11,7 +11,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["BlockGrid", "SubBlock", "make_block_grid", "extract_subblock"]
+__all__ = ["BlockGrid", "SubBlock", "make_block_grid", "extract_subblock",
+           "subblocks_tile_exactly"]
 
 
 @dataclass
@@ -91,3 +92,14 @@ def extract_subblock(grid: BlockGrid, sb: SubBlock) -> np.ndarray:
     ox, oy, oz = sb.cell_origin(grid.unit)
     sx, sy, sz = sb.cell_size(grid.unit)
     return grid.data[ox:ox + sx, oy:oy + sy, oz:oz + sz]
+
+
+def subblocks_tile_exactly(grid: BlockGrid, subblocks: list[SubBlock]) -> bool:
+    """Partition invariant: the sub-blocks cover every non-empty unit
+    block exactly once and no empty unit block."""
+    cover = np.zeros(grid.bshape, dtype=np.int32)
+    for sb in subblocks:
+        x, y, z = sb.origin
+        dx, dy, dz = sb.bsize
+        cover[x:x + dx, y:y + dy, z:z + dz] += 1
+    return bool(((cover == 1) == grid.occ).all() and (cover <= 1).all())

@@ -10,8 +10,8 @@ did ``len(ZstdCompressor().compress(buf)) * 8`` goes through here.
 """
 from __future__ import annotations
 
-__all__ = ["HAVE_ZSTD", "zstd_size_bits", "zstd_compress",
-           "zstd_decompress"]
+__all__ = ["HAVE_ZSTD", "zstd_module", "zstd_size_bits",
+           "zstd_compress", "zstd_decompress"]
 
 try:
     import zstandard as _zstd
@@ -20,6 +20,11 @@ try:
 except ImportError:          # pragma: no cover - environment dependent
     _zstd = None
     HAVE_ZSTD = False
+
+
+def zstd_module():
+    """The ``zstandard`` module, or None when not installed."""
+    return _zstd
 
 
 def zstd_size_bits(buf: bytes, *, level: int = 3) -> int | None:

@@ -1,8 +1,8 @@
 """Entropy stage on the device: batch Huffman encode and decode under one
 shared codebook.
 
-:class:`TorchEngine` is the port's one engine.  It works on the device it
-is given:
+:class:`EntropyEngine` is the protocol; :class:`TorchEngine` is the
+port's one implementation.  It works on the device it is given:
 
 * ``encode_payloads`` packs every payload of a level in one offset-scatter
   pass over the pooled symbol stream (torch ops).  Each payload lands at
@@ -15,23 +15,40 @@ is given:
   plain version on the CPU.  Errors are the oracle's, including which
   payload's error is raised (the lowest-index one).
 
-The serial :func:`encode_stream` / :func:`decode_stream` are the bit-exact
-oracle, kept on the host with numpy.
+The reference's engine names map onto :class:`TorchEngine` subclasses
+that differ only in ``name``, since its engines are bit-identical:
+
+====================  =====================  =====================
+name                  reference engine       port engine
+====================  =====================  =====================
+``"numpy"``           serial numpy oracle    :class:`NumpyEngine`
+``"batched"``         vectorized numpy       :class:`BatchedEngine`
+``"pallas"``          Pallas window kernel   :class:`PallasEngine`
+``"auto"``            pallas or batched      :class:`PallasEngine`
+====================  =====================  =====================
+
+Every one of them encodes with the torch scatter and decodes through
+kernel 4 on its device (:func:`get_engine`).  The serial
+:func:`encode_stream` / :func:`decode_stream` are the bit-exact oracle,
+kept on the host with numpy.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import ops, ref
 from . import huffman
 
-__all__ = ["ENGINE_NAMES", "HostStaging", "HuffdecBatch", "TorchEngine",
-           "check_engine_name", "code_lengths", "decode_stream",
-           "encode_stream", "symbol_indices"]
+__all__ = ["ENGINE_NAMES", "EntropyEngine", "TorchEngine", "NumpyEngine",
+           "BatchedEngine", "PallasEngine", "HostStaging", "HuffdecBatch",
+           "get_engine", "check_engine_name", "code_lengths",
+           "decode_stream", "encode_stream", "symbol_indices"]
 
 #: The reference's entropy-engine names.  Its engines are bit-identical,
-#: so the port decodes every one of them through kernel 4.
+#: so the port decodes every one of them through kernel 4
+#: (:func:`get_engine`).
 ENGINE_NAMES = ("auto", "numpy", "batched", "pallas")
 
 _ERRORS = {1: "truncated bitstream", 2: "corrupt bitstream",
@@ -137,9 +154,10 @@ def code_lengths(cb: huffman.Codebook, data: torch.Tensor) -> torch.Tensor:
     return lengths.to(data.device)[symbol_indices(cb, data)]
 
 
-def check_engine_name(name: str) -> None:
-    """Raise ``ValueError`` unless ``name`` is one of :data:`ENGINE_NAMES`."""
-    if name not in ENGINE_NAMES:
+def check_engine_name(name: "str | EntropyEngine") -> None:
+    """Raise ``ValueError`` unless ``name`` is an engine instance or one of
+    :data:`ENGINE_NAMES`; resolves nothing (no device is touched)."""
+    if not isinstance(name, EntropyEngine) and name not in ENGINE_NAMES:
         raise ValueError(f"unknown entropy engine {name!r} "
                          f"(expected one of {ENGINE_NAMES})")
 
@@ -157,7 +175,30 @@ def _as_u8(buf) -> np.ndarray:
     return np.asarray(buf, dtype=np.uint8).ravel()
 
 
-class TorchEngine:
+class EntropyEngine:
+    """Protocol: batch entropy coding under one shared codebook.
+
+    ``encode_payloads(cb, streams)`` → one ``(payload bytes, nbits)`` pair
+    per symbol stream, byte-identical to the serial oracle's per-stream
+    ``packbits`` framing.  ``decode_payloads(cb, payloads, n_codes=None)``
+    → one int64 code array per payload; ``payloads`` are ``(buf, nbits,
+    n_codes)`` triples, or ``(buf, nbits)`` pairs with ``n_codes`` given
+    separately.  Implementations match the serial oracle bit for bit,
+    errors included.
+    """
+
+    name = "abstract"
+
+    def encode_payloads(self, cb: huffman.Codebook,
+                        streams) -> list[tuple[bytes, int]]:
+        raise NotImplementedError
+
+    def decode_payloads(self, cb: huffman.Codebook, payloads,
+                        n_codes=None) -> list:
+        raise NotImplementedError
+
+
+class TorchEngine(EntropyEngine):
     """Batch entropy coding under one shared codebook on ``device``.
 
     ``encode_payloads(cb, streams)`` → one ``(payload bytes, nbits)`` pair
@@ -167,6 +208,8 @@ class TorchEngine:
     separately.  Both match the serial oracle bit for bit, errors
     included.
     """
+
+    name = "torch"
 
     def __init__(self, device: str | torch.device):
         self.device = torch.device(device)
@@ -284,6 +327,53 @@ class TorchEngine:
             np.cumsum(span) - span, np.asarray(cb.symbols, dtype=np.int64),
             table(cb.first_code), table(cb.first_index), table(cb.count))]
         return HuffdecBatch(parts, int(span.sum()), maxlen, span.tolist())
+
+
+class NumpyEngine(TorchEngine):
+    """The reference's ``"numpy"`` engine name: encode and decode as
+    :class:`TorchEngine` (kernel 4 on a CUDA device)."""
+
+    name = "numpy"
+
+
+class BatchedEngine(TorchEngine):
+    """The reference's ``"batched"`` engine name: as :class:`TorchEngine`."""
+
+    name = "batched"
+
+
+class PallasEngine(TorchEngine):
+    """The reference's ``"pallas"`` engine name (and what ``"auto"``
+    resolves to): as :class:`TorchEngine`."""
+
+    name = "pallas"
+
+
+_ENGINE_CLASSES = {"numpy": NumpyEngine, "batched": BatchedEngine,
+                   "pallas": PallasEngine}
+_ENGINES: dict[tuple[str, torch.device], EntropyEngine] = {}
+
+
+def get_engine(name: "str | EntropyEngine" = "auto", *,
+               device: str | torch.device = "cuda") -> EntropyEngine:
+    """Resolve an entropy engine on ``device`` (default ``"cuda"``, which
+    raises without a card).
+
+    An :class:`EntropyEngine` instance passes through unchanged; an
+    unknown name raises ``ValueError``; ``"auto"`` resolves to
+    :class:`PallasEngine`.  Instances are cached per (name, device):
+    engines are stateless.
+    """
+    if isinstance(name, EntropyEngine):
+        return name
+    check_engine_name(name)
+    if name == "auto":
+        name = "pallas"
+    dev = resolve_device(device)
+    eng = _ENGINES.get((name, dev))
+    if eng is None:
+        eng = _ENGINES.setdefault((name, dev), _ENGINE_CLASSES[name](dev))
+    return eng
 
 
 class HuffdecBatch:

@@ -18,7 +18,11 @@ import numpy as np
 __all__ = [
     "Codebook",
     "build_codebook",
+    "encode",
+    "decode",
+    "encoded_size_bits",
     "symbol_indices",
+    "code_lengths_for",
     "codebook_size_bits",
     "serialize_codebook",
     "deserialize_codebook",
@@ -40,12 +44,20 @@ class Codebook:
     first_code: np.ndarray = field(default=None)   # per length L: first codeword
     first_index: np.ndarray = field(default=None)  # per length L: index of first symbol
     count: np.ndarray = field(default=None)        # per length L: #codes of that length
+    _enc_map: dict = field(default=None, repr=False)
 
     @property
     def max_length(self) -> int:
         return int(self.lengths.max(initial=0))
 
-
+    def encoder_map(self) -> dict:
+        """``{symbol: (code, length)}``, built once and cached."""
+        if self._enc_map is None:
+            self._enc_map = {
+                int(s): (int(c), int(l))
+                for s, c, l in zip(self.symbols, self.codes, self.lengths)
+            }
+        return self._enc_map
 
 def _code_lengths_from_hist(symbols: np.ndarray, freqs: np.ndarray) -> np.ndarray:
     """Huffman code lengths via the standard two-queue/heap construction."""
@@ -158,6 +170,20 @@ def deserialize_codebook(buf: bytes) -> Codebook:
     return _canonicalize(symbols, lengths)
 
 
+def encoded_size_bits(cb: Codebook, data: np.ndarray | None = None, *,
+                      symbols: np.ndarray | None = None,
+                      freqs: np.ndarray | None = None) -> int:
+    """Exact payload size in bits without materializing the bitstream."""
+    if data is not None:
+        return int(code_lengths_for(cb, data).sum())
+    symbols = np.asarray(symbols, dtype=np.int64).ravel()
+    freqs = np.asarray(freqs, dtype=np.int64).ravel()
+    if symbols.size == 0:
+        return 0
+    idx = symbol_indices(cb, symbols)
+    return int((cb.lengths[idx] * freqs).sum())
+
+
 def symbol_indices(cb: Codebook, data: np.ndarray) -> np.ndarray:
     """Vectorized symbol → codebook-row lookup (searchsorted on a
     symbol-sorted view); raises on symbols outside the codebook."""
@@ -170,6 +196,17 @@ def symbol_indices(cb: Codebook, data: np.ndarray) -> np.ndarray:
     return sym_order[pos]
 
 
+def code_lengths_for(cb: Codebook, data: np.ndarray) -> np.ndarray:
+    """Per-occurrence code lengths of a host symbol stream:
+    ``code_lengths_for(cb, data).sum() == encode(cb, data)[1]`` exactly.
+    (``repro_torch.core.entropy.code_lengths`` does the same on a device
+    tensor.)"""
+    data = np.asarray(data, dtype=np.int64).ravel()
+    if data.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    return cb.lengths[symbol_indices(cb, data)]
+
+
 def codebook_size_bits(cb: Codebook) -> int:
     """Serialized codebook cost: (symbol int32 + length uint8) per entry.
 
@@ -177,3 +214,33 @@ def codebook_size_bits(cb: Codebook) -> int:
     expensive — the overhead SHE removes (paper §III-D).
     """
     return len(cb.symbols) * (32 + 8)
+
+
+def encode(cb: Codebook, data: np.ndarray, *,
+           indices: np.ndarray | None = None) -> tuple[np.ndarray, int]:
+    """Encode one symbol stream on the host.  Returns (packed uint8
+    bitstream, nbits).
+
+    ``indices`` may carry a precomputed ``symbol_indices(cb, data)``.
+    This is the single-stream serial oracle
+    (``repro_torch.core.entropy.encode_stream``); many payloads under one
+    codebook go through ``entropy.get_engine(...).encode_payloads``.
+    """
+    from . import entropy
+    return entropy.encode_stream(cb, data, indices=indices)
+
+
+def decode(cb: Codebook, packed: np.ndarray, nbits: int,
+           n_symbols: int) -> np.ndarray:
+    """Decode ``n_symbols`` symbols from a packed bitstream on the host
+    (canonical walk).
+
+    An empty codebook decodes only the empty stream, a single-symbol
+    alphabet checks the advertised bit count, and a stream that ends
+    mid-codeword raises ``ValueError``.  This is the single-stream serial
+    oracle (``repro_torch.core.entropy.decode_stream``); many payloads
+    under one codebook go through
+    ``entropy.get_engine(...).decode_payloads`` (kernel 4).
+    """
+    from . import entropy
+    return entropy.decode_stream(cb, packed, nbits, n_symbols)

@@ -23,7 +23,7 @@ import numpy as np
 
 from .blocks import BlockGrid, SubBlock
 
-__all__ = ["compute_bs", "opst_partition"]
+__all__ = ["compute_bs", "opst_partition", "merge_subblocks"]
 
 
 def compute_bs(occ: np.ndarray) -> np.ndarray:
@@ -108,3 +108,25 @@ def opst_partition(grid: BlockGrid) -> list[SubBlock]:
                       min(bz, z + max_side + 1))
                 _update_bs_window(bs, occ, lo, hi)
     return out
+
+
+def merge_subblocks(grid: BlockGrid, subblocks: list[SubBlock]
+                    ) -> dict[tuple[int, int, int], np.ndarray]:
+    """Group extracted sub-blocks by (sorted) size into 4D arrays.
+
+    Same-size blocks are stacked into one ``(n, sx·u, sy·u, sz·u)`` array
+    for joint compression (§III-B step 5); differently-oriented cuboids of
+    equal sorted size are axis-aligned first, largest dim first (§III-C:
+    the paper tracks orientations instead of transposing; the bits on
+    disk are the same either way).
+    """
+    u = grid.unit
+    groups: dict[tuple[int, int, int], list[np.ndarray]] = {}
+    for sb in subblocks:
+        ox, oy, oz = sb.cell_origin(u)
+        sx, sy, sz = sb.cell_size(u)
+        brick = grid.data[ox:ox + sx, oy:oy + sy, oz:oz + sz]
+        order = np.argsort(brick.shape)[::-1]
+        brick = np.transpose(brick, order)
+        groups.setdefault(tuple(brick.shape), []).append(brick)
+    return {k: np.stack(v) for k, v in groups.items()}

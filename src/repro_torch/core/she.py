@@ -17,7 +17,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..kernels import ops
 from ..obs import metrics as obsm
 from . import entropy, huffman
@@ -105,7 +104,7 @@ def _shared_entropy_stage(results: list[SZResult], *, use_zstd: bool,
         lengths = entropy.code_lengths(cb, all_codes)
         payload = int(lengths.sum())
         if use_zstd and HAVE_ZSTD and payload:
-            (blob, _), = entropy.TorchEngine(device).encode_payloads(
+            (blob, _), = entropy.get_engine(device=device).encode_payloads(
                 cb, [all_codes])
             zbits = zstd_size_bits(blob)
             if zbits is not None:
@@ -129,10 +128,10 @@ def encode_brick_payloads(cb: huffman.Codebook, codes_list, *,
     """One byte-aligned packed bitstream per brick under the shared
     codebook (the TACZ payload framing), packed on ``device`` in one pass:
     ``(payload bytes, nbits)`` per brick.  ``engine`` is one of the
-    reference's entropy-engine names, validated only (its engines are
-    bit-identical)."""
-    entropy.check_engine_name(engine)
-    return entropy.TorchEngine(resolve_device(device)).encode_payloads(
+    reference's entropy-engine names or an engine
+    (:func:`~repro_torch.core.entropy.get_engine`; every name packs the
+    same bytes)."""
+    return entropy.get_engine(engine, device=device).encode_payloads(
         cb, codes_list)
 
 
@@ -144,8 +143,7 @@ def decode_brick_payloads(cb: huffman.Codebook, payloads, *,
     ``(payload bytes, nbits, n_codes)`` triples under one codebook; every
     payload decodes in one launch of kernel 4 on ``device`` into an int64
     tensor.  Errors are the serial oracle's."""
-    entropy.check_engine_name(engine)
-    return entropy.TorchEngine(resolve_device(device)).decode_payloads(
+    return entropy.get_engine(engine, device=device).decode_payloads(
         cb, payloads)
 
 

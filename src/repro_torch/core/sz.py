@@ -71,6 +71,12 @@ class SZResult:
     def total_bits(self) -> int:
         return int(self.payload_bits + self.codebook_bits + self.meta_bits)
 
+    def compression_ratio(self, n_values: int | None = None,
+                          dtype_bits: int = 32) -> float:
+        n = (int(np.prod(tuple(self.recon.shape))) if n_values is None
+             else n_values)
+        return n * dtype_bits / max(self.total_bits, 1)
+
 
 def prequant(x: torch.Tensor, eb: float) -> torch.Tensor:
     """``q = rint(float64(x) / 2eb)`` as int64 — ``|x − 2eb·q| ≤ eb``."""

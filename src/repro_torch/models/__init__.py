@@ -1,3 +1,4 @@
-"""The LM plane's decoder stack (dense family): parameter specs and
-layers, attention with bf16 or int8 KV caches, the MLP, and the stacked
-forward in train, prefill and decode modes."""
+"""The LM plane's decoder stack (dense and mixture-of-experts families):
+parameter specs and layers, attention with bf16 or int8 KV caches, the
+MLP and MoE blocks, and the stacked forward in train, prefill and decode
+modes."""

@@ -20,7 +20,8 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["ParamSpec", "DTYPES", "init_from_specs", "param_count",
-           "rmsnorm", "linear", "rope_freqs", "apply_rope"]
+           "require_exact_f32_products", "rmsnorm", "linear", "rope_freqs",
+           "apply_rope"]
 
 #: The reference's dtype names.
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -55,11 +56,15 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.ones(spec.shape, dtype=spec.torch_dtype, device=device)
     # the reference's rule for one layer's leaf: fan-in is a matrix's
     # leading dim.  A stacked (layers, …) leaf is initialised one layer
-    # at a time, so its fan-in is the layer's input width; the reference
-    # applies the rule to the stacked shape, which makes it n_layers
-    # (ROADMAP.md, queue 3).
+    # at a time, so its fan-in is the layer's input width, and an expert
+    # leaf (experts, in, out) takes one expert matrix's input width; the
+    # reference applies the rule to the stacked shape, which makes it
+    # n_layers (ROADMAP.md, queue 3).
     stacked = spec.axes[:1] == ("layers",)
-    shape = spec.shape[1:] if stacked else spec.shape
+    shape, axes = ((spec.shape[1:], spec.axes[1:]) if stacked
+                   else (spec.shape, spec.axes))
+    if axes[:1] == ("experts",) and len(shape) > 2:
+        shape = shape[1:]
     fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
     std = spec.scale / math.sqrt(fan_in)
     out = torch.empty(spec.shape, dtype=spec.torch_dtype, device=device)
@@ -94,6 +99,15 @@ def init_from_specs(specs, generator: torch.Generator, *,
 
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for _, s in _leaves(specs))
+
+
+def require_exact_f32_products(x: torch.Tensor) -> None:
+    """Raise unless float32 products on ``x``'s device run in full float32
+    (on the card, PyTorch may run them as TF32)."""
+    if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "float32 products would run as TF32 on the card: call "
+            "torch.set_float32_matmul_precision('highest') first")
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5

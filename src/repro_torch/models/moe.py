@@ -1,8 +1,19 @@
-"""The dense MLP block (SwiGLU or GELU) of the LM plane.
+"""The MLP blocks of the LM plane: the dense MLP (SwiGLU or GELU) and the
+mixture-of-experts layer.
 
-The reference's module also holds the mixture-of-experts layer
-(``moe_specs``/``moe_apply``), which the port does not run yet (ROADMAP.md,
-queue 1, item 9).
+The MoE layer is the reference's: a float32 router with top-k routing,
+the Switch auxiliary load-balancing loss, and capacity-bounded dispatch
+per token group (GShard's group semantics: capacity is provisioned per
+group, so routing hot spots drop locally).  Dispatch scatters each kept
+(token, choice) into its expert's slot of an ``(e · capacity + 1, d)``
+buffer whose last row takes the dropped ones; the expert products are
+batched matrix products over the experts.  The reference's expert
+products and dispatch run outside any Pallas kernel, and so do the
+port's: no kernel of ``kernels/`` is on this layer's path.
+
+The port runs on one device, so it has no expert sharding, and its group
+loop is a Python loop (the reference's ``lax.scan``), so it needs no
+``unroll`` switch either.
 """
 from __future__ import annotations
 
@@ -10,9 +21,10 @@ import math
 
 import torch
 
-from .layers import ParamSpec, linear, rmsnorm
+from .layers import ParamSpec, linear, require_exact_f32_products, rmsnorm
 
-__all__ = ["mlp_specs", "mlp_apply", "silu", "gelu_tanh"]
+__all__ = ["moe_specs", "moe_apply", "mlp_specs", "mlp_apply", "silu",
+           "gelu_tanh"]
 
 
 def mlp_specs(cfg) -> dict:
@@ -56,3 +68,137 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         up = gelu_tanh(up)
     return linear(up, params["w_down"])
+
+
+def moe_specs(cfg) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "ln": ParamSpec((d,), (None,), cfg.dtype, init="ones"),
+        "router": ParamSpec((d, e), ("embed", None), "float32"),
+        "w_gate": ParamSpec((e, d, f), ("experts", "embed", "mlp"), cfg.dtype),
+        "w_up": ParamSpec((e, d, f), ("experts", "embed", "mlp"), cfg.dtype),
+        "w_down": ParamSpec((e, f, d), ("experts", "mlp", "embed"), cfg.dtype),
+    }
+
+
+def _route(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k(probs, k)``: the k largest per row, ties to the
+    lower expert index (a stable descending sort; ``torch.topk`` does not
+    promise that order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def _routing(params: dict, groups: torch.Tensor, cfg):
+    """The routing of ``G`` token groups of ``g`` tokens, ``(G, g, d)``:
+    ``(sel (G, g, k), keep (G·g·k,), dest (G·g·k,), gate_keep (G·g·k,),
+    capacity, aux (G,))``.
+
+    Each group has its own ``capacity`` slots an expert.  Slots are
+    ranked by a stable sort of the flattened (group, expert) keys, so an
+    expert keeps a group's first ``capacity`` assignments in (token,
+    choice) order; a dropped one goes to the trash row ``G · e ·
+    capacity`` with a zero gate.
+    """
+    G, g_tokens, _ = groups.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    dev = groups.device
+
+    logits = torch.matmul(groups.float(), params["router"])
+    probs = torch.softmax(logits, dim=-1)                          # (G, g, e)
+    gate_vals, sel = _route(probs.reshape(G * g_tokens, e), k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # aux load-balance loss (Switch): e · Σ_e fraction_tokens · router_prob
+    flat_sel = sel.reshape(G, g_tokens * k)
+    counts = torch.zeros((G, e), dtype=torch.float32, device=dev)
+    counts.scatter_add_(1, flat_sel, torch.ones_like(flat_sel,
+                                                     dtype=torch.float32))
+    frac = counts / (g_tokens * k)
+    aux = e * torch.sum(frac * probs.mean(1), dim=-1)
+
+    capacity = max(int(cfg.capacity_factor * g_tokens * k / e), 4)
+    key = (flat_sel + e * torch.arange(G, device=dev)[:, None]).reshape(-1)
+    nk = key.shape[0]
+    order = torch.argsort(key, stable=True)
+    key_sorted = key[order]
+    starts = torch.searchsorted(key_sorted,
+                                torch.arange(G * e, device=dev), side="left")
+    pos_sorted = torch.arange(nk, device=dev) - starts[key_sorted]
+    pos_in_expert = torch.empty_like(pos_sorted).index_copy_(
+        0, order, pos_sorted)
+    keep = pos_in_expert < capacity
+    gate_keep = (gate_vals.reshape(-1) * keep).to(groups.dtype)
+    dest = torch.where(keep, key * capacity + pos_in_expert,
+                       G * e * capacity)
+    return (sel.reshape(G, g_tokens, k), keep, dest, gate_keep, capacity,
+            aux)
+
+
+def _moe_groups(params: dict, groups: torch.Tensor, cfg
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route, dispatch, expert products and combine for ``G`` token groups
+    ``(G, g, d)`` at once, each group with its own capacity.  Returns
+    ``(out (G, g, d), aux (G,))``."""
+    G, g_tokens, d = groups.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    _, keep, dest, gate_keep, capacity, aux = _routing(params, groups, cfg)
+
+    # each kept slot takes exactly one token, so the sum is that token;
+    # only the trash row (dropped assignments, zeroed) takes collisions
+    tokens = groups.reshape(G * g_tokens, d)
+    tok_rep = torch.repeat_interleave(tokens, k, dim=0)          # (G·g·k, d)
+    buf = tokens.new_zeros((G * e * capacity + 1, d))
+    buf.index_add_(0, dest, tok_rep * keep[:, None].to(tokens.dtype))
+    # (G, e, c, d) → (e, G·c, d): one batched product an expert
+    expert_in = buf[:-1].reshape(G, e, capacity, d).transpose(0, 1) \
+        .reshape(e, G * capacity, d)
+
+    h = torch.bmm(expert_in, params["w_up"].to(expert_in.dtype))
+    gt = torch.bmm(expert_in, params["w_gate"].to(expert_in.dtype))
+    h = silu(gt) * h
+    expert_out = torch.bmm(h, params["w_down"].to(h.dtype))
+    expert_out = expert_out.reshape(e, G, capacity, d).transpose(0, 1) \
+        .reshape(G * e * capacity, d)
+
+    out_flat = torch.cat([expert_out, expert_out.new_zeros((1, d))])[dest]
+    out = (out_flat * gate_keep[:, None]).reshape(G, g_tokens, k, d).sum(2)
+    return out, aux
+
+
+def _moe_group(params: dict, tokens: torch.Tensor, cfg
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route, dispatch, expert products and combine for one token group
+    ``(g, d)``.  Returns ``(out (g, d), aux)``."""
+    out, aux = _moe_groups(params, tokens[None], cfg)
+    return out[0], aux[0]
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg, *,
+              group_size: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm MoE body (the caller adds the residual).  Returns
+    ``(out, aux_loss)`` for ``x`` (B, S, d).
+
+    Tokens are routed in groups: ``gs = min(group_size, B·S)``, halved
+    until it divides ``B·S``.  Capacity is provisioned per group, and
+    ``aux`` is the mean over the groups.  The groups go through in passes
+    of at most ``group_size`` tokens (one group, or many small ones at
+    once), so a pass's buffers stay those of one full group.
+    """
+    require_exact_f32_products(x)
+    B, S, d = x.shape
+    xn = rmsnorm(x, params["ln"], cfg.norm_eps)
+    tokens = xn.reshape(B * S, d)
+    n = tokens.shape[0]
+    gs = min(group_size, n)
+    while n % gs:
+        gs //= 2
+    per_pass = max(group_size // gs, 1) * gs
+    outs = []
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for chunk in tokens.split(per_pass):
+        out, aux = _moe_groups(params, chunk.reshape(-1, gs, d), cfg)
+        outs.append(out.reshape(-1, d))
+        aux_sum = aux_sum + aux.sum()
+    return torch.cat(outs).reshape(B, S, d), aux_sum / (n // gs)

@@ -20,6 +20,15 @@ The reference's numpy host path (``repro``) writes
   (float32 bytes) into ``tacplus_recon.json``.  Its largest stack of
   16³ bricks holds more than 2¹⁷ values, so that kernel 1 takes its
   plane walk on the card;
+* the mixture-of-experts case (:func:`write_moe_reference`) into
+  ``moe.npz``: at the smoke width of granite-moe-1b-a400m (8 experts,
+  top-2), ``moe_apply``'s output and ``aux`` in float32 and bf16 for a
+  parameter tree and an input made from a numpy seed
+  (:func:`seeded_tree`, :func:`moe_inputs`), and the smoke model's train
+  logits and ``moe_aux`` for such a tree.  Only the outputs are stored:
+  the parameters regenerate from the seed in either package.  The
+  reference runs with ``--xla_allow_excess_precision=false``, so that
+  its bf16 model rounds where its code says so;
 * the variant set ``write_variant_set`` tunes and writes for the
   reference tuning tests' dataset (:data:`TUNED_DATASET`, 32³, two
   levels) and targets (:data:`TUNED_TARGETS`), default ladder, into
@@ -38,7 +47,8 @@ the same recon, on the CPU and on the card
 
 Only :func:`main` and the ``write_*`` functions import the reference:
 the card's tests and ``chip_smoke.py`` import this module for
-:func:`level`, :data:`TACPLUS` and the paths.
+:func:`level`, :data:`TACPLUS`, the MoE case's seeds and the paths.
+``--moe PATH`` writes only the MoE case, to ``PATH``.
 """
 import contextlib
 import hashlib
@@ -65,6 +75,15 @@ TUNED_DEFAULT = "lo"
 #: generators give the same levels)
 TACPLUS = dict(finest_shape=(128, 128, 128), densities=[0.23, 0.77],
                refine_block=16, lognormal_sigma=1.8, seed=10)
+#: the MoE case: granite-moe-1b-a400m's smoke config, one seed for the
+#: parameter trees, one for the inputs; ``moe_apply`` in groups of 16
+MOE_FIXTURE = os.path.join(HERE, "moe.npz")
+MOE_ARCH = "granite_moe_1b_a400m"
+MOE_SEED = 2222
+MOE_X_SHAPE = (2, 24)           # (batch, seq) of the moe_apply input
+MOE_GROUP = 16
+MOE_TOKENS_SHAPE = (2, 8)       # the smoke model's train tokens
+MOE_DTYPES = ("float32", "bfloat16")
 SHAPE = (64, 64, 64)
 BLOCK = 8          # occupancy is decided per 8³ block
 DENSITY = 0.9      # above the TAC path's GSP threshold
@@ -103,6 +122,90 @@ def write_reference(path: str) -> np.ndarray:
         w.add_level(data, mask, ratio=1)
     recon, = rio.read(path)
     return recon
+
+
+def spec_leaves(specs, prefix: str = "") -> dict:
+    """``{"a/b": (shape, init)}`` for every leaf of a spec tree of either
+    package (leaves read duck-typed: ``shape`` and ``init``)."""
+    out = {}
+    for k, v in specs.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(spec_leaves(v, path))
+        else:
+            out[path] = (tuple(v.shape), v.init)
+    return out
+
+
+def seeded_tree(leaves: dict, seed: int) -> dict:
+    """A nested dict of float32 numpy leaves for :func:`spec_leaves`'
+    output, drawn in sorted path order from ``default_rng(seed)``: ones
+    and zeros as their ``init`` says, else ``N(0, 1) / √shape[-2]`` (a
+    matrix's input width; 1 for a vector)."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for path in sorted(leaves):
+        shape, init = leaves[path]
+        if init == "ones":
+            a = np.ones(shape, np.float32)
+        elif init == "zeros":
+            a = np.zeros(shape, np.float32)
+        else:
+            fan_in = shape[-2] if len(shape) > 1 else 1
+            a = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    return tree
+
+
+def moe_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
+    """The MoE case's float32 ``moe_apply`` input ``(2, 24, d_model)`` and
+    the smoke model's train tokens ``(2, 8)``, from ``MOE_SEED + 1``."""
+    rng = np.random.default_rng(MOE_SEED + 1)
+    x = rng.standard_normal(MOE_X_SHAPE + (cfg.d_model,)).astype(np.float32)
+    return x, rng.integers(0, cfg.vocab_size, MOE_TOKENS_SHAPE)
+
+
+def write_moe_reference(path: str) -> dict:
+    """Run the MoE case on the reference and save its outputs (float32
+    arrays) to ``path``; returns them.  Set ``XLA_FLAGS`` before JAX
+    starts (see :func:`main`)."""
+    from dataclasses import replace
+
+    import jax.numpy as jnp
+
+    from repro.configs import smoke_config
+    from repro.models import model as rmodel
+    from repro.models import moe as rmoe
+
+    def cast(tree, specs):
+        return {k: cast(v, specs[k]) if isinstance(v, dict)
+                else jnp.asarray(v).astype(specs[k].dtype)
+                for k, v in tree.items()}
+
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    out = {}
+    for dtype in MOE_DTYPES:
+        cfg = replace(smoke_config(MOE_ARCH), dtype=dtype)
+        x, tokens = moe_inputs(cfg)
+        specs = rmoe.moe_specs(cfg)
+        params = cast(seeded_tree(spec_leaves(specs), MOE_SEED), specs)
+        y, aux = rmoe.moe_apply(params, jnp.asarray(x).astype(dtype), cfg,
+                                group_size=MOE_GROUP)
+        out[f"moe_apply/{dtype}/out"], out[f"moe_apply/{dtype}/aux"] = (
+            f32(y), f32(aux))
+        specs = rmodel.model_specs(cfg)
+        params = cast(seeded_tree(spec_leaves(specs), MOE_SEED), specs)
+        logits, aux = rmodel.forward(params, cfg, tokens=jnp.asarray(tokens),
+                                     mode="train")
+        out[f"model/{dtype}/logits"] = f32(logits)
+        out[f"model/{dtype}/moe_aux"] = f32(aux["moe_aux"])
+    np.savez_compressed(path, **out)
+    return out
 
 
 def finest_eb(ds) -> float:
@@ -175,6 +278,7 @@ def write_tuned_reference(set_dir: str) -> dict:
 
 def main() -> None:
     recon = write_reference(CONTAINER)
+    write_moe_reference(MOE_FIXTURE)
     np.savez_compressed(RECON, recon=recon)
     levels = write_tacplus_reference(TACPLUS_CONTAINER)
     with open(TACPLUS_RECON, "w") as f:
@@ -184,7 +288,8 @@ def main() -> None:
     with open(TUNED_JSON, "w") as f:
         json.dump(tuned, f, indent=1, sort_keys=True)
         f.write("\n")
-    for p in (CONTAINER, RECON, TACPLUS_CONTAINER, TACPLUS_RECON,
+    for p in (CONTAINER, RECON, MOE_FIXTURE, TACPLUS_CONTAINER,
+              TACPLUS_RECON,
               *(os.path.join(TUNED_SET, n)
                 for n in sorted(os.listdir(TUNED_SET))), TUNED_JSON):
         print(f"{p}: {os.path.getsize(p)} bytes")
@@ -192,4 +297,10 @@ def main() -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.join(HERE, "..", "..", "src"))
-    main()
+    # before JAX starts: bf16 rounds where the reference's code says so
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_allow_excess_precision=false").strip()
+    if sys.argv[1:2] == ["--moe"]:
+        write_moe_reference(sys.argv[2])
+    else:
+        main()

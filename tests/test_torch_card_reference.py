@@ -23,7 +23,12 @@ files the reference wrote:
   to the reference's recon, and
   restates its metrics exactly, twice in a row (``psnr``, ``psnr_u`` and
   ``max_abs_error`` equal to the reference's; ``ps_error`` within 1e-12,
-  as ``torch.fft`` differs from pocketfft in the last bits).
+  as ``torch.fft`` differs from pocketfft in the last bits);
+* the mixture-of-experts case (``moe.npz``): ``moe_apply`` and the
+  granite-moe smoke model's train logits on a numpy-seeded parameter
+  tree, on the card, within the CPU tests' tolerances of the
+  reference's outputs (float32: outputs 1e-5, logits 1e-4, ``aux``
+  1e-6; bf16: 1e-2, relative).
 
 The ``cuda`` tests import no JAX, so they run on the card's machine with
 ``pytest --noconftest -m cuda``.  The CPU tests regenerate the fixtures
@@ -34,16 +39,22 @@ which walks it one symbol per step.
 import importlib.util
 import json
 import os
+import subprocess
+import sys
+from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import io as tio
-from repro_torch.convert import dataset_from_arrays
+from repro_torch.configs import smoke_config
+from repro_torch.convert import dataset_from_arrays, params_from_reference
 from repro_torch.core import amr, hybrid
 from repro_torch.io import variants as vrt
 from repro_torch.kernels import ops
+from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.tuning import measure_metrics, write_variant_set
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -269,3 +280,93 @@ def test_tuned_set_on_card(tmp_path):
             for r in levels], method="decoded")
         first = measure_metrics(ds, res)
         assert first == measure_metrics(ds, res) == entry["metrics"]
+
+
+# ------------------------------ mixture of experts --------------------------
+
+#: relative tolerances of the CPU tests (tests/test_torch_moe.py,
+#: tests/test_torch_lm_serving.py)
+MOE_TOL = {"float32": {"out": 1e-5, "logits": 1e-4},
+           "bfloat16": {"out": 1e-2, "logits": 1e-2}}
+
+
+def _moe_fixture() -> dict:
+    with np.load(fixture.MOE_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _rel(want: np.ndarray, got: np.ndarray) -> float:
+    return float(np.abs(want - got).max() / (np.abs(want).max() + 1e-9))
+
+
+def _port_moe(dtype: str, device: str) -> dict:
+    """The port's outputs of the MoE case on ``device``, as float32 numpy
+    arrays under the fixture's keys."""
+    cfg = replace(smoke_config(fixture.MOE_ARCH), dtype=dtype)
+    x, tokens = fixture.moe_inputs(cfg)
+    specs = tmoe.moe_specs(cfg)
+    tree = fixture.seeded_tree(fixture.spec_leaves(specs), fixture.MOE_SEED)
+    params = {k: torch.from_numpy(v).to(device=device,
+                                        dtype=specs[k].torch_dtype)
+              for k, v in tree.items()}
+    dt = params["w_up"].dtype
+    out, aux = tmoe.moe_apply(params, torch.from_numpy(x).to(device, dt),
+                              cfg, group_size=fixture.MOE_GROUP)
+    tree = fixture.seeded_tree(
+        fixture.spec_leaves(tmodel.model_specs(cfg)), fixture.MOE_SEED)
+    logits, maux = tmodel.forward(
+        params_from_reference(tree, cfg, device=device), cfg,
+        tokens=torch.from_numpy(tokens).to(device), mode="train")
+    f32 = lambda t: t.float().cpu().numpy()
+    return {f"moe_apply/{dtype}/out": f32(out),
+            f"moe_apply/{dtype}/aux": f32(aux),
+            f"model/{dtype}/logits": f32(logits),
+            f"model/{dtype}/moe_aux": f32(maux["moe_aux"])}
+
+
+def _moe_match(got: dict, want: dict, dtype: str) -> None:
+    tol = MOE_TOL[dtype]
+    for key, kind in (("moe_apply", "out"), ("model", "logits")):
+        w, g = want[f"{key}/{dtype}/{kind}"], got[f"{key}/{dtype}/{kind}"]
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert _rel(w, g) <= tol[kind], (key, _rel(w, g))
+    for key in ("moe_apply/{}/aux", "model/{}/moe_aux"):
+        w, g = (float(d[key.format(dtype)]) for d in (want, got))
+        limit = 1e-6 if dtype == "float32" else tol["out"] * w
+        assert abs(g - w) <= limit, (key, g, w)
+
+
+def test_moe_fixture_regenerates(tmp_path):
+    """The reference writes the stored outputs again (in a child process,
+    so that its XLA flags take effect): float32 within 1e-6 and bf16
+    within 1e-2, relative, since another CPU may sum in another order."""
+    path = str(tmp_path / "moe.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.abspath(os.path.join(HERE, "..", "src"))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "card_reference",
+                                      "make_card_reference.py"),
+         "--moe", path], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    want = _moe_fixture()
+    with np.load(path) as z:
+        assert sorted(z.files) == sorted(want)
+        for k in z.files:
+            limit = 1e-6 if "float32" in k else 1e-2
+            assert _rel(want[k], z[k]) <= limit, k
+
+
+@pytest.mark.parametrize("dtype", fixture.MOE_DTYPES)
+def test_port_matches_moe_fixture_on_cpu(dtype):
+    _moe_match(_port_moe(dtype, "cpu"), _moe_fixture(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", fixture.MOE_DTYPES)
+def test_moe_on_card_matches_reference(dtype):
+    dev = _card()
+    torch.set_float32_matmul_precision("highest")
+    _moe_match(_port_moe(dtype, dev), _moe_fixture(), dtype)

@@ -1,8 +1,11 @@
 """The LM serving slice against the reference, on the CPU.
 
-Smoke configs of the dense token-input decoders without experts —
-deepseek-7b (MHA, SwiGLU), starcoder2-3b (GQA kv=2, QKV bias, GELU),
-qwen1.5-32b (MHA, QKV bias) and llama3-405b (GQA, rope θ 5·10⁵) — run
+Smoke configs of the token-input decoders — deepseek-7b (MHA, SwiGLU),
+starcoder2-3b (GQA kv=2, QKV bias, GELU), qwen1.5-32b (MHA, QKV bias),
+llama3-405b (GQA, rope θ 5·10⁵) and the mixture-of-experts
+granite-moe-1b-a400m and qwen3-moe-30b-a3b (8 experts, top-2 at smoke
+size, the default capacity factor, so that both frameworks drop the same
+assignments) — run
 through ``repro.serving.engine`` and ``repro_torch.serving.engine`` with
 the same parameters (the reference's ``init_from_specs`` at
 ``PRNGKey(0)``, carried over as float32 copies by
@@ -50,7 +53,9 @@ from repro_torch.models import model as tmodel
 from repro_torch.serving import ServingEngine, make_prefill_step, make_serve_step
 from repro_torch.serving.engine import grow_cache
 
-ARCHS = ["deepseek_7b", "starcoder2_3b", "qwen1_5_32b", "llama3_405b"]
+ARCHS = ["deepseek_7b", "starcoder2_3b", "qwen1_5_32b", "llama3_405b",
+         "granite_moe_1b_a400m", "qwen3_moe_30b_a3b"]
+MOE_ARCHS = ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b"]
 DTYPES = ["bfloat16", "float32"]
 B, P, T, NEW = 2, 9, 4, 6
 TOL = {"bfloat16": 1e-2, "float32": 1e-4}
@@ -88,9 +93,10 @@ def _reference_outputs(path: str) -> None:
                 name = "/".join(k.key for k in path_)
                 out[f"{tag}/params/{name}"] = f32(leaf)
             inp = _inputs(cfg)
-            logits, _ = rmodel.forward(params, cfg, mode="train",
-                                       tokens=jnp.asarray(inp["train"]))
+            logits, aux = rmodel.forward(params, cfg, mode="train",
+                                         tokens=jnp.asarray(inp["train"]))
             out[f"{tag}/train"] = f32(logits)
+            out[f"{tag}/train_aux"] = f32(aux["moe_aux"])
             for kv_quant in (False, True):
                 run = RRun(kv_quant=kv_quant)
                 qtag = f"{tag}/{int(kv_quant)}"
@@ -223,6 +229,22 @@ def test_model_specs_and_init():
     for arch in ARCHS:
         assert flat(tmodel.model_specs(smoke_config(arch))) == flat(
             rmodel.model_specs(r_smoke(arch)))
+    # an expert leaf (layers, experts, in, out) takes one expert matrix's
+    # input width; the router stays float32
+    cfg = smoke_config("granite_moe_1b_a400m")
+    mlp = tlay.init_from_specs(tmodel.model_specs(cfg),
+                               torch.Generator().manual_seed(0),
+                               device="cpu")["layers"]["mlp"]
+    assert mlp["router"].dtype == torch.float32
+    assert tuple(mlp["w_up"].shape) == (cfg.n_layers, cfg.n_experts,
+                                        cfg.d_model, cfg.d_ff)
+    for w, fan_in in ((mlp["router"], cfg.d_model),
+                      (mlp["w_gate"], cfg.d_model),
+                      (mlp["w_up"], cfg.d_model),
+                      (mlp["w_down"], cfg.d_ff)):
+        for expert in w.float().flatten(0, 1 if w.dim() == 4 else 0):
+            std = float(expert.std())
+            assert abs(std * fan_in ** 0.5 - 1.0) < 0.1, std
     cfg = smoke_config("starcoder2_3b")
     params = tlay.init_from_specs(tmodel.model_specs(cfg),
                                   torch.Generator().manual_seed(0),
@@ -241,6 +263,10 @@ def test_model_specs_and_init():
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_logits_match_reference(ref, arch, dtype):
+    """Train logits, and the MoE layers' load-balance loss (0 for a
+    dense model): within 1e-6 of the reference's in float32; in bf16
+    within 1e-2 of it, relative, as the router reads the bf16 activations
+    whose roundings may fall one step apart."""
     cfg, params = _port_model(ref, arch, dtype)
     got, aux = tmodel.forward(params, cfg, mode="train",
                               tokens=torch.from_numpy(_inputs(cfg)["train"]))
@@ -248,6 +274,10 @@ def test_train_logits_match_reference(ref, arch, dtype):
     assert tuple(got.shape) == want.shape and aux["state"] is None
     rel = _rel(want, got)
     assert rel <= TOL[dtype], rel
+    want_aux = float(ref[f"{arch}/{dtype}/train_aux"])
+    tol_aux = 1e-6 if dtype == "float32" else TOL[dtype] * want_aux
+    assert abs(float(aux["moe_aux"]) - want_aux) <= tol_aux, (aux, want_aux)
+    assert (want_aux > 0) == bool(cfg.n_experts)
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache",
@@ -373,12 +403,62 @@ def test_params_from_reference_dtypes_and_checks(ref):
                                if k != "embed"}, cfg, device="cpu")
 
 
-def test_unported_families_raise():
-    cfg = replace(smoke_config("deepseek_7b"), family="moe", n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_params_from_reference_moe_tree(ref, arch):
+    """An MoE tree carries across: the router stays float32 (its spec's
+    dtype) and equals the reference's exactly; the expert leaves are bf16
+    with the (layers, experts, …) axes kept."""
+    cfg, params = _port_model(ref, arch, "bfloat16")
+    tree = _ref_tree(ref, arch, "bfloat16")
+    mlp = params["layers"]["mlp"]
+    assert set(mlp) == {"ln", "router", "w_gate", "w_up", "w_down"}
+    assert mlp["router"].dtype == torch.float32
+    np.testing.assert_array_equal(mlp["router"].numpy(),
+                                  tree["layers"]["mlp"]["router"])
+    for name in ("w_gate", "w_up", "w_down"):
+        assert mlp[name].dtype == torch.bfloat16
+        assert mlp[name].shape[:2] == (cfg.n_layers, cfg.n_experts)
+        np.testing.assert_array_equal(mlp[name].float().numpy(),
+                                      tree["layers"]["mlp"][name])
+    bad = dict(tree, layers=dict(tree["layers"], mlp={
+        k: v for k, v in tree["layers"]["mlp"].items() if k != "router"}))
+    with pytest.raises(ValueError, match="keys"):
+        params_from_reference(bad, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"family": "ssm"}, {"family": "hybrid", "shared_attn_every": 2},
+    {"family": "vlm", "input_mode": "embeddings"}],
+    ids=["ssm", "hybrid", "embeddings"])
+def test_unported_families_raise(change):
+    cfg = replace(smoke_config("deepseek_7b"), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*2.2"):
         tmodel.model_specs(cfg)
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, RunConfig(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_train_logits(ref, arch):
+    """The port's own serve path: a prefill of S-1 tokens plus one decode
+    step gives the train logits at position S-1 within 1e-2, as the
+    reference's ``tests/test_models.py::test_decode_matches_train_logits``
+    holds the reference.  MoE runs at a drop-free capacity there (factor
+    64), since capacity is provisioned per token group and a prefill and
+    a decode step group their tokens differently."""
+    cfg, params = _port_model(ref, arch, "bfloat16")
+    if cfg.n_experts:
+        cfg = replace(cfg, capacity_factor=64.0)
+    S = 24
+    tokens = torch.from_numpy(_tokens(cfg, 1, (B, S)))
+    full, _ = tmodel.forward(params, cfg, tokens=tokens, mode="train")
+    _, aux = tmodel.forward(params, cfg, tokens=tokens[:, :S - 1],
+                            mode="prefill")
+    dec, _ = tmodel.forward(params, cfg, tokens=tokens[:, S - 1:],
+                            mode="decode", state=grow_cache(aux["state"], 1),
+                            cache_len=S - 1)
+    rel = _rel(full[:, -1].float().numpy(), dec[:, 0])
+    assert rel <= 1e-2, rel
 
 
 def test_entry_points_need_a_card_by_default():
@@ -391,6 +471,9 @@ def test_entry_points_need_a_card_by_default():
         tlay.init_from_specs(tmodel.model_specs(cfg), torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_reference({}, cfg)
+    from repro_torch.core import entropy
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entropy.get_engine()
 
 
 if __name__ == "__main__":

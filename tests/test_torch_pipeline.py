@@ -216,7 +216,8 @@ def test_import_hygiene():
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "need = {'repro_torch.serving.sharded', 'repro_torch.serving.loadgen',\n"
-        "        'repro_torch.obs.collect', 'repro_torch.obs.slo'}\n"
+        "        'repro_torch.obs.collect', 'repro_torch.obs.slo',\n"
+        "        'repro_torch.models.moe', 'repro_torch.core.entropy'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
