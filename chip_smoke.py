@@ -196,7 +196,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``generate`` is read alone: kernel 7 exactly ``2 + layers · steps``
    times (770 and 258), kernel 8 never.  Granite also runs the bf16 cache
    (greedy agreement ≥ 50 %), the cache read-back (kernel 8 launched, the
-   dequantized cache within ``scale/2`` plus float32 rounding), and
+   dequantized cache within ``scale/2`` plus float32 rounding; then
+   kernels 7 and 8 and the fused decode write held exactly against their
+   plain versions at its head_dim of 64, as in phase 7), and
    prefill/decode consistency at a drop-free capacity (``capacity_factor
    = n_experts / experts_per_token``, 4): phase 7's three gates, the
    float32 one with every token routed as the full prefill routed it (a
@@ -205,7 +207,39 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the float32 int8 cache at most 1e-2 above the bf16 cache.  Printed
    for both: init s, prefill s, decode ms a step, peak device bytes, and
    a ``torch.profiler`` breakdown of one decode step with the MoE
-   layer's routing, dispatch and expert operators named.
+   layer's routing, dispatch and expert operators named;
+9. recurrent-state serving, through the user entry points, with phase 7's
+   traffic: rwkv6-7b (32 layers, d_model 4096, 64 heads of 64, d_ff
+   14,336, vocab 65,536) and zamba2-2.7b (54 Mamba2 layers in 9 groups of
+   6, each group followed by the shared attention block, d_model 2560, 32
+   heads of 80, d_inner 5120, 80 SSM heads of 64, state 64), both at full
+   width and depth, initialised on the card from a seeded generator, the
+   leaves the recurrences read (``mu_*``, ``w0``, ``u_bonus``, ``a_log``,
+   ``dt_bias``, ``d_skip``) then redrawn non-zero from a numpy seed
+   (``make_card_reference.recurrence_leaf``), ``param_counts`` equal to
+   the reference's figures.  Each ``generate`` is read alone: rwkv6-7b
+   has no cache, so its int8 and bf16 settings launch neither kernel 7
+   nor 8 and give identical ids; zamba2's int8 ``generate`` launches
+   kernel 7 exactly ``2 + groups · steps`` = 290 times (its shared
+   attention's K and V stacks, then one fused decode write a group and
+   step) and kernel 8 never; its greedy agreement with the bf16
+   ``generate`` is printed, not gated (random weights give logits flat
+   enough for bf16 rounding alone to reorder); its cache read-back
+   launches kernel 8 within ``scale/2`` plus float32 rounding, and
+   kernels 7 and 8 and the fused decode write are then held exactly
+   against their plain versions at its head_dim of 80 (kernel 7's warp
+   route: 10 lanes a group is no tile), as in phase 7.  Prefill/decode
+   consistency:
+   rwkv6-7b ≤ 1e-2 in bf16 at full depth and, with the same weights in
+   float32 on its first 8 layers, ≤ 1e-4; zamba2 ≤ 2e-2 with a bf16
+   cache on its first two groups (12 layers, the reference test's depth
+   and tolerance for this arch), the int8 cache at most 1e-2 above the
+   bf16 cache's reading at full depth, and so in float32 too (its decode
+   reads the conv state rounded to bf16, as the reference keeps it).
+   Printed for both: init s, prefill s, decode ms a step, peak device
+   bytes, and a ``torch.profiler`` breakdown of one prefill and one
+   decode step with the blocks (``rwkv6_apply``, ``mamba2_apply``,
+   ``attention``, ``mlp_apply``) and the WKV / SSD operators named.
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -243,6 +277,23 @@ QDQ = ("group_quant", "group_dequant")
 MOE_CASES = (("granite_moe_1b_a400m", None, (1384963072, 478993408)),
              ("qwen3_moe_30b_a3b", 8, (5531797504, 1001949184)))
 MOE_SEED = 17
+# phase 9: (arch, the widths checked, (total, active) parameters by the
+# reference's param_counts); the fields read for each family
+RECURRENT_CASES = (("rwkv6_7b", (32, 4096, 64, 14336, 65536),
+                    (7534415872, 7534415872)),
+                   ("zamba2_2_7b", (54, 6, 2560, 32, 80, 2, 64, 64, 32000),
+                    (2422386848, 2422386848)))
+RECURRENT_FIELDS = {
+    "ssm": ("n_layers", "d_model", "rwkv_head", "d_ff", "vocab_size"),
+    "hybrid": ("n_layers", "shared_attn_every", "d_model", "n_heads",
+               "head_dim", "ssm_expand", "ssm_head", "ssm_state",
+               "vocab_size")}
+RECURRENT_SEED = 19
+RWKV_F32_LAYERS = 8              # the float32 witness's depth (of 32)
+# the WKV / SSD operators (the blocks are NamedBlocks' ranges)
+RECURRENT_ATEN_OPS = (
+    "aten::einsum", "aten::bmm", "aten::mm", "aten::cumsum", "aten::exp",
+    "aten::mul", "aten::_to_copy", "aten::cat")
 # the MoE layer's routing, dispatch and expert operators
 MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
                 "aten::searchsorted", "aten::index_copy_",
@@ -613,13 +664,15 @@ def read_turns(torch, ops, fn) -> dict:
 
 
 def device_profile(torch, fn, count: str | None = None,
-                   warm_up: bool = True, aten_ops: tuple = ()) -> dict:
+                   warm_up: bool = True, aten_ops: tuple = (),
+                   ranges: tuple = ()) -> dict:
     """One ``fn()`` under ``torch.profiler`` (after a warm-up, unless the
     caller has just run it): wall ms, summed kernel ms (its share of the
     wall is the device's busy share), the kernel launches and the kernels
     that take most of the time; with ``count``, also the launches of
     kernels whose name holds it; with ``aten_ops``, each named operator's
-    calls and the device ms of the kernels it launched."""
+    calls and the device ms of the kernels it launched; with ``ranges``,
+    the same for each ``record_function`` range of that name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -633,9 +686,11 @@ def device_profile(torch, fn, count: str | None = None,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only: an operator's own entry also carries the
-    # time of the kernels it launched
+    # time of the kernels it launched, and a named range's device-side
+    # entry spans the kernels inside it, so it is left out of the sums
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+          and e.key not in ranges]
     ev.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ev) / 1e3
     out = {"wall_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
@@ -644,12 +699,12 @@ def device_profile(torch, fn, count: str | None = None,
                    for e in ev[:8]]}
     if count is not None:
         out[f"{count}_launches"] = sum(e.count for e in ev if count in e.key)
-    if aten_ops:
-        by_op = {e.key: e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CPU and e.key in aten_ops}
-        out["aten_ops"] = {k: (by_op[k].count,
-                               by_op[k].device_time_total / 1e3)
-                           for k in aten_ops if k in by_op}
+    for key, names in (("aten_ops", aten_ops), ("ranges", ranges)):
+        if names:
+            by = {e.key: e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and e.key in names}
+            out[key] = {k: (by[k].count, by[k].device_time_total / 1e3)
+                        for k in names if k in by}
     return out
 
 
@@ -1740,7 +1795,8 @@ def lm_consistency(torch, cfg, params, prompts, run,
     _, state = run_pass(lambda: make_prefill_step(cfg, run)(
         params, {"tokens": prompts[:, :-1]}), S - 1, 0, False)
     dec, _ = run_pass(lambda: make_serve_step(cfg, run)(
-        params, grow_cache(state, 1), {"tokens": prompts[:, -1:]}, S - 1),
+        params, grow_cache(state, 1, cfg), {"tokens": prompts[:, -1:]},
+        S - 1),
         1, S - 1, False)
     full, dec = full.float(), dec.float()
     check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
@@ -1769,7 +1825,7 @@ def cache_readback(torch, cfg, params, prompts) -> tuple:
     ``prompts`` through ``quantize_prefill_cache`` and ``dequantize_kv``,
     the launch counts reset just before and read just after.  Returns
     ``(bf16 cache, every kernel's launches, worst |dequantized − bf16| /
-    scale)``; the
+    scale)``, the cache being a hybrid's ``kv`` half; the
     bound is ``1/2 + 2⁻¹⁵`` (half a step, plus the float32 rounding of
     x/scale and of q·scale)."""
     from repro_torch.configs import RunConfig
@@ -1777,22 +1833,99 @@ def cache_readback(torch, cfg, params, prompts) -> tuple:
     from repro_torch.serving import (dequantize_kv, make_prefill_step,
                                      quantize_prefill_cache)
 
-    _, cache_b = make_prefill_step(cfg, RunConfig(kv_quant=False))(
+    _, state_b = make_prefill_step(cfg, RunConfig(kv_quant=False))(
         params, {"tokens": prompts})
     ops.reset_launches()
-    cache_q = quantize_prefill_cache(cfg, cache_b)
+    state_q = quantize_prefill_cache(cfg, state_b)
+    hybrid = cfg.family == "hybrid"
+    cache_b = state_b["kv"] if hybrid else state_b
+    cache_q = state_q["kv"] if hybrid else state_q
     deq = {name: dequantize_kv(cache_q[name], cache_q[name + "_scale"],
                                torch.float32) for name in ("k", "v")}
     torch.cuda.synchronize()
     launches = dict(ops.launches)
+    del state_b, state_q
     worst = 0.0
     for name in ("k", "v"):
-        for li in range(cfg.n_layers):
+        for li in range(cache_b[name].shape[0]):
             err = (deq[name][li] - cache_b[name][li].float()).abs()
             scale = cache_q[name + "_scale"][li][..., None]
             worst = max(worst, float((err / scale).max()))
         del err
     return cache_b, launches, worst
+
+
+def composed_write(torch, ops, build, kv_step: dict, cache: dict, pos: int,
+                   warp: bool) -> None:
+    """The decode write of earlier builds: kernel 7 on K, kernel 7 on V (on
+    the route it picks, or with ``warp`` on its warp route), then four
+    copies into ``cache`` at position ``pos``."""
+    hd = kv_step["k"].shape[-1]
+    for name, t in kv_step.items():
+        if warp:
+            q, s, _ = k7_warp_route(torch, ops, build, t.reshape(-1, hd), hd)
+        else:
+            q, s = ops.group_quant(t.reshape(-1, hd), hd)
+        cache[name][:, pos:pos + 1] = q.reshape(t.shape)
+        cache[name + "_scale"][:, pos:pos + 1] = s.reshape(t.shape[:-1])
+
+
+def qdq_exact(torch, cfg, cache_b: dict, label: str) -> tuple:
+    """Kernels 7 and 8 against their plain versions, bit for bit, at a
+    serving path's shapes, the group being ``cfg.head_dim``: kernel 7 (on
+    the route it picks for that group, and on its warp route) and kernel 8
+    on the prefill's K stack ``cache_b["k"]`` and on its first layer's K
+    at one position, a decode step's shape; then the fused decode write of
+    that step's K and V (one kernel-7 launch) into a full-capacity int8
+    layer at position ``LM_PROMPT``, against the composed routes and the
+    plain version.  Returns ``(x, kv_step, layer)``: the K stack as
+    ``(rows, hd)``, the decode step's ``{"k", "v"}`` and the layer that
+    the fused write wrote."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models.attention import init_kv_cache
+
+    hd = cfg.head_dim
+    x = cache_b["k"].reshape(-1, hd)
+    # a decode step's K and V of one layer, (B, 1, H, hd), and one layer's
+    # int8 cache at full capacity, written at the first decode position
+    kv_step = {n: cache_b[n][0][:, -1:].contiguous() for n in ("k", "v")}
+    step_k = kv_step["k"].reshape(-1, hd)
+    for where, xs in (("prefill cache", x), ("decode step", step_k)):
+        q, s = ops.group_quant(xs, hd)
+        q_p, s_p = ref.group_quant(xs, hd)
+        check(torch.equal(q, q_p) and torch.equal(s, s_p),
+              f"{label}: K7 != plain at the {where} shape")
+        q_w, s_w, _ = k7_warp_route(torch, ops, build, xs, hd)
+        check(torch.equal(q_w, q_p) and torch.equal(s_w, s_p),
+              f"{label}: K7's warp route != plain at the {where} shape")
+        d = ops.group_dequant(q, s, hd)
+        check(torch.equal(d, ref.group_dequant(q, s, hd)),
+              f"{label}: K8 != plain at the {where} shape")
+        del q_p, s_p, q_w, s_w, d
+        print(f"{label}: K7/K8 == plain at the {where} shape "
+              f"{tuple(xs.shape)}")
+    capacity = LM_PROMPT + LM_NEW
+    B = kv_step["k"].shape[0]
+    layer = init_kv_cache(cfg, B, capacity, device=x.device, quantized=True)
+    layer_c = {n: t.clone() for n, t in layer.items()}
+    layer_w = {n: t.clone() for n, t in layer.items()}
+    before = ops.launches["group_quant"]
+    ops.quantize_kv_into(kv_step["k"], kv_step["v"], layer, LM_PROMPT)
+    check(ops.launches["group_quant"] == before + 1,
+          f"{label}: the fused decode write is not one launch")
+    composed_write(torch, ops, build, kv_step, layer_c, LM_PROMPT, False)
+    composed_write(torch, ops, build, kv_step, layer_w, LM_PROMPT, True)
+    for name in layer:
+        check(torch.equal(layer[name], layer_c[name])
+              and torch.equal(layer[name], layer_w[name]),
+              f"{label}: fused decode write != composed route ({name})")
+    ref_layer = {n: torch.zeros_like(t) for n, t in layer.items()}
+    ref.quantize_kv_into(kv_step["k"], kv_step["v"], ref_layer, LM_PROMPT)
+    check(all(torch.equal(layer[n], ref_layer[n]) for n in layer),
+          f"{label}: fused decode write != plain")
+    print(f"{label}: K7 fused decode write == composed route == plain at "
+          f"{tuple(kv_step['k'].shape)} into a {capacity}-position layer")
+    return x, kv_step, layer
 
 
 def step_times(torch, eng, params, prompts, st: dict, tag: str) -> None:
@@ -1825,7 +1958,6 @@ def lm_serving(torch, smi: str) -> list[dict]:
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models import layers, model
-    from repro_torch.models.attention import init_kv_cache
     from repro_torch.serving import ServingEngine
 
     dev = torch.device("cuda")
@@ -1928,60 +2060,11 @@ def lm_serving(torch, smi: str) -> list[dict]:
     # ---- kernels 7 and 8 against their plain versions at the path's shapes
     rows = []
     hd = cfg.head_dim
-    x = cache_b["k"].reshape(-1, hd)
-    # a decode step's K and V of one layer, (B, 1, H, hd), and one layer's
-    # int8 cache at full capacity, written at the first decode position
-    kv_step = {n: cache_b[n][0][:, -1:].contiguous() for n in ("k", "v")}
+    x, kv_step, layer = qdq_exact(torch, cfg, cache_b, LM_ARCH)
     step_k = kv_step["k"].reshape(-1, hd)
-    for label, xs in (("prefill cache", x), ("decode step", step_k)):
-        q, s = ops.group_quant(xs, hd)
-        q_p, s_p = ref.group_quant(xs, hd)
-        check(torch.equal(q, q_p) and torch.equal(s, s_p),
-              f"K7 != plain at the {label} shape")
-        q_w, s_w, _ = k7_warp_route(torch, ops, build, xs, hd)
-        check(torch.equal(q_w, q_p) and torch.equal(s_w, s_p),
-              f"K7's warp route != plain at the {label} shape")
-        d = ops.group_dequant(q, s, hd)
-        check(torch.equal(d, ref.group_dequant(q, s, hd)),
-              f"K8 != plain at the {label} shape")
-        del q_p, s_p, q_w, s_w, d
-        print(f"K7/K8 == plain at the {label} shape {tuple(xs.shape)}")
-    capacity = LM_PROMPT + LM_NEW
-    layer = init_kv_cache(cfg, LM_BATCH, capacity, device=dev, quantized=True)
-    layer_c = {n: t.clone() for n, t in layer.items()}
-    layer_w = {n: t.clone() for n, t in layer.items()}
 
     def fused():
         ops.quantize_kv_into(kv_step["k"], kv_step["v"], layer, LM_PROMPT)
-
-    def composed(cache, warp: bool):
-        # the decode write of earlier builds: K7 on K, K7 on V, four copies
-        for name, t in kv_step.items():
-            if warp:
-                q, s, _ = k7_warp_route(torch, ops, build, t.reshape(-1, hd),
-                                        hd)
-            else:
-                q, s = ops.group_quant(t.reshape(-1, hd), hd)
-            cache[name][:, LM_PROMPT:LM_PROMPT + 1] = q.reshape(t.shape)
-            cache[name + "_scale"][:, LM_PROMPT:LM_PROMPT + 1] = s.reshape(
-                t.shape[:-1])
-    before = ops.launches["group_quant"]
-    fused()
-    check(ops.launches["group_quant"] == before + 1,
-          "the fused decode write is not one launch")
-    composed(layer_c, False)
-    composed(layer_w, True)
-    for name in layer:
-        check(torch.equal(layer[name], layer_c[name])
-              and torch.equal(layer[name], layer_w[name]),
-              f"fused decode write != composed route ({name})")
-    ref_layer = {n: torch.zeros_like(t) for n, t in layer.items()}
-    ref.quantize_kv_into(kv_step["k"], kv_step["v"], ref_layer, LM_PROMPT)
-    check(all(torch.equal(layer[n], ref_layer[n]) for n in layer),
-          "fused decode write != plain")
-    print("K7 fused decode write == composed route == plain at "
-          f"{tuple(kv_step['k'].shape)} into a {capacity}-position layer")
-    del layer_c, layer_w, ref_layer
 
     n, rows_n = x.numel(), x.shape[0]
     # the prefill stack, in turns: tile route, warp route (the K7 of
@@ -1999,14 +2082,16 @@ def lm_serving(torch, smi: str) -> list[dict]:
     for key in ("fused", "composed", "composed_warp_route",
                 "composed_warp_route", "composed", "fused"):
         fn = fused if key == "fused" else (
-            lambda w=key == "composed_warp_route": composed(layer, w))
+            lambda w=key == "composed_warp_route": composed_write(
+                torch, ops, build, kv_step, layer, LM_PROMPT, w))
         step[key].append(graph_ms(fn, 100, torch))
     step_bound = bound(3 * step_n + 4 * step_n // hd, 4 * step_n)[0]
     # ... and the host's time per call (decode follows the host), 200
     # calls each, in turns
     step_host_us = {"fused": [], "composed": []}
     for key in ("fused", "composed", "composed", "fused"):
-        fn = fused if key == "fused" else (lambda: composed(layer, False))
+        fn = fused if key == "fused" else (lambda: composed_write(
+            torch, ops, build, kv_step, layer, LM_PROMPT, False))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
@@ -2170,13 +2255,16 @@ def moe_serving(torch, smi: str) -> dict:
         if depth is None:
             # ---- the cache's conversion and read-back: K8
             cache_b, got, worst = cache_readback(torch, cfg, params, prompts)
-            del cache_b
             out["launches"][f"{tag}_readback"] = got
             st["dequant_err_over_scale"] = worst
             expect(got["group_dequant"] > 0,
                    f"{arch}: dequantize_kv never launched K8")
             expect(worst <= 0.5 + 2.0 ** -15,
                    f"{arch}: dequant error {worst} · scale")
+            # ---- K7 and K8 against their plain versions at this arch's
+            # head_dim, after the counts were read
+            qdq_exact(torch, cfg, cache_b, arch)
+            del cache_b
             t0 = time.perf_counter()
             consistency = moe_consistency(torch, cfg, params, prompts)
             st.update(consistency, consistency_s=time.perf_counter() - t0)
@@ -2244,6 +2332,236 @@ def moe_consistency(torch, cfg, params, prompts) -> dict:
             torch, cfg32, params, prompts, run, pin=pin)
         st[f"float32_routing_flips_{tag}_cache"] = int(pin.flips)
     return st
+
+
+class NamedBlocks:
+    """While active, the stack's blocks run inside
+    ``torch.profiler.record_function`` ranges named after them
+    (``rwkv6_apply``: the time mix with the WKV6 recurrence and the
+    channel mix; ``mamba2_apply``: the Mamba2 block with the SSD;
+    ``attention``; ``mlp_apply``), so that a profile attributes device
+    time to them.  ``repro_torch.models.model``'s names are wrapped; the
+    wrappers return what the blocks return."""
+
+    NAMES = ("rwkv6_apply", "mamba2_apply", "attention", "mlp_apply")
+
+    def __init__(self, torch):
+        from repro_torch.models import model
+        self.torch, self.model = torch, model
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.model, n) for n in self.NAMES}
+        for name, fn in self.orig.items():
+            def named(*a, _fn=fn, _name=name, **kw):
+                with self.torch.profiler.record_function(_name):
+                    return _fn(*a, **kw)
+            setattr(self.model, name, named)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.model, name, fn)
+
+
+def seed_recurrence_leaves(torch, params: dict, seed: int) -> list[str]:
+    """Redraw, in place, the layer leaves that the RWKV6 or Mamba2
+    recurrence reads and ``init_from_specs`` leaves at zeros or ones
+    (``make_card_reference.recurrence_leaf``: ``mu_*``, ``w0``,
+    ``u_bonus``, ``a_log``, ``dt_bias``, ``d_skip``), from
+    ``default_rng(seed)`` in sorted name order.  Returns their names."""
+    import numpy as np
+
+    fixture = card_fixture()
+    rng = np.random.default_rng(seed)
+    names = []
+    for name in sorted(params["layers"]):
+        leaf = params["layers"][name]
+        a = fixture.recurrence_leaf(name, tuple(leaf.shape), rng)
+        if a is not None:
+            leaf.copy_(torch.from_numpy(a))
+            names.append(name)
+    return names
+
+
+def cut_layers(cfg, params: dict, n: int, dtype=None) -> tuple:
+    """``(cfg, params)`` of the model's first ``n`` layers (a hybrid: its
+    first ``n / shared_attn_every`` groups), optionally cast to
+    ``dtype``.  The leaves are views of ``params``' unless cast."""
+    lead = n // cfg.shared_attn_every if cfg.family == "hybrid" else n
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    out = {k: ({n_: cast(v[:lead]) for n_, v in w.items()} if k == "layers"
+               else {n_: cast(v) for n_, v in w.items()}
+               if isinstance(w, dict) else cast(w))
+           for k, w in params.items()}
+    cfg = replace(cfg, n_layers=n, **(
+        {} if dtype is None else {"dtype": str(dtype).split(".")[-1]}))
+    return cfg, out
+
+
+def recurrent_serving(torch, smi: str) -> dict:
+    """Phase 9: recurrent-state serving, through the user entry points.
+    Returns the printed readings with each run's launch counts."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, model
+    from repro_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    run_q, run_b = RunConfig(kv_quant=True), RunConfig(kv_quant=False)
+    out = {"card": smi, "launches": {}}
+    failed = []
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    for arch, shape, counts in RECURRENT_CASES:
+        cfg = get_config(arch)
+        tag = arch.split("_")[0]
+        got_shape = tuple(getattr(cfg, f) for f in RECURRENT_FIELDS[cfg.family])
+        check(got_shape == shape, f"{arch} is not full size: {got_shape}")
+        st = {"card": smi, "arch": arch, "family": cfg.family,
+              "shape": dict(zip(RECURRENT_FIELDS[cfg.family], shape)),
+              "param_counts": model.param_counts(cfg), "batch": LM_BATCH,
+              "prompt": LM_PROMPT, "new_tokens": LM_NEW}
+        check(st["param_counts"] == counts,
+              f"{arch}: param_counts {st['param_counts']} != {counts}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = layers.init_from_specs(
+            model.model_specs(cfg),
+            torch.Generator(device=dev).manual_seed(RECURRENT_SEED),
+            device=dev)
+        st["seeded_leaves"] = seed_recurrence_leaves(torch, params,
+                                                     RECURRENT_SEED)
+        torch.cuda.synchronize()
+        st["init_s"] = time.perf_counter() - t0
+        prompts = torch.randint(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+            generator=torch.Generator().manual_seed(RECURRENT_SEED)).to(dev)
+        engines = {"int8": ServingEngine(cfg, run_q, device=dev),
+                   "bf16": ServingEngine(cfg, run_b, device=dev)}
+
+        # ---- each generate read alone: rwkv has no cache (K7 = K8 = 0);
+        # zamba2's int8 cache takes K7 on the prefill's K and V stacks,
+        # then one fused write a group and decode step, never K8
+        ids = {}
+        for ctag, eng in engines.items():
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            ids[ctag] = eng.generate(params, prompts, new_tokens=LM_NEW)
+            torch.cuda.synchronize()
+            st[f"generate_{ctag}_s"] = time.perf_counter() - t0
+            st[f"peak_device_bytes_generate_{ctag}"] = \
+                torch.cuda.max_memory_allocated()
+            got = {k: ops.launches[k] for k in ops.launches}
+            out["launches"][f"{tag}_generate_{ctag}"] = got
+            want = (0 if cfg.family == "ssm" or ctag == "bf16" else
+                    2 + cfg.n_layers // cfg.shared_attn_every * LM_NEW)
+            expect(got["group_quant"] == want and got["group_dequant"] == 0,
+                   f"{arch}: the {ctag} generate launched K7 "
+                   f"{got['group_quant']} times (not {want}) and K8 "
+                   f"{got['group_dequant']}")
+            check(tuple(ids[ctag].shape) == (LM_BATCH, LM_NEW),
+                  f"{arch}: ids {tuple(ids[ctag].shape)}")
+            check(int(ids[ctag].min()) >= 0
+                  and int(ids[ctag].max()) < cfg.vocab_size,
+                  f"{arch}: generated ids out of range")
+        st["greedy_agreement"] = float(
+            (ids["int8"] == ids["bf16"]).float().mean())
+        if cfg.family == "ssm":
+            expect(torch.equal(ids["int8"], ids["bf16"]),
+                   f"{arch}: the int8 and bf16 settings differ without a "
+                   "cache")
+        # the hybrid's greedy agreement is printed, not gated: on random
+        # weights its logits are flat enough that bf16 rounding alone
+        # reorders them, so the cache is held by the consistency gates
+        # below and by K7/K8 equal to their plain versions at its shapes
+        for ctag, eng in engines.items():
+            if cfg.family != "ssm" or ctag == "int8":
+                step_times(torch, eng, params, prompts, st, ctag)
+
+        # ---- one prefill and one decode step under the profiler, the
+        # blocks named
+        eng = engines["int8"]
+        with NamedBlocks(torch):
+            st["prefill_profile"] = device_profile(
+                torch, lambda: eng.prefill(params, prompts, LM_PROMPT + 1),
+                aten_ops=RECURRENT_ATEN_OPS, ranges=NamedBlocks.NAMES)
+            logits, state = eng.prefill(params, prompts, LM_PROMPT + 1)
+            tok = torch.argmax(logits, dim=-1)
+            st["decode_step_profile"] = device_profile(
+                torch, lambda: eng.decode(params, state, tok, LM_PROMPT),
+                aten_ops=RECURRENT_ATEN_OPS, ranges=NamedBlocks.NAMES)
+        del logits, state
+
+        if cfg.family == "hybrid":
+            # ---- the cache's conversion and read-back: K8
+            cache_b, got, worst = cache_readback(torch, cfg, params, prompts)
+            out["launches"][f"{tag}_readback"] = got
+            st["dequant_err_over_scale"] = worst
+            expect(got["group_dequant"] > 0,
+                   f"{arch}: dequantize_kv never launched K8")
+            expect(worst <= 0.5 + 2.0 ** -15,
+                   f"{arch}: dequant error {worst} · scale")
+            # ---- K7 and K8 against their plain versions at the shared
+            # attention's head_dim, after the counts were read
+            qdq_exact(torch, cfg, cache_b, arch)
+            del cache_b
+
+        # ---- prefill/decode consistency (a 1,024-token prefill against a
+        # 1,023-token prefill plus one decode step)
+        t0 = time.perf_counter()
+        if cfg.family == "ssm":
+            rel = lm_consistency(torch, cfg, params, prompts, run_b)
+            st[f"consistency_rel_{cfg.n_layers}_layers"] = rel
+            expect(rel <= 1e-2, f"{arch}: bf16 consistency {rel} > 1e-2")
+            c32, p32 = cut_layers(cfg, params, RWKV_F32_LAYERS,
+                                  torch.float32)
+            rel = lm_consistency(torch, c32, p32, prompts, run_b)
+            del p32
+            st[f"float32_consistency_rel_{RWKV_F32_LAYERS}_layers"] = rel
+            expect(rel <= 1e-4, f"{arch}: float32 consistency at "
+                                f"{RWKV_F32_LAYERS} layers {rel} > 1e-4")
+        else:
+            depth = 2 * cfg.shared_attn_every
+            c2, p2 = cut_layers(cfg, params, depth)
+            rel = lm_consistency(torch, c2, p2, prompts, run_b)
+            st[f"consistency_rel_bf16_{depth}_layers"] = rel
+            expect(rel <= 2e-2, f"{arch}: bf16 consistency at {depth} "
+                                f"layers {rel} > 2e-2")
+            for ctag, run in (("int8", run_q), ("bf16", run_b)):
+                st[f"consistency_rel_{ctag}_{cfg.n_layers}_layers"] = \
+                    lm_consistency(torch, cfg, params, prompts, run)
+            rel_q = st[f"consistency_rel_int8_{cfg.n_layers}_layers"]
+            rel_b = st[f"consistency_rel_bf16_{cfg.n_layers}_layers"]
+            expect(rel_q <= rel_b + 1e-2, f"{arch}: int8 consistency {rel_q} "
+                                          f"> bf16's {rel_b} + 1e-2")
+            # the same weights in float32: the decode step still reads its
+            # conv state rounded to bf16 (the reference keeps it bf16 in
+            # every dtype; ROADMAP.md, queue 3), so the int8 cache is held
+            # to the bf16 cache's reading, not to a bound of its own
+            c32, p32 = cut_layers(cfg, params, cfg.n_layers, torch.float32)
+            del params
+            torch.cuda.empty_cache()
+            params = p32
+            for ctag, run in (("int8", run_q), ("bf16", run_b)):
+                st[f"float32_consistency_rel_{ctag}_cache"] = lm_consistency(
+                    torch, c32, params, prompts, run)
+            st["float32_consistency_cause"] = (
+                "the Mamba2 conv state is bf16 in every dtype")
+            rel_q = st["float32_consistency_rel_int8_cache"]
+            rel_b = st["float32_consistency_rel_bf16_cache"]
+            expect(rel_q <= rel_b + 1e-2, f"{arch}: float32 int8 consistency "
+                                          f"{rel_q} > bf16's {rel_b} + 1e-2")
+        st["consistency_s"] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        print(f"recurrent serving, {arch}: " + json.dumps(st))
+        out[tag] = st
+    check(not failed, "; ".join(failed))
+    return out
 
 
 def main() -> int:
@@ -2838,6 +3156,12 @@ def main() -> int:
     print(f"MoE serving: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(moe["launches"]))
 
+    # ------------------------------------------ 9. recurrent-state serving
+    t0 = time.perf_counter()
+    rec = recurrent_serving(torch, smi)
+    print(f"recurrent serving: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(rec["launches"]))
+
     # launches on the region-serving phase (2b) and the multi-part phase
     # (2c) beside each row's own path
     for r in rows:
@@ -2860,6 +3184,9 @@ def main() -> int:
         # phase 8: each int8 generate and granite's cache read-back
         r["moe_launches"] = {run: counts[r["name"]]
                              for run, counts in moe["launches"].items()}
+        # phase 9: each generate and zamba2's cache read-back
+        r["recurrent_launches"] = {
+            run: counts[r["name"]] for run, counts in rec["launches"].items()}
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

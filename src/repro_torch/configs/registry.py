@@ -1,10 +1,10 @@
 """Architecture registry: ``get_config(id)`` → :class:`ModelConfig`.
 
 The port knows the configs whose family it runs: the decoders that take
-token ids, dense or mixture-of-experts.  The reference's other
-architectures (RWKV, Mamba2 hybrid, and the vlm/audio decoders fed by a
-stubbed frontend) raise ``NotImplementedError`` until their modules are
-ported (ROADMAP.md, queue 1, items 2.2–2.4).
+token ids — dense, mixture-of-experts, RWKV6 (ssm) and the Mamba2 /
+shared-attention hybrid.  The reference's vlm/audio decoders, fed by a
+stubbed frontend, raise ``NotImplementedError`` until their frontends are
+ported (ROADMAP.md, queue 1, item 2.4).
 """
 from __future__ import annotations
 
@@ -29,9 +29,10 @@ ARCH_IDS = [
     "zamba2_2_7b",
 ]
 
-#: The architectures the port runs (token input; dense or MoE).
+#: The architectures the port runs (token input; dense, MoE, ssm, hybrid).
 PORTED_IDS = ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "deepseek_7b",
-              "llama3_405b", "starcoder2_3b", "qwen1_5_32b"]
+              "llama3_405b", "starcoder2_3b", "qwen1_5_32b", "rwkv6_7b",
+              "zamba2_2_7b"]
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -47,7 +48,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in PORTED_IDS:
         raise NotImplementedError(
             f"{arch}: its family is not ported yet (ROADMAP.md, queue 1, "
-            f"items 2.2–2.4); the port runs {PORTED_IDS}")
+            f"item 2.4); the port runs {PORTED_IDS}")
     return import_module(f"{__package__}.{arch}").CONFIG
 
 

@@ -55,21 +55,24 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.torch_dtype, device=device)
     # the reference's rule for one layer's leaf: fan-in is a matrix's
-    # leading dim.  A stacked (layers, …) leaf is initialised one layer
-    # at a time, so its fan-in is the layer's input width, and an expert
-    # leaf (experts, in, out) takes one expert matrix's input width; the
-    # reference applies the rule to the stacked shape, which makes it
-    # n_layers (ROADMAP.md, queue 3).
-    stacked = spec.axes[:1] == ("layers",)
-    shape, axes = ((spec.shape[1:], spec.axes[1:]) if stacked
-                   else (spec.shape, spec.axes))
+    # leading dim.  A stacked leaf — (layers, …), or a hybrid's (groups,
+    # layers, …) — is initialised one layer at a time, so its fan-in is
+    # the layer's input width, and an expert leaf (experts, in, out)
+    # takes one expert matrix's input width; the reference applies the
+    # rule to the stacked shape, which makes it n_layers or the group
+    # count (ROADMAP.md, queue 3).
+    n_stack = 0
+    while spec.axes[n_stack:n_stack + 1] == ("layers",):
+        n_stack += 1
+    shape, axes = spec.shape[n_stack:], spec.axes[n_stack:]
     if axes[:1] == ("experts",) and len(shape) > 2:
         shape = shape[1:]
     fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
     std = spec.scale / math.sqrt(fan_in)
     out = torch.empty(spec.shape, dtype=spec.torch_dtype, device=device)
     # one float32 draw per layer keeps the float32 scratch small
-    for dst in (out.unbind(0) if stacked else (out,)):
+    for dst in (out.flatten(0, n_stack - 1).unbind(0) if n_stack
+                else (out,)):
         w = torch.randn(dst.shape, generator=generator, dtype=torch.float32,
                         device=device)
         dst.copy_(w.mul_(std))

@@ -54,18 +54,26 @@ def make_serve_step(cfg: ModelConfig, run: RunConfig, *,
     return serve
 
 
-def grow_cache(state: dict, extra: int) -> dict:
-    """The cache stack with its seq axis (index 2 of every leaf: k/v
-    ``(L, B, S, H, hd)``, scales ``(L, B, S, H)``) padded by ``extra``
-    zero entries."""
-    if extra <= 0:
-        return state
+def _grow_kv(kv: dict, extra: int) -> dict:
     out = {}
-    for name, a in state.items():
+    for name, a in kv.items():
         g = a.new_zeros(a.shape[:2] + (a.shape[2] + extra,) + a.shape[3:])
         g[:, :, :a.shape[2]] = a
         out[name] = g
     return out
+
+
+def grow_cache(state: dict, extra: int, cfg: ModelConfig) -> dict:
+    """The serve-time state with its KV cache's seq axis (index 2 of every
+    cache leaf: k/v ``(L, B, S, H, hd)``, scales ``(L, B, S, H)``) padded
+    by ``extra`` zero entries.  An ssm state has no cache and comes back
+    as it is; a hybrid's ``kv`` half grows and its ``mamba`` half is kept.
+    """
+    if extra <= 0 or cfg.family == "ssm":
+        return state
+    if cfg.family == "hybrid":
+        return {"mamba": state["mamba"], "kv": _grow_kv(state["kv"], extra)}
+    return _grow_kv(state, extra)
 
 
 @dataclass
@@ -89,7 +97,8 @@ class ServingEngine:
         to ``capacity`` positions."""
         tokens = torch.as_tensor(prompts, device=self.device).long()
         logits, state = self._prefill(params, {"tokens": tokens})
-        return logits, grow_cache(state, capacity - tokens.shape[1])
+        return logits, grow_cache(state, capacity - tokens.shape[1],
+                                  self.cfg)
 
     def decode(self, params: dict, state: dict, tok: torch.Tensor,
                cache_len: int) -> tuple[torch.Tensor, dict]:

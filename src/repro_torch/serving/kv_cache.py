@@ -18,10 +18,20 @@ from ..models.model import check_ported
 __all__ = ["quantize_kv", "dequantize_kv", "quantize_prefill_cache"]
 
 
+def _quantize_stack(kv: dict) -> dict:
+    kq, ks = quantize_kv(kv["k"])
+    vq, vs = quantize_kv(kv["v"])
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
 def quantize_prefill_cache(cfg, state: dict) -> dict:
     """Convert a prefill-produced bf16 cache stack to the int8 layout:
-    one kernel-7 launch for the K stack and one for the V stack."""
+    one kernel-7 launch for the K stack and one for the V stack.  An ssm
+    state has no cache and comes back as it is; of a hybrid's state only
+    the ``kv`` half is converted."""
     check_ported(cfg)
-    kq, ks = quantize_kv(state["k"])
-    vq, vs = quantize_kv(state["v"])
-    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    if cfg.family == "ssm":
+        return state
+    if cfg.family == "hybrid":
+        return {"mamba": state["mamba"], "kv": _quantize_stack(state["kv"])}
+    return _quantize_stack(state)

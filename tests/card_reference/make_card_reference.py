@@ -29,6 +29,15 @@ The reference's numpy host path (``repro``) writes
   the parameters regenerate from the seed in either package.  The
   reference runs with ``--xla_allow_excess_precision=false``, so that
   its bf16 model rounds where its code says so;
+* the recurrent case (:func:`write_recurrent_reference`) into
+  ``recurrent.npz``: at the smoke widths of rwkv6-7b and zamba2-2.7b,
+  ``rwkv6_apply``'s and ``mamba2_apply``'s outputs in float32 and bf16 in
+  train (from zeros), prefill and decode (from a seeded carried state),
+  and each smoke model's train logits and a prefill plus one decode
+  step (zamba2's cut to its first group), on trees made from a numpy
+  seed whose leaves that the
+  recurrences read are drawn non-zero (:func:`recurrent_tree`,
+  :func:`recurrent_inputs`);
 * the variant set ``write_variant_set`` tunes and writes for the
   reference tuning tests' dataset (:data:`TUNED_DATASET`, 32³, two
   levels) and targets (:data:`TUNED_TARGETS`), default ladder, into
@@ -48,7 +57,8 @@ the same recon, on the CPU and on the card
 Only :func:`main` and the ``write_*`` functions import the reference:
 the card's tests and ``chip_smoke.py`` import this module for
 :func:`level`, :data:`TACPLUS`, the MoE case's seeds and the paths.
-``--moe PATH`` writes only the MoE case, to ``PATH``.
+``--moe PATH`` writes only the MoE case, to ``PATH``; ``--recurrent
+PATH`` only the recurrent case.
 """
 import contextlib
 import hashlib
@@ -84,6 +94,58 @@ MOE_X_SHAPE = (2, 24)           # (batch, seq) of the moe_apply input
 MOE_GROUP = 16
 MOE_TOKENS_SHAPE = (2, 8)       # the smoke model's train tokens
 MOE_DTYPES = ("float32", "bfloat16")
+#: the recurrent case: rwkv6-7b's and zamba2-2.7b's smoke configs, one
+#: seed for the parameter trees (:func:`recurrent_tree`), one for the
+#: inputs; the blocks at chunk 8 on 40 positions, the smoke models
+#: (zamba2's cut to its first group: :func:`recurrent_model_cfg`) on 12
+#: tokens (train; a prefill of 11 and one decode step).  Stored: the
+#: blocks' outputs at the last ``RECURRENT_KEEP`` positions (they follow
+#: from every chunk through the carried state) and the decode step's, the
+#: models' train logits at their last ``RECURRENT_KEEP // 2`` positions,
+#: the prefill's and the decode step's logits
+RECURRENT_FIXTURE = os.path.join(HERE, "recurrent.npz")
+RECURRENT_ARCHS = ("rwkv6_7b", "zamba2_2_7b")
+RECURRENT_SEED = 2323
+RECURRENT_DTYPES = ("float32", "bfloat16")
+RECURRENT_X_SHAPE = (2, 40)     # (batch, seq) of the block inputs
+RECURRENT_CHUNK = 8
+RECURRENT_TOKENS_SHAPE = (2, 12)
+RECURRENT_KEEP = 8
+
+#: Relative max-error tolerances of the port's language-model tests, in
+#: one table for tests/test_torch_lm_serving.py,
+#: tests/test_torch_recurrent.py and tests/test_torch_card_reference.py:
+#: ``TOL[kind][dtype]``, replaced for an arch by ``ARCH_TOL[(kind,
+#: arch)]`` (read both through :func:`tol`).  Kinds: ``"block"``, a
+#: recurrent block's outputs and states against the reference's;
+#: ``"logits"``, a smoke model's train and prefill logits against the
+#: reference's; ``"steps"``, its decode steps after a prefill;
+#: ``"decode_vs_train"``, the port's prefill plus one decode step against
+#: its own train logits.  float32 allows only a different summation
+#: order; bf16 allows roundings one step apart, the tolerance of the
+#: reference's own decode-vs-train test (tests/test_models.py).
+TOL = {"block": {"float32": 1e-5, "bfloat16": 1e-2},
+       "logits": {"float32": 1e-4, "bfloat16": 1e-2},
+       "steps": {"float32": 1e-4, "bfloat16": 1e-2},
+       "decode_vs_train": {"float32": 1e-4, "bfloat16": 1e-2}}
+#: zamba2-2.7b at its full smoke depth (six groups of two Mamba2 layers
+#: and the shared attention) amplifies a rounding difference about
+#: twofold a group, in the reference as in the port: cut to one group it
+#: keeps ``TOL``, and its reference's own bf16 logits move by 0.20–0.66
+#: between XLA's two legal precision modes.  Its decode steps read the
+#: conv state rounded to bf16 (the reference keeps it bf16 in every
+#: dtype), where a float32 difference can flip a rounding; and the
+#: reference's own decode-vs-train test holds it at 2e-2 in bf16
+ARCH_TOL = {("logits", "zamba2_2_7b"): {"float32": 1e-4, "bfloat16": 1e-1},
+            ("steps", "zamba2_2_7b"): {"float32": 1e-2, "bfloat16": 1e-1},
+            ("decode_vs_train", "zamba2_2_7b"): {"float32": 5e-2,
+                                                 "bfloat16": 2e-2}}
+
+
+def tol(kind: str, dtype: str, arch: str | None = None) -> float:
+    """The tolerance of ``kind`` in ``dtype`` for ``arch`` (see
+    :data:`TOL`)."""
+    return ARCH_TOL.get((kind, arch), TOL[kind])[dtype]
 SHAPE = (64, 64, 64)
 BLOCK = 8          # occupancy is decided per 8³ block
 DENSITY = 0.9      # above the TAC path's GSP threshold
@@ -160,6 +222,171 @@ def seeded_tree(leaves: dict, seed: int) -> dict:
             node = node.setdefault(part, {})
         node[leaf] = a
     return tree
+
+
+def recurrence_leaf(name: str, shape: tuple, rng) -> np.ndarray | None:
+    """A seeded float32 value for a leaf that the RWKV6 or Mamba2
+    recurrence reads and the reference initialises to zeros or ones
+    (``None`` for any other leaf): the token-shift mixes ``mu_*`` in
+    U(0, 1); the decay base ``w0`` in U(-6, 1), so that the clipped
+    decay spans slow to fast channels; the bonus ``u_bonus`` N(0, 0.5²);
+    Mamba2's ``a_log`` = log U(1, 16) (a decay rate per head);
+    ``dt_bias`` the inverse softplus of U(1e-3, 0.1) (Mamba2's step
+    range); ``d_skip`` U(0.5, 1.5)."""
+    if name.startswith("mu_"):
+        a = rng.uniform(0.0, 1.0, shape)
+    elif name == "w0":
+        a = rng.uniform(-6.0, 1.0, shape)
+    elif name == "u_bonus":
+        a = rng.normal(0.0, 0.5, shape)
+    elif name == "a_log":
+        a = np.log(rng.uniform(1.0, 16.0, shape))
+    elif name == "dt_bias":
+        a = np.log(np.expm1(rng.uniform(1e-3, 0.1, shape)))
+    elif name == "d_skip":
+        a = rng.uniform(0.5, 1.5, shape)
+    else:
+        return None
+    return a.astype(np.float32)
+
+
+def with_recurrence_leaves(tree: dict, seed: int) -> dict:
+    """``tree`` (nested dicts of float32 numpy leaves) with every leaf
+    named by :func:`recurrence_leaf` redrawn, in sorted path order, from
+    ``default_rng(seed)``; the other leaves are kept.  A new tree."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node: dict) -> dict:
+        out = {}
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                a = recurrence_leaf(k, np.shape(v), rng)
+                out[k] = v if a is None else a
+        return out
+    return walk(tree)
+
+
+def recurrent_tree(leaves: dict, seed: int) -> dict:
+    """:func:`seeded_tree` with the recurrence's leaves redrawn
+    (:func:`with_recurrence_leaves`, from ``seed + 1``)."""
+    return with_recurrence_leaves(seeded_tree(leaves, seed), seed + 1)
+
+
+def recurrent_inputs(cfg) -> tuple[np.ndarray, dict, np.ndarray]:
+    """The recurrent case's inputs for ``cfg``'s family, from
+    ``RECURRENT_SEED + 2``: the float32 block input ``(2, 40, d_model)``,
+    a carried state of one block (float32 leaves; RWKV: ``wkv``,
+    ``shift_t``, ``shift_c``; Mamba2: ``ssm`` and ``conv``, the conv
+    values bf16-representable as the reference stores them) and the
+    smoke model's tokens ``(2, 12)``."""
+    rng = np.random.default_rng(RECURRENT_SEED + 2)
+    B, S = RECURRENT_X_SHAPE
+    d = cfg.d_model
+    x = (0.5 * rng.standard_normal((B, S, d))).astype(np.float32)
+    if cfg.family == "ssm":
+        nh, hd = d // cfg.rwkv_head, cfg.rwkv_head
+        state = {"wkv": 0.3 * rng.standard_normal((B, nh, hd, hd)),
+                 "shift_t": rng.standard_normal((B, d)),
+                 "shift_c": rng.standard_normal((B, d))}
+    else:
+        din = cfg.ssm_expand * d
+        nh = din // cfg.ssm_head
+        conv = rng.standard_normal((B, 3, din + 2 * cfg.ssm_state))
+        # round to bf16 (to nearest even) through the float32 bits
+        bits = conv.astype(np.float32).view(np.uint32)
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        state = {"ssm": 0.3 * rng.standard_normal(
+                     (B, nh, cfg.ssm_head, cfg.ssm_state)),
+                 "conv": bits.astype(np.uint32).view(np.float32)}
+    state = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    tokens = rng.integers(0, cfg.vocab_size, RECURRENT_TOKENS_SHAPE)
+    return x, state, tokens
+
+
+def recurrent_model_cfg(cfg):
+    """The recurrent case's smoke model for ``cfg``: a hybrid cut to its
+    first group (its Mamba2 layers, the shared attention and the shared
+    MLP), so that it is held at ``TOL["logits"]`` (see :data:`ARCH_TOL`);
+    an ssm model whole."""
+    from dataclasses import replace
+
+    if cfg.family == "hybrid":
+        return replace(cfg, n_layers=cfg.shared_attn_every)
+    return cfg
+
+
+def recurrent_block(cfg) -> str:
+    """``"rwkv"`` or ``"mamba"``: the block of ``cfg``'s family."""
+    return "rwkv" if cfg.family == "ssm" else "mamba"
+
+
+def write_recurrent_reference(path: str) -> dict:
+    """Run the recurrent case on the reference and save its outputs
+    (float32 arrays) to ``path``; returns them.  Set ``XLA_FLAGS`` before
+    JAX starts (see :func:`main`)."""
+    from dataclasses import replace
+
+    import jax.numpy as jnp
+
+    from repro.configs import RunConfig, smoke_config
+    from repro.models import model as rmodel
+    from repro.models import rwkv as rrwkv
+    from repro.models import ssm as rssm
+    from repro.serving import engine as rengine
+
+    def cast(tree, specs):
+        return {k: cast(v, specs[k]) if isinstance(v, dict)
+                else jnp.asarray(v).astype(specs[k].dtype)
+                for k, v in tree.items()}
+
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    keep = RECURRENT_KEEP
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        for dtype in RECURRENT_DTYPES:
+            cfg = replace(smoke_config(arch), dtype=dtype)
+            block = recurrent_block(cfg)
+            x, state, tokens = recurrent_inputs(cfg)
+            apply, specs = ((rrwkv.rwkv6_apply, rrwkv.rwkv6_specs(cfg))
+                            if block == "rwkv" else
+                            (rssm.mamba2_apply, rssm.mamba2_specs(cfg)))
+            params = cast(recurrent_tree(spec_leaves(specs),
+                                         RECURRENT_SEED), specs)
+            st = {k: jnp.asarray(v).astype(
+                jnp.bfloat16 if k == "conv" else jnp.float32)
+                for k, v in state.items()}
+            xj = jnp.asarray(x).astype(dtype)
+            tag = f"{block}/{dtype}"
+            y, _ = apply(params, xj, cfg, mode="train",
+                         chunk=RECURRENT_CHUNK)
+            out[f"{tag}/train"] = f32(y[:, -keep:])
+            y, _ = apply(params, xj, cfg, mode="prefill", state=st,
+                         chunk=RECURRENT_CHUNK)
+            out[f"{tag}/prefill"] = f32(y[:, -keep:])
+            y, _ = apply(params, xj[:, :1], cfg, mode="decode", state=st)
+            out[f"{tag}/decode"] = f32(y)
+            cfg = recurrent_model_cfg(cfg)
+            specs = rmodel.model_specs(cfg)
+            params = cast(recurrent_tree(spec_leaves(specs),
+                                         RECURRENT_SEED), specs)
+            tag = f"model/{arch}/{dtype}"
+            tk = jnp.asarray(tokens)
+            logits, _ = rmodel.forward(params, cfg, tokens=tk, mode="train")
+            out[f"{tag}/train"] = f32(logits[:, -keep // 2:])
+            run = RunConfig(kv_quant=False)
+            lg, state1 = rengine.make_prefill_step(cfg, run)(
+                params, {"tokens": tk[:, :-1]})
+            out[f"{tag}/prefill"] = f32(lg)
+            state1 = rengine.ServingEngine(cfg, run)._grow_cache(state1, 1)
+            lg, _ = rengine.make_serve_step(cfg, run)(
+                params, state1, {"tokens": tk[:, -1:]},
+                jnp.int32(tokens.shape[1] - 1))
+            out[f"{tag}/decode"] = f32(lg)
+    np.savez_compressed(path, **out)
+    return out
 
 
 def moe_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
@@ -279,6 +506,7 @@ def write_tuned_reference(set_dir: str) -> dict:
 def main() -> None:
     recon = write_reference(CONTAINER)
     write_moe_reference(MOE_FIXTURE)
+    write_recurrent_reference(RECURRENT_FIXTURE)
     np.savez_compressed(RECON, recon=recon)
     levels = write_tacplus_reference(TACPLUS_CONTAINER)
     with open(TACPLUS_RECON, "w") as f:
@@ -288,7 +516,8 @@ def main() -> None:
     with open(TUNED_JSON, "w") as f:
         json.dump(tuned, f, indent=1, sort_keys=True)
         f.write("\n")
-    for p in (CONTAINER, RECON, MOE_FIXTURE, TACPLUS_CONTAINER,
+    for p in (CONTAINER, RECON, MOE_FIXTURE, RECURRENT_FIXTURE,
+              TACPLUS_CONTAINER,
               TACPLUS_RECON,
               *(os.path.join(TUNED_SET, n)
                 for n in sorted(os.listdir(TUNED_SET))), TUNED_JSON):
@@ -302,5 +531,7 @@ if __name__ == "__main__":
                                "--xla_allow_excess_precision=false").strip()
     if sys.argv[1:2] == ["--moe"]:
         write_moe_reference(sys.argv[2])
+    elif sys.argv[1:2] == ["--recurrent"]:
+        write_recurrent_reference(sys.argv[2])
     else:
         main()

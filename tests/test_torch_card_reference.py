@@ -28,7 +28,14 @@ files the reference wrote:
   granite-moe smoke model's train logits on a numpy-seeded parameter
   tree, on the card, within the CPU tests' tolerances of the
   reference's outputs (float32: outputs 1e-5, logits 1e-4, ``aux``
-  1e-6; bf16: 1e-2, relative).
+  1e-6; bf16: 1e-2, relative);
+* the recurrent case (``recurrent.npz``): ``rwkv6_apply`` and
+  ``mamba2_apply`` in train, prefill and decode, and the rwkv6-7b and
+  zamba2-2.7b smoke models' train logits and a prefill plus one decode
+  step (zamba2 cut to its first group), on numpy-seeded trees whose
+  recurrence leaves are non-zero, on the card within the CPU tests'
+  tolerances (``make_card_reference.TOL``: blocks float32 1e-5, bf16
+  1e-2; models float32 1e-4, bf16 1e-2).
 
 The ``cuda`` tests import no JAX, so they run on the card's machine with
 ``pytest --noconftest -m cuda``.  The CPU tests regenerate the fixtures
@@ -48,13 +55,18 @@ import pytest
 import torch
 
 from repro_torch import io as tio
-from repro_torch.configs import smoke_config
+from repro_torch.configs import RunConfig, smoke_config
 from repro_torch.convert import dataset_from_arrays, params_from_reference
 from repro_torch.core import amr, hybrid
 from repro_torch.io import variants as vrt
 from repro_torch.kernels import ops
+from repro_torch.models import layers as tlay
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
+from repro_torch.models import rwkv as trwkv
+from repro_torch.models import ssm as tssm
+from repro_torch.serving import make_prefill_step, make_serve_step
+from repro_torch.serving.engine import grow_cache
 from repro_torch.tuning import measure_metrics, write_variant_set
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -370,3 +382,107 @@ def test_moe_on_card_matches_reference(dtype):
     dev = _card()
     torch.set_float32_matmul_precision("highest")
     _moe_match(_port_moe(dtype, dev), _moe_fixture(), dtype)
+
+
+# ------------------------------ recurrent state -----------------------------
+
+def _recurrent_fixture() -> dict:
+    with np.load(fixture.RECURRENT_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _port_recurrent(arch: str, dtype: str, device: str) -> dict:
+    """The port's outputs of the recurrent case for ``arch`` on
+    ``device``, as float32 numpy arrays under the fixture's keys."""
+    cfg = replace(smoke_config(arch), dtype=dtype)
+    block = fixture.recurrent_block(cfg)
+    x, state, tokens = fixture.recurrent_inputs(cfg)
+    apply, specs = ((trwkv.rwkv6_apply, trwkv.rwkv6_specs(cfg))
+                    if block == "rwkv" else
+                    (tssm.mamba2_apply, tssm.mamba2_specs(cfg)))
+    tree = fixture.recurrent_tree(fixture.spec_leaves(specs),
+                                  fixture.RECURRENT_SEED)
+    params = {k: torch.from_numpy(v).to(device=device,
+                                        dtype=specs[k].torch_dtype)
+              for k, v in tree.items()}
+    st = {k: torch.from_numpy(v).to(
+        device=device, dtype=torch.bfloat16 if k == "conv" else torch.float32)
+        for k, v in state.items()}
+    xt = torch.from_numpy(x).to(device, tlay.DTYPES[dtype])
+    keep = fixture.RECURRENT_KEEP
+    f32 = lambda t: t.float().cpu().numpy()
+    out = {}
+    tag = f"{block}/{dtype}"
+    y, _ = apply(params, xt, cfg, mode="train", chunk=fixture.RECURRENT_CHUNK)
+    out[f"{tag}/train"] = f32(y[:, -keep:])
+    y, _ = apply(params, xt, cfg, mode="prefill", state=st,
+                 chunk=fixture.RECURRENT_CHUNK)
+    out[f"{tag}/prefill"] = f32(y[:, -keep:])
+    y, _ = apply(params, xt[:, :1], cfg, mode="decode", state=st)
+    out[f"{tag}/decode"] = f32(y)
+    cfg = fixture.recurrent_model_cfg(cfg)
+    tree = fixture.recurrent_tree(
+        fixture.spec_leaves(tmodel.model_specs(cfg)), fixture.RECURRENT_SEED)
+    params = params_from_reference(tree, cfg, device=device)
+    tk = torch.from_numpy(tokens).to(device)
+    tag = f"model/{arch}/{dtype}"
+    logits, _ = tmodel.forward(params, cfg, tokens=tk, mode="train")
+    out[f"{tag}/train"] = f32(logits[:, -keep // 2:])
+    run = RunConfig(kv_quant=False)
+    lg, state1 = make_prefill_step(cfg, run)(params, {"tokens": tk[:, :-1]})
+    out[f"{tag}/prefill"] = f32(lg)
+    lg, _ = make_serve_step(cfg, run)(
+        params, grow_cache(state1, 1, cfg), {"tokens": tk[:, -1:]},
+        tokens.shape[1] - 1)
+    out[f"{tag}/decode"] = f32(lg)
+    return out
+
+
+def _recurrent_match(got: dict, want: dict, dtype: str) -> None:
+    """Blocks at ``TOL["block"]``, the (cut) smoke models at
+    ``TOL["logits"]``."""
+    for key, g in got.items():
+        w = want[key]
+        assert g.shape == w.shape and np.isfinite(g).all(), key
+        kind = "logits" if key.startswith("model/") else "block"
+        assert _rel(w, g) <= fixture.tol(kind, dtype), (key, _rel(w, g))
+
+
+def test_recurrent_fixture_regenerates(tmp_path):
+    """The reference writes the stored outputs again (in a child process,
+    so that its XLA flags take effect): float32 within 1e-6 and bf16
+    within 1e-2, relative."""
+    path = str(tmp_path / "recurrent.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.abspath(os.path.join(HERE, "..", "src"))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "card_reference",
+                                      "make_card_reference.py"),
+         "--recurrent", path], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    want = _recurrent_fixture()
+    with np.load(path) as z:
+        assert sorted(z.files) == sorted(want)
+        for k in z.files:
+            limit = 1e-6 if "float32" in k else 1e-2
+            assert _rel(want[k], z[k]) <= limit, k
+
+
+@pytest.mark.parametrize("dtype", fixture.RECURRENT_DTYPES)
+@pytest.mark.parametrize("arch", fixture.RECURRENT_ARCHS)
+def test_port_matches_recurrent_fixture_on_cpu(arch, dtype):
+    _recurrent_match(_port_recurrent(arch, dtype, "cpu"),
+                     _recurrent_fixture(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", fixture.RECURRENT_DTYPES)
+@pytest.mark.parametrize("arch", fixture.RECURRENT_ARCHS)
+def test_recurrent_on_card_matches_reference(arch, dtype):
+    dev = _card()
+    torch.set_float32_matmul_precision("highest")
+    _recurrent_match(_port_recurrent(arch, dtype, dev),
+                     _recurrent_fixture(), dtype)

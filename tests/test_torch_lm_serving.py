@@ -2,14 +2,22 @@
 
 Smoke configs of the token-input decoders — deepseek-7b (MHA, SwiGLU),
 starcoder2-3b (GQA kv=2, QKV bias, GELU), qwen1.5-32b (MHA, QKV bias),
-llama3-405b (GQA, rope θ 5·10⁵) and the mixture-of-experts
+llama3-405b (GQA, rope θ 5·10⁵), the mixture-of-experts
 granite-moe-1b-a400m and qwen3-moe-30b-a3b (8 experts, top-2 at smoke
 size, the default capacity factor, so that both frameworks drop the same
-assignments) — run
+assignments), rwkv6-7b (ssm: a recurrent state, no KV cache) and
+zamba2-2.7b (hybrid: six groups of two Mamba2 layers and a shared
+attention block at smoke size) — run
 through ``repro.serving.engine`` and ``repro_torch.serving.engine`` with
 the same parameters (the reference's ``init_from_specs`` at
 ``PRNGKey(0)``, carried over as float32 copies by
-``params_from_reference``) and the same seeded prompts.
+``params_from_reference``) and the same seeded prompts.  For rwkv6-7b
+and zamba2-2.7b the leaves the recurrences read, which the reference
+initialises to zeros or ones (``mu_*``, ``w0``, ``u_bonus``, ``a_log``,
+``dt_bias``, ``d_skip``), are redrawn non-zero
+(``tests/card_reference/make_card_reference.py``:
+``with_recurrence_leaves``): at zero the token shift, the bonus and the
+per-head decay rates would go untested.
 
 The reference runs in a child process (this file run as a script) with
 ``--xla_allow_excess_precision=false``, so that it rounds to bf16 where
@@ -19,7 +27,7 @@ residual sum reach the next ``rmsnorm`` unrounded), and that alone moves
 the reference's own bf16 smoke logits by 1.2–3.5 %: more than the
 tolerance below, and no property of either program's algorithm.
 
-Tolerances:
+Tolerances (one table, ``make_card_reference.TOL`` and ``ARCH_TOL``):
 
 * bf16 models: relative max error ≤ 1e-2 on logits, the tolerance of
   the reference's own decode-vs-train test (``tests/test_models.py``):
@@ -28,10 +36,21 @@ Tolerances:
 * float32 models: ≤ 1e-4, where only float32 summation order differs, so
   a wrong order of operations (a missed rounding of the cache to bf16,
   the int8 scales applied elsewhere) cannot hide;
+* zamba2-2.7b at its full smoke depth: bf16 logits ≤ 1e-1 and float32
+  decode steps ≤ 1e-2, as its six groups amplify a rounding difference
+  about twofold each (the reference's own bf16 logits move by 0.20–0.66
+  between XLA's two legal precision modes); cut to its first group
+  (``zamba2_2_7b@1``: two Mamba2 layers, the shared attention and the
+  shared MLP) it is held at the two bounds above;
 * the int8 cache: codes and scales equal wherever both frameworks
   quantized the same bf16 K/V vector (every vector of the first layer);
-* greedy generation: the first token equal.
+* greedy generation: the first token equal;
+* decode against train on the port's own path: 1e-2 in bf16; in float32
+  1e-4 for rwkv6-7b (the reference reads 2.5e-6 there) and, for
+  zamba2-2.7b, the bound that its bf16 conv state sets (see
+  :func:`test_decode_matches_train_logits_float32`).
 """
+import importlib.util
 import os
 import subprocess
 import sys
@@ -53,12 +72,39 @@ from repro_torch.models import model as tmodel
 from repro_torch.serving import ServingEngine, make_prefill_step, make_serve_step
 from repro_torch.serving.engine import grow_cache
 
+_spec = importlib.util.spec_from_file_location(
+    "make_card_reference", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "card_reference",
+        "make_card_reference.py"))
+fixture = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(fixture)
+
 ARCHS = ["deepseek_7b", "starcoder2_3b", "qwen1_5_32b", "llama3_405b",
-         "granite_moe_1b_a400m", "qwen3_moe_30b_a3b"]
+         "granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "rwkv6_7b",
+         "zamba2_2_7b"]
 MOE_ARCHS = ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b"]
+RECURRENT_ARCHS = ["rwkv6_7b", "zamba2_2_7b"]
+#: the seed of the recurrence's leaves in the recurrent archs' trees
+RECURRENCE_SEED = 7
 DTYPES = ["bfloat16", "float32"]
 B, P, T, NEW = 2, 9, 4, 6
-TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+#: zamba2-2.7b cut to its first group (two Mamba2 layers, the shared
+#: attention and the shared MLP): held at the models' tolerance, where
+#: its full smoke depth takes its own (make_card_reference.ARCH_TOL)
+HYBRID_ONE_GROUP = "zamba2_2_7b@1"
+#: the models compared with the reference: every arch at its smoke
+#: config, and ``arch@g``, an arch cut to its first ``g`` groups
+MODELS = ARCHS + [HYBRID_ONE_GROUP]
+
+
+def _cfg(smoke, model: str, dtype: str):
+    """``model``'s config from ``smoke`` (either package's
+    ``smoke_config``) in ``dtype``."""
+    arch, _, groups = model.partition("@")
+    cfg = replace(smoke(arch), dtype=dtype)
+    if groups:
+        cfg = replace(cfg, n_layers=int(groups) * cfg.shared_attn_every)
+    return cfg
 
 
 def _tokens(cfg, seed: int, shape) -> np.ndarray:
@@ -82,15 +128,24 @@ def _reference_outputs(path: str) -> None:
     from repro.serving import engine as rengine
 
     f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    def flat(tree):
+        return {"/".join(k.key for k in path_): leaf for path_, leaf
+                in jax.tree_util.tree_leaves_with_path(tree)}
+
     out = {}
-    for arch in ARCHS:
+    for arch in MODELS:
         for dtype in DTYPES:
-            cfg = replace(r_smoke(arch), dtype=dtype)
+            cfg = _cfg(r_smoke, arch, dtype)
             tag = f"{arch}/{dtype}"
-            params = rlay.init_from_specs(rmodel.model_specs(cfg),
-                                          jax.random.PRNGKey(0))
-            for path_, leaf in jax.tree_util.tree_leaves_with_path(params):
-                name = "/".join(k.key for k in path_)
+            specs = rmodel.model_specs(cfg)
+            params = rlay.init_from_specs(specs, jax.random.PRNGKey(0))
+            if cfg.family in ("ssm", "hybrid"):
+                params = jax.tree.map(
+                    lambda a, s: jnp.asarray(a).astype(s.dtype),
+                    fixture.with_recurrence_leaves(
+                        jax.tree.map(f32, params), RECURRENCE_SEED), specs)
+            for name, leaf in flat(params).items():
                 out[f"{tag}/params/{name}"] = f32(leaf)
             inp = _inputs(cfg)
             logits, aux = rmodel.forward(params, cfg, mode="train",
@@ -105,19 +160,17 @@ def _reference_outputs(path: str) -> None:
                 lg, state = rengine.make_prefill_step(cfg, run)(
                     params, {"tokens": jnp.asarray(inp["prompts"])})
                 out[f"{qtag}/prefill"] = f32(lg)
-                for name, a in state.items():
+                for name, a in flat(state).items():
                     out[f"{qtag}/state/{name}"] = (
                         np.asarray(a) if a.dtype == jnp.int8 else f32(a))
-                st = jax.tree.map(
-                    lambda a: jnp.pad(a, [(0, 0), (0, 0), (0, T)]
-                                      + [(0, 0)] * (a.ndim - 3)), state)
+                st = rengine.ServingEngine(cfg, run)._grow_cache(state, T)
                 serve = jax.jit(rengine.make_serve_step(cfg, run))
                 for i in range(T):
                     lg, st = serve(params, st, {"tokens": jnp.asarray(
                         inp["forced"][:, i:i + 1])}, jnp.int32(P + i))
                     out[f"{qtag}/decode{i}"] = f32(lg)
                 if dtype == "bfloat16":
-                    for name, a in st.items():
+                    for name, a in flat(st).items():
                         out[f"{qtag}/dstate/{name}"] = (
                             np.asarray(a) if a.dtype == jnp.int8 else f32(a))
                 if dtype == "bfloat16":
@@ -171,14 +224,20 @@ def _port_model(ref, arch: str, dtype: str):
     """(port cfg, port params) from the reference's parameters."""
     key = (arch, dtype)
     if key not in _PORT:
-        cfg = replace(smoke_config(arch), dtype=dtype)
+        cfg = _cfg(smoke_config, arch, dtype)
         _PORT[key] = (cfg, params_from_reference(_ref_tree(ref, arch, dtype),
                                                  cfg, device="cpu"))
     return _PORT[key]
 
 
+def _clone(state: dict) -> dict:
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in state.items()}
+
+
 def _port_runs(ref, arch: str, dtype: str, kv_quant: bool) -> dict:
-    """The port's prefill of P tokens and T teacher-forced decode steps."""
+    """The port's prefill of P tokens and T teacher-forced decode steps
+    (from a copy of the prefill's state: decode writes in place)."""
     key = (arch, dtype, kv_quant)
     if key not in _PORT:
         cfg, params = _port_model(ref, arch, dtype)
@@ -188,7 +247,7 @@ def _port_runs(ref, arch: str, dtype: str, kv_quant: bool) -> dict:
             params, {"tokens": torch.from_numpy(inp["prompts"])})
         res = {"prefill": lg, "state": state, "decode": []}
         step = make_serve_step(cfg, run)
-        st = grow_cache(state, T)
+        st = grow_cache(_clone(state), T, cfg)
         for i in range(T):
             lg, st = step(params, st, {"tokens": torch.from_numpy(
                 inp["forced"][:, i:i + 1])}, P + i)
@@ -245,6 +304,21 @@ def test_model_specs_and_init():
         for expert in w.float().flatten(0, 1 if w.dim() == 4 else 0):
             std = float(expert.std())
             assert abs(std * fan_in ** 0.5 - 1.0) < 0.1, std
+    # a hybrid's Mamba2 leaf (groups, layers, in, out) is drawn a layer at
+    # a time at the layer's input width, not at the group count
+    cfg = smoke_config("zamba2_2_7b")
+    params = tlay.init_from_specs(tmodel.model_specs(cfg),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+    groups = cfg.n_layers // cfg.shared_attn_every
+    w_in = params["layers"]["w_in"]
+    assert w_in.shape[:3] == (groups, cfg.shared_attn_every, cfg.d_model)
+    for layer in w_in.float().flatten(0, 1):
+        assert abs(float(layer.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert params["layers"]["a_log"].dtype == torch.float32
+    assert set(params) == {"final_ln", "lm_head", "embed", "layers",
+                           "shared_attn", "shared_mlp"}
+    assert params["shared_attn"]["wq"].dim() == 2
     cfg = smoke_config("starcoder2_3b")
     params = tlay.init_from_specs(tmodel.model_specs(cfg),
                                   torch.Generator().manual_seed(0),
@@ -261,7 +335,7 @@ def test_model_specs_and_init():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_train_logits_match_reference(ref, arch, dtype):
     """Train logits, and the MoE layers' load-balance loss (0 for a
     dense model): within 1e-6 of the reference's in float32; in bf16
@@ -273,9 +347,10 @@ def test_train_logits_match_reference(ref, arch, dtype):
     want = ref[f"{arch}/{dtype}/train"]
     assert tuple(got.shape) == want.shape and aux["state"] is None
     rel = _rel(want, got)
-    assert rel <= TOL[dtype], rel
+    assert rel <= fixture.tol("logits", dtype, arch), rel
     want_aux = float(ref[f"{arch}/{dtype}/train_aux"])
-    tol_aux = 1e-6 if dtype == "float32" else TOL[dtype] * want_aux
+    tol_aux = 1e-6 if dtype == "float32" else fixture.tol(
+        "logits", dtype) * want_aux
     assert abs(float(aux["moe_aux"]) - want_aux) <= tol_aux, (aux, want_aux)
     assert (want_aux > 0) == bool(cfg.n_experts)
 
@@ -283,7 +358,7 @@ def test_train_logits_match_reference(ref, arch, dtype):
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache",
                                                         "int8_cache"])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_prefill_and_decode_logits_match_reference(ref, arch, dtype,
                                                    kv_quant):
     """Prefill's last-position logits, then the logits of each decode
@@ -291,10 +366,11 @@ def test_prefill_and_decode_logits_match_reference(ref, arch, dtype,
     port = _port_runs(ref, arch, dtype, kv_quant)
     tag = f"{arch}/{dtype}/{int(kv_quant)}"
     assert tuple(port["prefill"].shape) == ref[f"{tag}/prefill"].shape
-    rels = [_rel(ref[f"{tag}/prefill"], port["prefill"])] + [
-        _rel(ref[f"{tag}/decode{i}"], lg)
-        for i, lg in enumerate(port["decode"])]
-    assert max(rels) <= TOL[dtype], rels
+    rel = _rel(ref[f"{tag}/prefill"], port["prefill"])
+    assert rel <= fixture.tol("logits", dtype, arch), rel
+    rels = [_rel(ref[f"{tag}/decode{i}"], lg)
+            for i, lg in enumerate(port["decode"])]
+    assert max(rels) <= fixture.tol("steps", dtype, arch), rels
     for lg in port["decode"]:
         assert bool(torch.isfinite(lg.float()).all())
 
@@ -304,32 +380,56 @@ def test_int8_cache_codes_match_reference(ref, arch):
     """Wherever the two prefills produced the same bf16 K/V vector, the
     int8 caches of the serving path hold the same codes and scales; and
     the decode steps' writes (the fused ``ops.quantize_kv_into``) hold the
-    reference's codes at layer 0, whose K/V both frameworks compute from
-    the forced tokens' embeddings alone."""
+    reference's codes at layer 0 (a hybrid: at its first group's cache
+    slot).  Of a hybrid's state only the ``kv`` half is quantized; an ssm
+    state has no KV cache, and the int8 setting leaves it as it is."""
+    cfg, _ = _port_model(ref, arch, "bfloat16")
     bf = _port_runs(ref, arch, "bfloat16", False)["state"]
     q8 = _port_runs(ref, arch, "bfloat16", True)["state"]
-    assert set(q8) == {"k", "v", "k_scale", "v_scale"}
     tag = f"{arch}/bfloat16"
+    if cfg.family == "ssm":
+        assert set(q8) == {"wkv", "shift_t", "shift_c"}
+        for name in q8:
+            assert torch.equal(q8[name], bf[name])
+            np.testing.assert_array_equal(ref[f"{tag}/1/state/{name}"],
+                                          ref[f"{tag}/0/state/{name}"])
+        return
+    kv_key = ""
+    if cfg.family == "hybrid":
+        assert set(q8) == {"mamba", "kv"}
+        for name in q8["mamba"]:
+            assert torch.equal(q8["mamba"][name], bf["mamba"][name])
+        bf, q8, kv_key = bf["kv"], q8["kv"], "kv/"
+    assert set(q8) == {"k", "v", "k_scale", "v_scale"}
     for name in ("k", "v"):
-        same = (ref[f"{tag}/0/state/{name}"] == bf[name].float().numpy()
-                ).all(axis=-1)
-        # the first layer's K/V come from the same embedding through
-        # rmsnorm, linear and rope: bit for bit
-        assert same[0].all(), same.mean()
-        np.testing.assert_array_equal(q8[name].numpy()[same],
-                                      ref[f"{tag}/1/state/{name}"][same])
+        same = (ref[f"{tag}/0/state/{kv_key}{name}"] == bf[name].float(
+            ).numpy()).all(axis=-1)
+        if cfg.family == "hybrid":
+            # the first slot's K/V come after a group of Mamba2 layers,
+            # whose bf16 roundings may fall one step apart
+            assert same[0].mean() > 0.5, same.mean()
+        else:
+            # the first layer's K/V come from the same embedding through
+            # rmsnorm, linear and rope: bit for bit
+            assert same[0].all(), same.mean()
+        np.testing.assert_array_equal(
+            q8[name].numpy()[same], ref[f"{tag}/1/state/{kv_key}{name}"][same])
         np.testing.assert_array_equal(
             q8[name + "_scale"].numpy()[same],
-            ref[f"{tag}/1/state/{name}_scale"][same])
+            ref[f"{tag}/1/state/{kv_key}{name}_scale"][same])
         assert q8[name].dtype == torch.int8
     bf_d = _port_runs(ref, arch, "bfloat16", False)["dstate"]
     q8_d = _port_runs(ref, arch, "bfloat16", True)["dstate"]
+    if cfg.family == "hybrid":
+        bf_d, q8_d = bf_d["kv"], q8_d["kv"]
     steps = slice(P, P + T)
     for name in ("k", "v"):
         x = bf_d[name][0, :, steps]                 # (B, T, H, hd) bf16
         hd = x.shape[-1]
-        assert (ref[f"{tag}/0/dstate/{name}"][0, :, steps]
-                == x.float().numpy()).all()
+        same = (ref[f"{tag}/0/dstate/{kv_key}{name}"][0, :, steps]
+                == x.float().numpy()).all(axis=-1).reshape(-1)
+        assert (same.mean() > 0.5 if cfg.family == "hybrid"
+                else same.all()), same.mean()
         q, sc = kref.group_quant(x.reshape(-1, hd), hd)
         got_q = q8_d[name][0, :, steps].reshape(-1, hd)
         got_s = q8_d[name + "_scale"][0, :, steps].reshape(-1)
@@ -338,15 +438,17 @@ def test_int8_cache_codes_match_reference(ref, arch):
         # XLA's amax · float32(1/127) (ROADMAP §3); its codes equal the
         # port's wherever the scales do
         amax = x.float().abs().amax(dim=-1).reshape(-1).numpy()
-        want_s = ref[f"{tag}/1/dstate/{name}_scale"][0, :, steps].reshape(-1)
-        np.testing.assert_array_equal(want_s, np.where(
+        want_s = ref[f"{tag}/1/dstate/{kv_key}{name}_scale"][
+            0, :, steps].reshape(-1)
+        np.testing.assert_array_equal(want_s[same], np.where(
             amax > 0, amax * (np.float32(1) / np.float32(127)),
-            np.float32(1)).astype(np.float32))
-        agree = want_s == got_s.numpy()
-        assert agree.mean() > 0.5, agree.mean()
+            np.float32(1)).astype(np.float32)[same])
+        agree = (want_s == got_s.numpy()) & same
+        assert agree.mean() > 0.5 * same.mean(), agree.mean()
         np.testing.assert_array_equal(
             got_q.numpy()[agree],
-            ref[f"{tag}/1/dstate/{name}"][0, :, steps].reshape(-1, hd)[agree])
+            ref[f"{tag}/1/dstate/{kv_key}{name}"][0, :, steps].reshape(
+                -1, hd)[agree])
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache",
@@ -426,16 +528,57 @@ def test_params_from_reference_moe_tree(ref, arch):
         params_from_reference(bad, cfg, device="cpu")
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_params_from_reference_recurrent_tree(ref, arch):
+    """An RWKV6 or hybrid tree carries across: the leaves whose specs say
+    float32 (``w0``, ``u_bonus``; ``a_log``, ``dt_bias``, ``d_skip``) stay
+    float32 and equal the reference's exactly in a bf16 model; the
+    hybrid's Mamba2 leaves keep their two stacked axes beside the
+    unstacked shared blocks."""
+    cfg, params = _port_model(ref, arch, "bfloat16")
+    tree = _ref_tree(ref, arch, "bfloat16")
+    lay = params["layers"]
+    f32_leaves = (("w0", "u_bonus") if cfg.family == "ssm"
+                  else ("a_log", "dt_bias", "d_skip"))
+    for name in f32_leaves:
+        assert lay[name].dtype == torch.float32
+        np.testing.assert_array_equal(lay[name].numpy(),
+                                      tree["layers"][name])
+        assert np.abs(tree["layers"][name]).min() > 0   # redrawn non-zero
+    lead = ((cfg.n_layers,) if cfg.family == "ssm" else
+            (cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every))
+    for name, w in lay.items():
+        assert tuple(w.shape[:len(lead)]) == lead, name
+        if name not in f32_leaves:
+            assert w.dtype == torch.bfloat16, name
+    if cfg.family == "hybrid":
+        assert params["shared_attn"]["wq"].shape == tuple(
+            tree["shared_attn"]["wq"].shape)
+
+
 @pytest.mark.parametrize("change", [
-    {"family": "ssm"}, {"family": "hybrid", "shared_attn_every": 2},
-    {"family": "vlm", "input_mode": "embeddings"}],
-    ids=["ssm", "hybrid", "embeddings"])
+    {"family": "vlm", "input_mode": "embeddings"}], ids=["embeddings"])
 def test_unported_families_raise(change):
     cfg = replace(smoke_config("deepseek_7b"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*2.2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*2.4"):
         tmodel.model_specs(cfg)
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, RunConfig(), device="cpu")
+
+
+def _decode_vs_train(cfg, params) -> float:
+    """A prefill of S-1 tokens plus one decode step against the train
+    logits at position S-1: relative max error."""
+    S = 24
+    tokens = torch.from_numpy(_tokens(cfg, 1, (B, S)))
+    full, _ = tmodel.forward(params, cfg, tokens=tokens, mode="train")
+    _, aux = tmodel.forward(params, cfg, tokens=tokens[:, :S - 1],
+                            mode="prefill")
+    dec, _ = tmodel.forward(params, cfg, tokens=tokens[:, S - 1:],
+                            mode="decode",
+                            state=grow_cache(aux["state"], 1, cfg),
+                            cache_len=S - 1)
+    return _rel(full[:, -1].float().numpy(), dec[:, 0])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -445,20 +588,37 @@ def test_decode_matches_train_logits(ref, arch):
     reference's ``tests/test_models.py::test_decode_matches_train_logits``
     holds the reference.  MoE runs at a drop-free capacity there (factor
     64), since capacity is provisioned per token group and a prefill and
-    a decode step group their tokens differently."""
+    a decode step group their tokens differently.  zamba2-2.7b keeps the
+    reference test's 2e-2 for it (it reads 1.06e-2 here)."""
     cfg, params = _port_model(ref, arch, "bfloat16")
     if cfg.n_experts:
         cfg = replace(cfg, capacity_factor=64.0)
-    S = 24
-    tokens = torch.from_numpy(_tokens(cfg, 1, (B, S)))
-    full, _ = tmodel.forward(params, cfg, tokens=tokens, mode="train")
-    _, aux = tmodel.forward(params, cfg, tokens=tokens[:, :S - 1],
-                            mode="prefill")
-    dec, _ = tmodel.forward(params, cfg, tokens=tokens[:, S - 1:],
-                            mode="decode", state=grow_cache(aux["state"], 1),
-                            cache_len=S - 1)
-    rel = _rel(full[:, -1].float().numpy(), dec[:, 0])
-    assert rel <= 1e-2, rel
+    rel = _decode_vs_train(cfg, params)
+    assert rel <= fixture.tol("decode_vs_train", "bfloat16", arch), rel
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_decode_matches_train_logits_float32(ref, arch, monkeypatch):
+    """The same in float32: rwkv6-7b within 1e-4 (the reference's own
+    tolerance; it reads 2.5e-6 at smoke size); zamba2-2.7b within the
+    bound its bf16 conv state sets (``make_card_reference.ARCH_TOL``),
+    and, with the conv state kept in float32 instead, within 2e-3: the
+    bf16 conv
+    state is the cause.  RWKV's block runs in float32 and carries float32
+    states, so only the chunked and the step form's summation orders
+    differ (it reads 1.6e-6); zamba2's decode reads its conv state
+    rounded to bf16, which the train path never does (the reference keeps
+    it bf16 whatever the model's dtype; ROADMAP.md, queue 3): it reads
+    2.98e-2, and 5.2e-4 with a float32 conv state."""
+    cfg, params = _port_model(ref, arch, "float32")
+    rel = _decode_vs_train(cfg, params)
+    assert rel <= fixture.tol("decode_vs_train", "float32", arch), rel
+    if cfg.family == "hybrid":
+        init = tmodel.init_mamba_state
+        monkeypatch.setattr(tmodel, "init_mamba_state", lambda *a, **kw: {
+            k: v.float() for k, v in init(*a, **kw).items()})
+        rel32 = _decode_vs_train(cfg, params)
+        assert rel32 <= 2e-3 and rel32 < rel / 10, (rel32, rel)
 
 
 def test_entry_points_need_a_card_by_default():

@@ -170,8 +170,9 @@ def test_unported_paths_raise():
     assert enc.codebook is None
     assert enc.codebook_bits == enc.results[0].codebook_bits > 0
     from repro_torch.configs import registry
-    with pytest.raises(NotImplementedError):
-        registry.get_config("rwkv6_7b")
+    registry.get_config("rwkv6_7b")                  # ported since
+    with pytest.raises(NotImplementedError, match="item 2.4"):
+        registry.get_config("internvl2_76b")
 
 
 def test_corrupt_payload_fails_crc(tmp_path):
