@@ -241,6 +241,50 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    decode step with the blocks (``rwkv6_apply``, ``mamba2_apply``,
    ``attention``, ``mlp_apply``) and the WKV / SSD operators named.
 
+10. embedding-input serving, through the user entry points, with phase
+   7's traffic fed as frontend embeddings (N(0, 1) · 0.02 from a numpy
+   seed, as the reference's stub frontend makes them): musicgen-medium at
+   full width and depth (48 layers, d_model 1536, 24 heads of 64, an
+   ungated GELU MLP, 1,362,249,216 parameters) and internvl2-76b at full
+   width with 16 of its 80 layers (d_model 8192, 64 query and 8 KV heads
+   of 128, 14,741,151,744 parameters), ``param_counts`` equal to the
+   reference's at both depths and no ``embed`` leaf.  Each run is a
+   prefill of 8 × 1,024 embeddings and 32 decode steps of one (8, d)
+   embedding each through ``ServingEngine.prefill``/``decode`` with
+   ``embeds=``, read alone: the int8 cache launches kernel 7 exactly ``2 +
+   layers · 32`` times (1,538 and 514) and kernel 8 never, the bf16 cache
+   neither; ``generate`` raises.  Then the cache read-back (kernels 7 and 8
+   twice each, within ``scale/2``), ``qdq_exact`` at head_dim 64 and 128,
+   and phase 7's consistency gates: the bf16 cache ≤ 1e-2 on two layers,
+   int8 ≤ bf16 + 1e-2 at the run's depth, and a float32 witness (musicgen
+   at 48 layers, internvl2 at 4) whose bf16-cache reading is at most
+   1e-2 and whose int8-cache reading is at most 4.0 times that
+   (``roundtrip_rms``, printed: the int8 round trip's RMS error over
+   the bf16 one's on Gaussian head vectors, 3.57 at head_dim 64 and 3.89
+   at 128).
+   Printed: init, prefill s, decode ms a step, a profiled decode step's
+   launches and busy share, peak bytes;
+11. training on one card, through ``repro_torch.launch.train``, one fixed
+   batch of 8 × 1,024 positions with labels (the last position masked)
+   from numpy seeds: five AdamW steps of musicgen-medium at full size
+   (``remat="layer"``, lr 1e-3, one warmup step; the loss falls,
+   ``lm_head`` changes, every loss and norm finite, no kernel launched);
+   three steps of its two-replica form (``make_train_step_compressed``,
+   state and error feedback replicated, ~41 GB; one under the profiler,
+   then two counted): kernels 7 and 8 exactly once a leaf and step (10
+   each), the replicas bit-identical after the
+   step, and on the last step's ``lm_head`` and ``w_up`` leaves kernels 7
+   and 8 equal to their plain versions at group 256 (on the exchange's
+   matrix and an odd-length cut of ``lm_head``), the kept residual the
+   exchange's and within ``scale/2`` of its group, kernels 7 and 8 timed
+   on ``w_up``'s (3,538,944, 256) matrix; three Adafactor steps of
+   deepseek-7b cut to 4 of its 30 layers (1,648,398,336 parameters, the
+   token embedding's gradient) with two microbatches, whose gradients
+   are first held within 2.5e-2 of the one-batch gradients (the CPU
+   tests' bf16 gradient tolerance); the loss falls.  Printed: step s,
+   tokens/s, peak bytes, a profiled step's launches and busy share,
+   ``float32_matmul_precision`` (``"highest"``).
+
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and
@@ -294,6 +338,28 @@ RWKV_F32_LAYERS = 8              # the float32 witness's depth (of 32)
 RECURRENT_ATEN_OPS = (
     "aten::einsum", "aten::bmm", "aten::mm", "aten::cumsum", "aten::exp",
     "aten::mul", "aten::_to_copy", "aten::cat")
+# phase 10: (arch, layers kept (None: all), parameters by the reference's
+# param_counts at that depth and at full depth, layers of the float32
+# witness); the embeddings' seed
+FRONTEND_CASES = (("musicgen_medium", None, 1362249216, 1362249216, 48),
+                  ("internvl2_76b", 16, 14741151744, 69503033344, 4))
+FRONTEND_SEED = 23
+# the float32 witness's int8-cache reading over its bf16-cache reading,
+# at most: read 2.85 (musicgen), 3.31 (internvl2) and 2.87 (deepseek's
+# phase 7), below the two round trips' RMS ratio on Gaussian head
+# vectors (``roundtrip_rms``: 3.57 at head_dim 64, 3.89 at 128); scales
+# twice too coarse double that ratio
+F32_INT8_OVER_BF16_MAX = 4.0
+# phase 11: one fixed batch of 8 × 1,024 positions; AdamW on
+# musicgen-medium (then the two-replica step), Adafactor on deepseek-7b
+# cut to 4 of its 30 layers, which brings in the token embedding
+TRAIN_SEED = 29
+TRAIN_BATCH = (8, 1024)
+TRAIN_ADAMW_STEPS, TRAIN_PODS_STEPS, TRAIN_ADAFACTOR_STEPS = 5, 2, 3
+TRAIN_PODS = 2
+TRAIN_ADAFACTOR_CASE = ("deepseek_7b", 4, 1648398336)
+# the exchange's leaves recorded for the exact and residual checks
+TRAIN_EXCHANGE_LEAVES = ("lm_head", "layers/mlp/w_up")
 # the MoE layer's routing, dispatch and expert operators
 MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
                 "aten::searchsorted", "aten::index_copy_",
@@ -1775,10 +1841,18 @@ class PinRouting:
         return out
 
 
+def prompt_batch(cfg, prompts) -> dict:
+    """A prefill or serve step's batch: ``prompts`` as token ids, or as
+    frontend embeddings (B, S, d) for an embedding-input config."""
+    from repro_torch.models.model import input_key
+    return {input_key(cfg): prompts}
+
+
 def lm_consistency(torch, cfg, params, prompts, run,
                    pin: PinRouting | None = None) -> float:
     """Relative max error between the last-position logits of a prefill
-    over all prompt tokens and those of a prefill over all but the last
+    over all prompt positions (token ids, or embeddings for an
+    embedding-input config) and those of a prefill over all but the last
     plus one decode step of the last, with ``run``'s cache.  With
     ``pin``, the full prefill records the MoE routing and the other two
     passes are routed as it routed them."""
@@ -1791,11 +1865,11 @@ def lm_consistency(torch, cfg, params, prompts, run,
         return fn() if pin is None else pin.run(fn, seq, pos0, record)
 
     full, _ = run_pass(lambda: make_prefill_step(cfg, run)(
-        params, {"tokens": prompts}), S, 0, True)
+        params, prompt_batch(cfg, prompts)), S, 0, True)
     _, state = run_pass(lambda: make_prefill_step(cfg, run)(
-        params, {"tokens": prompts[:, :-1]}), S - 1, 0, False)
+        params, prompt_batch(cfg, prompts[:, :-1])), S - 1, 0, False)
     dec, _ = run_pass(lambda: make_serve_step(cfg, run)(
-        params, grow_cache(state, 1, cfg), {"tokens": prompts[:, -1:]},
+        params, grow_cache(state, 1, cfg), prompt_batch(cfg, prompts[:, -1:]),
         S - 1),
         1, S - 1, False)
     full, dec = full.float(), dec.float()
@@ -1822,7 +1896,7 @@ def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
 
 def cache_readback(torch, cfg, params, prompts) -> tuple:
     """The cache's conversion and read-back: a bf16 prefill cache of
-    ``prompts`` through ``quantize_prefill_cache`` and ``dequantize_kv``,
+    ``prompts`` (ids or embeddings) through ``quantize_prefill_cache`` and ``dequantize_kv``,
     the launch counts reset just before and read just after.  Returns
     ``(bf16 cache, every kernel's launches, worst |dequantized − bf16| /
     scale)``, the cache being a hybrid's ``kv`` half; the
@@ -1834,7 +1908,7 @@ def cache_readback(torch, cfg, params, prompts) -> tuple:
                                      quantize_prefill_cache)
 
     _, state_b = make_prefill_step(cfg, RunConfig(kv_quant=False))(
-        params, {"tokens": prompts})
+        params, prompt_batch(cfg, prompts))
     ops.reset_launches()
     state_q = quantize_prefill_cache(cfg, state_b)
     hybrid = cfg.family == "hybrid"
@@ -2389,10 +2463,12 @@ def cut_layers(cfg, params: dict, n: int, dtype=None) -> tuple:
     ``dtype``.  The leaves are views of ``params``' unless cast."""
     lead = n // cfg.shared_attn_every if cfg.family == "hybrid" else n
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
-    out = {k: ({n_: cast(v[:lead]) for n_, v in w.items()} if k == "layers"
-               else {n_: cast(v) for n_, v in w.items()}
-               if isinstance(w, dict) else cast(w))
-           for k, w in params.items()}
+
+    def walk(tree: dict, stacked: bool) -> dict:
+        return {k: walk(w, stacked or k == "layers") if isinstance(w, dict)
+                else cast(w[:lead] if stacked else w)
+                for k, w in tree.items()}
+    out = walk(params, False)
     cfg = replace(cfg, n_layers=n, **(
         {} if dtype is None else {"dtype": str(dtype).split(".")[-1]}))
     return cfg, out
@@ -2560,6 +2636,506 @@ def recurrent_serving(torch, smi: str) -> dict:
         torch.cuda.empty_cache()
         print(f"recurrent serving, {arch}: " + json.dumps(st))
         out[tag] = st
+    check(not failed, "; ".join(failed))
+    return out
+
+
+def seeded_embeddings(torch, np, shape: tuple, seed: int, dev):
+    """Frontend embeddings as the reference's stub frontend makes them,
+    N(0, 1) · 0.02 in float32, from a numpy seed, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            * np.float32(0.02)).to(dev)
+
+
+def embedding_run(torch, eng, params, prompts, steps) -> dict:
+    """``generate``'s work for an embedding-input model: a prefill of
+    ``prompts`` (B, P, d) into a cache of ``P + len(steps)`` positions,
+    then one decode step for each (B, d) embedding of ``steps``, each
+    synchronised.  Returns the prefill s, each step's ms and the last
+    logits."""
+    P = prompts.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(params, embeds=prompts,
+                                capacity=P + len(steps))
+    torch.cuda.synchronize()
+    out = {"prefill_s": time.perf_counter() - t0, "step_ms": []}
+    for i, emb in enumerate(steps):
+        t0 = time.perf_counter()
+        logits, state = eng.decode(params, state, embeds=emb,
+                                   cache_len=P + i)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
+    out["logits"] = logits
+    return out
+
+
+def roundtrip_rms(torch, np, hd: int, dev) -> dict:
+    """A cache's round-trip RMS error on 65,536 Gaussian head vectors of
+    ``hd`` values (from a numpy seed), each over the bf16 cast's: kernel
+    7's plain version and back (``scale = max|x|/127``), and the same
+    with every scale twice as coarse, which a kernel 7 whose scales were
+    off by 2× would store."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(FRONTEND_SEED + 2)
+    x = torch.from_numpy(
+        rng.standard_normal((65536, hd)).astype(np.float32)).to(dev)
+    rms = lambda y: float((y - x).pow(2).mean().sqrt())
+    q, s = ref.group_quant(x, hd)
+    bf16 = rms(x.bfloat16().float())
+    coarse = torch.round(x / (2 * s)).clamp_(-127, 127) * (2 * s)
+    return {"int8_over_bf16": rms(ref.group_dequant(q, s, hd)) / bf16,
+            "coarse_scale_over_bf16": rms(coarse) / bf16}
+
+
+def embedding_serving(torch, smi: str) -> dict:
+    """Phase 10: embedding-input serving, through the user entry points.
+    Returns the printed readings with each run's launch counts."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, model
+    from repro_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    run_q, run_b = RunConfig(kv_quant=True), RunConfig(kv_quant=False)
+    out = {"card": smi, "launches": {}}
+    failed = []
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    for arch, depth, count, full_count, f32_layers in FRONTEND_CASES:
+        t_case = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if depth is None else replace(full, n_layers=depth)
+        tag = arch.split("_")[0]
+        st = {"card": smi, "arch": arch, "layers": cfg.n_layers,
+              "of_layers": full.n_layers, "d_model": cfg.d_model,
+              "heads": (cfg.n_heads, cfg.n_kv_heads),
+              "head_dim": cfg.head_dim, "act": cfg.act,
+              "param_counts": model.param_counts(cfg), "batch": LM_BATCH,
+              "prompt": LM_PROMPT, "new_positions": LM_NEW}
+        check(cfg.input_mode == "embeddings", f"{arch}: {cfg.input_mode}")
+        check(st["param_counts"] == (count, count)
+              and model.param_counts(full) == (full_count, full_count),
+              f"{arch}: param_counts {st['param_counts']} != {count}")
+        check("embed" not in model.model_specs(cfg), f"{arch}: embed leaf")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = layers.init_from_specs(
+            model.model_specs(cfg),
+            torch.Generator(device=dev).manual_seed(FRONTEND_SEED),
+            device=dev)
+        torch.cuda.synchronize()
+        st["init_s"] = time.perf_counter() - t0
+        d = cfg.d_model
+        prompts = seeded_embeddings(torch, np, (LM_BATCH, LM_PROMPT, d),
+                                    FRONTEND_SEED, dev)
+        steps = list(seeded_embeddings(
+            torch, np, (LM_NEW, LM_BATCH, d), FRONTEND_SEED + 1, dev))
+        engines = {"int8": ServingEngine(cfg, run_q, device=dev),
+                   "bf16": ServingEngine(cfg, run_b, device=dev)}
+        st["generate_raises"] = None
+        try:
+            engines["int8"].generate(params, torch.zeros(
+                (LM_BATCH, 4), dtype=torch.long, device=dev), new_tokens=1)
+        except ValueError as exc:
+            st["generate_raises"] = str(exc)[:80]
+        check(st["generate_raises"] is not None,
+              f"{arch}: generate ran without a frontend")
+
+        # ---- each run read alone: K7 on the prefill's K and V stacks,
+        # then one fused write a layer and decode step; never K8
+        last = {}
+        for ctag, eng in engines.items():
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            res = embedding_run(torch, eng, params, prompts, steps)
+            st[f"peak_device_bytes_{ctag}"] = \
+                torch.cuda.max_memory_allocated()
+            got = {k: ops.launches[k] for k in ops.launches}
+            out["launches"][f"{tag}_serve_{ctag}"] = got
+            want = 2 + cfg.n_layers * LM_NEW if ctag == "int8" else 0
+            expect(got["group_quant"] == want and got["group_dequant"] == 0,
+                   f"{arch}: the {ctag} run launched K7 {got['group_quant']}"
+                   f" times (not {want}) and K8 {got['group_dequant']}")
+            st[f"prefill_{ctag}_s"] = res["prefill_s"]
+            st[f"decode_{ctag}_ms_per_step"] = statistics.median(
+                res["step_ms"])
+            st[f"decode_{ctag}_positions_per_s"] = (
+                LM_BATCH / st[f"decode_{ctag}_ms_per_step"] * 1e3)
+            last[ctag] = res["logits"].float()
+        st["last_step_logits_rel_int8_vs_bf16"] = float(
+            (last["int8"] - last["bf16"]).abs().max()
+            / last["bf16"].abs().max())
+
+        # ---- one decode step under the profiler (int8 cache)
+        eng = engines["int8"]
+        _, state = eng.prefill(params, embeds=prompts,
+                               capacity=LM_PROMPT + 1)
+        st["decode_step_profile"] = device_profile(
+            torch, lambda: eng.decode(params, state, embeds=steps[0],
+                                      cache_len=LM_PROMPT))
+        del state
+
+        # ---- the cache's conversion and read-back: K8; then K7 and K8
+        # and the fused decode write against their plain versions at this
+        # arch's head_dim, after the counts were read
+        cache_b, got, worst = cache_readback(torch, cfg, params, prompts)
+        out["launches"][f"{tag}_readback"] = got
+        st["dequant_err_over_scale"] = worst
+        expect(got["group_dequant"] == 2 and got["group_quant"] == 2,
+               f"{arch}: read-back launched K7 {got['group_quant']} and K8 "
+               f"{got['group_dequant']} times, not 2 and 2")
+        expect(worst <= 0.5 + 2.0 ** -15,
+               f"{arch}: dequant error {worst} · scale")
+        qdq_exact(torch, cfg, cache_b, arch)
+        del cache_b
+        st["roundtrip_rms"] = roundtrip_rms(torch, np, cfg.head_dim, dev)
+
+        # ---- prefill/decode consistency: the bf16 cache at the
+        # reference test's depth (2 layers), the int8 cache against the
+        # bf16 one at the run's depth, then the float32 witness
+        t0 = time.perf_counter()
+        c2, p2 = cut_layers(cfg, params, 2)
+        rel = lm_consistency(torch, c2, p2, prompts, run_b)
+        st["consistency_rel_bf16_2_layers"] = rel
+        expect(rel <= 1e-2, f"{arch}: two-layer bf16 consistency {rel}")
+        for ctag, run in (("int8", run_q), ("bf16", run_b)):
+            st[f"consistency_rel_{ctag}_{cfg.n_layers}_layers"] = \
+                lm_consistency(torch, cfg, params, prompts, run)
+        rel_q = st[f"consistency_rel_int8_{cfg.n_layers}_layers"]
+        rel_b = st[f"consistency_rel_bf16_{cfg.n_layers}_layers"]
+        expect(rel_q <= rel_b + 1e-2, f"{arch}: int8 consistency {rel_q} > "
+                                      f"bf16's {rel_b} + 1e-2")
+        c32, p32 = cut_layers(cfg, params, f32_layers, torch.float32)
+        del params, p2
+        torch.cuda.empty_cache()
+        for ctag, run in (("int8", run_q), ("bf16", run_b)):
+            st[f"float32_{f32_layers}_layers_consistency_rel_{ctag}_cache"] \
+                = lm_consistency(torch, c32, p32, prompts, run)
+        # two fixed bars: the bf16 cache alone (the model's own
+        # amplification of a cache's rounding) and the int8 cache's
+        # reading over it (what kernel 7's scales add)
+        rel32 = st[f"float32_{f32_layers}_layers_consistency_rel_int8_cache"]
+        rel32_b = st[f"float32_{f32_layers}_layers_consistency_rel_bf16_cache"]
+        st["float32_int8_over_bf16"] = rel32 / rel32_b
+        expect(rel32_b <= 1e-2, f"{arch}: float32 bf16-cache consistency "
+                                f"{rel32_b} > 1e-2")
+        expect(rel32 <= F32_INT8_OVER_BF16_MAX * rel32_b,
+               f"{arch}: float32 int8-cache consistency {rel32} > "
+               f"{F32_INT8_OVER_BF16_MAX} × the bf16 cache's {rel32_b}")
+        st["consistency_s"] = time.perf_counter() - t0
+        del p32
+        torch.cuda.empty_cache()
+        st["case_s"] = time.perf_counter() - t_case
+        print(f"embedding serving, {arch}: " + json.dumps(st))
+        out[tag] = st
+    check(not failed, "; ".join(failed))
+    return out
+
+
+class RecordExchange:
+    """While active, ``optim.grad_compress``'s ``exchange_leaf`` (which
+    the step's ``compress_pod_reduce`` calls a leaf) keeps a copy of the
+    inputs (both replicas' gradients and residuals) of each leaf whose
+    shape ``want`` names, the last step's overwriting the earlier; the
+    wrapper calls the same function, so the step launches what it
+    launched."""
+
+    def __init__(self, want: dict):
+        from repro_torch.optim import grad_compress
+        self.mod, self.want, self.seen = grad_compress, want, {}
+
+    def __enter__(self):
+        self.orig = self.mod.exchange_leaf
+
+        def recording(g, e, n_pods):
+            name = self.want.get(tuple(g.shape))
+            if name is not None:
+                self.seen[name] = (g.clone(), e.clone())
+            return self.orig(g, e, n_pods)
+        self.mod.exchange_leaf = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.exchange_leaf = self.orig
+
+
+def leaf_at(tree: dict, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def train_batch(torch, np, cfg, seed: int, dev) -> dict:
+    """One fixed train batch of ``TRAIN_BATCH`` from a numpy seed: token
+    ids or frontend embeddings, and labels in ``[0, vocab)`` whose last
+    position is -1 (masked), as the reference's pipelines make them."""
+    rng = np.random.default_rng(seed)
+    B, S = TRAIN_BATCH
+    out = {}
+    from repro_torch.models.model import input_key
+    if input_key(cfg) == "tokens":
+        out["tokens"] = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    else:
+        out["embeds"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+            * np.float32(0.02)).to(dev)
+    labels = rng.integers(0, cfg.vocab_size, (B, S))
+    labels[:, -1] = -1
+    out["labels"] = torch.from_numpy(labels).to(dev)
+    return out
+
+
+def timed_steps(torch, step, n: int, st: dict, tag: str, tokens: int
+                ) -> list[dict]:
+    """``n`` calls of ``step()``, each synchronised: into ``st`` each
+    step's s and the median step's tokens/s; returns each step's
+    metrics (host floats)."""
+    import statistics
+
+    out, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out.append({k: float(v) for k, v in metrics.items()})
+    st[f"{tag}_step_s"] = secs
+    st[f"{tag}_tokens_per_s"] = tokens / statistics.median(secs)
+    return out
+
+
+def training(torch, smi: str) -> dict:
+    """Phase 11: the single-card train step, AdamW, the two-replica step
+    with the int8 gradient exchange, and Adafactor with microbatches.
+    Returns the printed readings with each run's launch counts and the
+    exchange's kernel timings at group 256."""
+    import numpy as np
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import adafactor, adamw, grad_compress
+    from repro_torch.optim.tree import leaves
+
+    dev = torch.device("cuda")
+    precision = torch.get_float32_matmul_precision()
+    check(precision == "highest", "float32 products must not run as TF32")
+    out = {"card": smi, "launches": {},
+           "float32_matmul_precision": precision}
+    failed = []
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    # ---- 1. AdamW, musicgen-medium at full size, remat a layer
+    cfg = get_config("musicgen_medium")
+    run = RunConfig(remat="layer")
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    st = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+          "params": model.param_counts(cfg)[0], "batch": TRAIN_BATCH,
+          "run": "remat=layer", "optimizer": "adamw lr=1e-3 warmup=1",
+          "float32_matmul_precision": precision}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = train.init_train_state(
+        cfg, run, torch.Generator(device=dev).manual_seed(TRAIN_SEED), opt,
+        device=dev)
+    batch = train_batch(torch, np, cfg, TRAIN_SEED, dev)
+    head0 = params["lm_head"].clone()
+    step, _ = train.make_train_step(cfg, run, opt)
+    ops.reset_launches()
+    metrics = timed_steps(
+        torch, lambda: step(params, opt_state, batch)[2],
+        TRAIN_ADAMW_STEPS, st, "adamw", tokens)
+    out["launches"]["adamw_steps"] = dict(ops.launches)
+    st["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    st["losses"] = [m["loss"] for m in metrics]
+    st["grad_norms"] = [m["grad_norm"] for m in metrics]
+    expect(all(np.isfinite(st["losses"])) and all(np.isfinite(
+        st["grad_norms"])), f"adamw: non-finite loss or norm {metrics}")
+    expect(st["losses"][-1] < st["losses"][0],
+           f"adamw: the loss did not fall: {st['losses']}")
+    expect(not torch.equal(params["lm_head"], head0),
+           "adamw: lm_head did not change")
+    expect(sum(out["launches"]["adamw_steps"].values()) == 0,
+           f"adamw: a plain step launched {out['launches']['adamw_steps']}")
+    st["step_profile"] = device_profile(
+        torch, lambda: step(params, opt_state, batch), warm_up=False)
+    del params, opt_state, head0
+    torch.cuda.empty_cache()
+    print("training, AdamW: " + json.dumps(st))
+    out["adamw"] = st
+
+    # ---- 2. the two-replica step: int8 gradient exchange on K7/K8
+    st = {"card": smi, "arch": cfg.name, "n_pods": TRAIN_PODS,
+          "batch": TRAIN_BATCH, "optimizer": "adamw lr=1e-3 warmup=1"}
+    torch.cuda.reset_peak_memory_stats()
+    params_r, opt_r, ef_r = train.init_replica_state(
+        cfg, run, TRAIN_PODS,
+        torch.Generator(device=dev).manual_seed(TRAIN_SEED), opt, device=dev)
+    st["state_bytes"] = torch.cuda.memory_allocated()
+    step_r, _ = train.make_train_step_compressed(cfg, run, TRAIN_PODS, opt)
+    n_leaves = len(leaves(params_r))
+    # the recorded leaves' shapes are unique among the model's leaves
+    want = {tuple(leaf_at(params_r, name).shape): name
+            for name in TRAIN_EXCHANGE_LEAVES}
+    check(len(want) == len(TRAIN_EXCHANGE_LEAVES)
+          and sum(tuple(a.shape) in want for _, a in leaves(params_r))
+          == len(want), f"pods: recorded shapes {want}")
+    # one step under the profiler first (not counted), then the counted
+    # steps, the last of which the checks below read
+    st["step_profile"] = device_profile(
+        torch, lambda: step_r(params_r, opt_r, ef_r, batch), warm_up=False)
+    per_step, losses = [], []
+    with RecordExchange(want) as rec:
+        for i in range(TRAIN_PODS_STEPS):
+            ops.reset_launches()
+            m = timed_steps(torch, lambda: step_r(params_r, opt_r, ef_r,
+                                                  batch)[3],
+                            1, st, f"step{i}", tokens)[0]
+            per_step.append({k: ops.launches[k] for k in QDQ})
+            losses.append(m["loss"])
+    out["launches"]["pods_step"] = per_step[-1]
+    st["launches_per_step"] = per_step
+    st["losses"] = losses
+    st["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    for got in per_step:
+        expect(got == {"group_quant": n_leaves, "group_dequant": n_leaves},
+               f"pods: a step launched {got}, not {n_leaves} of each")
+    expect(all(np.isfinite(losses)), f"pods: losses {losses}")
+    same = all(torch.equal(a[0], a[1]) for _, a in leaves(params_r))
+    expect(same, "pods: the replicas' parameters differ after the step")
+    st["replicas_bit_identical"] = same
+    kept = {name: leaf_at(ef_r, name) for name in rec.seen}
+    del params_r, opt_r, ef_r
+    torch.cuda.empty_cache()
+    # the recorded leaves of the last step: K7 and K8 against their plain
+    # versions, bit for bit, on the exchange's (rows, 256) matrix, and on
+    # an odd-length cut of the smaller leaf (zero-padded to whole groups)
+    exact, k256 = {}, {}
+    for name in list(rec.seen):
+        g, e = rec.seen.pop(name)
+        gc = g.float() + e
+        del g, e
+        rows = grad_compress._rows(gc.reshape(TRAIN_PODS, -1)).reshape(
+            -1, grad_compress.GROUP).contiguous()
+        cases = [("leaf", rows)]
+        if name == "lm_head":
+            cases.append(("odd_cut", grad_compress._rows(
+                gc.reshape(-1)[:gc.numel() - 77]).contiguous()))
+        for label, x in cases:
+            q, s = ops.group_quant(x, 256)
+            q_p, s_p = ref.group_quant(x, 256)
+            ok = torch.equal(q, q_p) and torch.equal(s, s_p)
+            del q_p, s_p
+            d = ops.group_dequant(q, s, 256)
+            ok = ok and torch.equal(d, ref.group_dequant(q, s, 256))
+            del d
+            expect(ok, f"pods: K7/K8 != plain at group 256 on {name} "
+                       f"({label}, {tuple(x.shape)})")
+            exact[f"{name}/{label}"] = [tuple(x.shape), ok]
+        del cases
+        # the residual the step kept is the exchange's, within half a
+        # quantization step of its group
+        q, s = ops.group_quant(rows, 256)
+        deq = ops.group_dequant(q, s, 256).reshape(TRAIN_PODS, -1)
+        resid = (gc.reshape(TRAIN_PODS, -1)
+                 - deq[:, :gc[0].numel()]).reshape(gc.shape)
+        del deq
+        expect(torch.equal(resid, kept[name]),
+               f"pods: {name}'s residual is not the step's")
+        over = float((grad_compress._rows(resid.reshape(TRAIN_PODS, -1))
+                      .abs().amax(-1).reshape(-1) / s[:, 0]).max())
+        exact[f"{name}/residual_over_scale"] = over
+        expect(over <= 0.5 + 2.0 ** -15,
+               f"pods: {name}'s residual {over} · scale")
+        del resid
+        if name == "layers/mlp/w_up":
+            n, n_rows = rows.numel(), rows.shape[0]
+            k256 = {"shape": tuple(rows.shape),
+                    "k7": (cuda_ms(lambda: ops.group_quant(rows, 256), 20,
+                                   torch),
+                           cuda_ms(lambda: ref.group_quant(rows, 256), 3,
+                                   torch),
+                           bound(4 * n + n + 4 * n_rows, 4 * n)[0]),
+                    "k8": (cuda_ms(lambda: ops.group_dequant(q, s, 256), 20,
+                                   torch),
+                           cuda_ms(lambda: ref.group_dequant(q, s, 256), 3,
+                                   torch),
+                           bound(n + 4 * n_rows + 4 * n, n)[0])}
+        del gc, rows, q, s
+        torch.cuda.empty_cache()
+    expect(set(exact) >= {f"{p}/leaf" for p in TRAIN_EXCHANGE_LEAVES},
+           f"pods: recorded {sorted(exact)}")
+    st["k7_k8_exact_at_group_256"] = exact
+    st["k7_k8_ms_at_group_256"] = k256
+    del rec, kept
+    torch.cuda.empty_cache()
+    print("training, two replicas: " + json.dumps(st))
+    out["pods"] = st
+
+    # ---- 3. Adafactor, deepseek-7b cut to 4 layers, two microbatches
+    arch, depth, count = TRAIN_ADAFACTOR_CASE
+    cfg = replace(get_config(arch), n_layers=depth)
+    run = RunConfig(optimizer="adafactor", microbatches=2)
+    opt = adafactor.AdafactorConfig(warmup_steps=1)
+    st = {"card": smi, "arch": arch, "layers": depth,
+          "of_layers": get_config(arch).n_layers,
+          "params": model.param_counts(cfg)[0], "batch": TRAIN_BATCH,
+          "run": "microbatches=2, remat=layer",
+          "optimizer": "adafactor warmup=1"}
+    check(st["params"] == count, f"{arch}@{depth}: {st['params']} != {count}")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = train.init_train_state(
+        cfg, run, torch.Generator(device=dev).manual_seed(TRAIN_SEED), opt,
+        device=dev)
+    batch = train_batch(torch, np, cfg, TRAIN_SEED + 1, dev)
+    # the microbatched gradients against the one-batch gradients (bf16,
+    # rounded per half): each leaf within the bf16 gradient tolerance of
+    # the CPU tests, 2.5e-2 relative
+    _, _, g2 = train._microbatched_grads(params, batch, cfg, run)
+    _, _, g1 = train._microbatched_grads(params, batch, cfg,
+                                         replace(run, microbatches=1))
+    g1_of = dict(leaves(g1))
+    rel = {"/".join(p): float((g.float() - g1_of[p].float()).abs().max()
+                              / g1_of[p].float().abs().max())
+           for p, g in leaves(g2)}
+    st["microbatch_vs_one_batch_grads_rel"] = max(rel.values())
+    expect(max(rel.values()) <= 2.5e-2, f"adafactor: microbatched grads "
+                                        f"{rel}")
+    del g1, g2, g1_of
+    step, _ = train.make_train_step(cfg, run, opt)
+    ops.reset_launches()
+    metrics = timed_steps(torch, lambda: step(params, opt_state, batch)[2],
+                          TRAIN_ADAFACTOR_STEPS, st, "adafactor", tokens)
+    out["launches"]["adafactor_steps"] = dict(ops.launches)
+    st["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    st["losses"] = [m["loss"] for m in metrics]
+    expect(all(np.isfinite(st["losses"]))
+           and st["losses"][-1] < st["losses"][0],
+           f"adafactor: losses {st['losses']}")
+    st["step_profile"] = device_profile(
+        torch, lambda: step(params, opt_state, batch), warm_up=False)
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    print("training, Adafactor: " + json.dumps(st))
+    out["adafactor"] = st
     check(not failed, "; ".join(failed))
     return out
 
@@ -3162,6 +3738,18 @@ def main() -> int:
     print(f"recurrent serving: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(rec["launches"]))
 
+    # ------------------------------------- 10. embedding-input serving
+    t0 = time.perf_counter()
+    emb = embedding_serving(torch, smi)
+    print(f"embedding serving: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(emb["launches"]))
+
+    # ------------------------------------------------- 11. training
+    t0 = time.perf_counter()
+    trn = training(torch, smi)
+    print(f"training: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(trn["launches"]))
+
     # launches on the region-serving phase (2b) and the multi-part phase
     # (2c) beside each row's own path
     for r in rows:
@@ -3187,6 +3775,20 @@ def main() -> int:
         # phase 9: each generate and zamba2's cache read-back
         r["recurrent_launches"] = {
             run: counts[r["name"]] for run, counts in rec["launches"].items()}
+        # phase 10: each serving run and each read-back; phase 11: the
+        # plain steps and one two-replica step
+        r["embedding_launches"] = {
+            run: counts[r["name"]] for run, counts in emb["launches"].items()}
+        r["train_launches"] = {
+            run: counts.get(r["name"], 0)
+            for run, counts in trn["launches"].items()}
+        if r["name"] in QDQ:
+            key = "k7" if r["name"] == "group_quant" else "k8"
+            ms, plain_ms, b_ms = trn["pods"]["k7_k8_ms_at_group_256"][key]
+            r["group_256"] = {
+                "shape": trn["pods"]["k7_k8_ms_at_group_256"]["shape"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

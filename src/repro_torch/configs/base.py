@@ -2,9 +2,13 @@
 
 :class:`ModelConfig` copies the reference's frozen dataclass field for
 field, so that a config reads the same in either package.
-:class:`RunConfig` keeps the one execution knob the port's serving path
-reads; the reference's train-step knobs come with the train step, and
-``ShapeConfig`` (the benchmark cells' input shapes) with the cells.
+:class:`RunConfig` keeps the reference's knobs that the port's serving
+path and its single-card train step read, with the reference's defaults;
+the mesh knobs (``fsdp``, ``seq_shard``) come with the mesh,
+``grad_compress`` with the caller that reads it (the cells), and
+``ShapeConfig`` (the benchmark cells' input shapes) with the cells.  The
+port always loops over the stacked layers, so it has no
+``scan_layers``.
 """
 from __future__ import annotations
 
@@ -64,6 +68,13 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Execution knobs of the serving path."""
+    """Execution knobs of the serving path and the train step."""
 
+    microbatches: int = 1       # gradient-accumulation steps per train step
+    remat: str = "layer"        # none | layer | zero: not none checkpoints
+                                # each layer (activation checkpointing)
     kv_quant: bool = False      # int8 KV cache with per-(token, head) scales
+    optimizer: str = "adamw"    # adamw | adafactor (factored 2nd moment)
+    optimizer_dtype: str = "float32"   # moments dtype
+    grad_accum_dtype: str = "float32"  # microbatch gradient accumulator
+    logits_fp32: bool = True

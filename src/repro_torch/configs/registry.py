@@ -1,10 +1,11 @@
 """Architecture registry: ``get_config(id)`` → :class:`ModelConfig`.
 
-The port knows the configs whose family it runs: the decoders that take
-token ids — dense, mixture-of-experts, RWKV6 (ssm) and the Mamba2 /
-shared-attention hybrid.  The reference's vlm/audio decoders, fed by a
-stubbed frontend, raise ``NotImplementedError`` until their frontends are
-ported (ROADMAP.md, queue 1, item 2.4).
+The port runs every architecture of the reference's registry: the
+decoders that take token ids — dense, mixture-of-experts, RWKV6 (ssm)
+and the Mamba2 / shared-attention hybrid — and the vlm/audio decoders
+fed by frontend embeddings (``input_mode="embeddings"``: internvl2-76b,
+musicgen-medium; the frontends themselves are stubs in the reference,
+and the caller brings the embeddings).
 """
 from __future__ import annotations
 
@@ -29,26 +30,18 @@ ARCH_IDS = [
     "zamba2_2_7b",
 ]
 
-#: The architectures the port runs (token input; dense, MoE, ssm, hybrid).
-PORTED_IDS = ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "deepseek_7b",
-              "llama3_405b", "starcoder2_3b", "qwen1_5_32b", "rwkv6_7b",
-              "zamba2_2_7b"]
+#: The architectures the port runs: all of them.
+PORTED_IDS = list(ARCH_IDS)
 
 
 def get_config(arch: str) -> ModelConfig:
     """The full-size config of ``arch`` (``-`` and ``.`` read as ``_``).
 
     :raises KeyError: for an id the reference does not know.
-    :raises NotImplementedError: for an architecture whose family the
-        port does not run yet.
     """
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
-    if arch not in PORTED_IDS:
-        raise NotImplementedError(
-            f"{arch}: its family is not ported yet (ROADMAP.md, queue 1, "
-            f"item 2.4); the port runs {PORTED_IDS}")
     return import_module(f"{__package__}.{arch}").CONFIG
 
 

@@ -7,42 +7,53 @@ by Python loops over the stacked layer parameters (the reference's
   state is threaded through every mode;
 * hybrid (zamba2) — groups of ``shared_attn_every`` Mamba2 layers, each
   group followed by one application of a *shared* attention block and a
-  shared MLP (one parameter set, one KV cache slot per group).
-
-The reference's vlm/audio decoders, fed by frontend embeddings, raise
-``NotImplementedError`` (ROADMAP.md, queue 1, item 2.4).
+  shared MLP (one parameter set, one KV cache slot per group);
+* vlm / audio (internvl2, musicgen) — the dense stack, fed by frontend
+  embeddings (``input_mode="embeddings"``: no ``embed`` table; the
+  embeddings are cast to the model's dtype before the first block).
 
 ``mode``: train | prefill | decode.  Prefill returns the serve-time state
 of its S positions (``init_decode_state``'s layout) and only the last
 position's logits; decode writes into the state it is given, in place.
 The MoE layers' load-balance loss comes back as ``aux["moe_aux"]``, the
-mean over the layers, in every mode (0 for the other families).
+mean over the layers, in every mode (0 for the other families).  Train
+mode writes no state, so autograd sees no tensor written in place; with
+``remat=True`` each layer (and each Mamba2 layer inside a hybrid group)
+runs under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention, attn_specs, init_kv_cache
-from .layers import ParamSpec, _leaves, require_exact_f32_products, rmsnorm
+from .layers import (DTYPES, ParamSpec, _leaves, require_exact_f32_products,
+                     rmsnorm)
 from .moe import mlp_apply, mlp_specs, moe_apply, moe_specs
 from .rwkv import init_rwkv_state, rwkv6_apply, rwkv6_specs
 from .ssm import init_mamba_state, mamba2_apply, mamba2_specs
 
 __all__ = ["model_specs", "init_decode_state", "forward", "param_counts",
-           "check_ported"]
+           "check_ported", "input_key"]
+
+
+#: The reference's families: the dense stack (dense, moe, and the
+#: embedding-fed vlm and audio), ssm (RWKV6) and hybrid (Mamba2 + shared
+#: attention).
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+INPUT_MODES = ("tokens", "embeddings")
 
 
 def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config the port does not run."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.input_mode != "tokens"):
+    """Raise ``NotImplementedError`` for a config the port does not run:
+    a family or an input mode the reference does not have."""
+    if cfg.family not in FAMILIES or cfg.input_mode not in INPUT_MODES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (experts={cfg.n_experts}, "
-            f"input={cfg.input_mode}) is not ported yet; the port runs "
-            "token-input decoders, dense, MoE, ssm or hybrid (ROADMAP.md, "
-            "queue 1, item 2.4)")
+            f"{cfg.name}: family {cfg.family!r} (input={cfg.input_mode}) "
+            f"is not one of the reference's {FAMILIES} (inputs "
+            f"{INPUT_MODES})")
 
 
 def _stack_specs(specs: dict, n: int) -> dict:
@@ -66,17 +77,18 @@ def _groups(cfg) -> int:
 
 
 def model_specs(cfg) -> dict:
-    """The spec tree of the reference's ``model_specs`` for a token-input
-    config.  A hybrid's Mamba2 leaves are stacked twice, ``(groups,
-    shared_attn_every, …)``, beside the unstacked ``shared_attn`` and
-    ``shared_mlp``."""
+    """The spec tree of the reference's ``model_specs``.  A hybrid's
+    Mamba2 leaves are stacked twice, ``(groups, shared_attn_every, …)``,
+    beside the unstacked ``shared_attn`` and ``shared_mlp``; an
+    embedding-input config has no ``embed`` table."""
     check_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     specs = {
         "final_ln": ParamSpec((d,), (None,), cfg.dtype, init="ones"),
         "lm_head": ParamSpec((d, v), ("embed", "vocab"), cfg.dtype),
-        "embed": ParamSpec((v, d), ("vocab", "embed"), cfg.dtype),
     }
+    if cfg.input_mode == "tokens":
+        specs["embed"] = ParamSpec((v, d), ("vocab", "embed"), cfg.dtype)
     if cfg.family == "hybrid" and cfg.shared_attn_every:
         per_group = _stack_specs(_layer_specs(cfg), cfg.shared_attn_every)
         specs["layers"] = _stack_specs(per_group, _groups(cfg))
@@ -142,27 +154,61 @@ def _put(stack: dict, index: tuple, new: dict) -> None:
         stack[k][index] = v
 
 
-def forward(params: dict, cfg, *, tokens: torch.Tensor, mode: str = "train",
+def _checkpointed(fn, on: bool):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``on``: backward recomputes it instead of keeping its internals."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def input_key(cfg) -> str:
+    """The batch key, and :func:`forward`'s input keyword, of ``cfg``:
+    ``"tokens"``, or ``"embeds"`` for an embedding-input config."""
+    return "tokens" if cfg.input_mode == "tokens" else "embeds"
+
+
+def _inputs(params: dict, cfg, tokens, embeds) -> torch.Tensor:
+    """The first block's input: the token embeddings, or the frontend
+    embeddings cast to the model's dtype (the reference's cast)."""
+    if input_key(cfg) == "tokens":
+        if tokens is None or embeds is not None:
+            raise ValueError(f"{cfg.name} takes token ids (tokens=)")
+        return params["embed"][tokens]
+    if embeds is None or tokens is not None:
+        raise ValueError(f"{cfg.name} takes frontend embeddings (embeds=)")
+    if embeds.dim() != 3 or embeds.shape[-1] != cfg.d_model:
+        raise ValueError(f"embeds {tuple(embeds.shape)}: expected (B, S, "
+                         f"{cfg.d_model})")
+    return embeds.to(DTYPES[cfg.dtype])
+
+
+def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, mode: str = "train",
             state: dict | None = None, cache_len: int | None = None,
-            q_chunk: int = 512, kv_chunk: int = 1024
+            q_chunk: int = 512, kv_chunk: int = 1024, remat: bool = False
             ) -> tuple[torch.Tensor, dict]:
     """Returns ``(logits, aux)`` with ``aux = {"state": …, "moe_aux": …}``;
     ``moe_aux`` is the MoE layers' load-balance loss summed over the
     layers and divided by ``n_layers`` (0 for the other families).
 
-    ``tokens``: (B, S) int64 ids on the parameters' device.  Train
-    returns all positions' logits and no state; prefill the last
-    position's logits and the state of its S positions (the bf16 cache
-    stack, the recurrent states); decode (``state`` and ``cache_len``
-    given) runs the S new tokens at positions ``cache_len…`` and writes
-    their K/V and the new recurrent states into ``state`` in place.  The
-    RWKV state is threaded in every mode, from zeros in train and
-    prefill; RWKV chunks by 32 and Mamba2 by 256, the reference's.
+    Input: ``tokens`` (B, S) int64 ids for a token-input config, or
+    ``embeds`` (B, S, d_model) frontend embeddings (any float dtype) for
+    an embedding-input one, on the parameters' device.  Train returns
+    all positions' logits and no state; prefill the last position's
+    logits and the state of its S positions (the bf16 cache stack, the
+    recurrent states); decode (``state`` and ``cache_len`` given) runs
+    the S new positions at ``cache_len…`` and writes their K/V and the
+    new recurrent states into ``state`` in place.  The RWKV state is
+    threaded in every mode, from zeros in train and prefill; RWKV chunks
+    by 32 and Mamba2 by 256, the reference's.  ``remat`` checkpoints each
+    layer in train mode (a hybrid: each group, and each Mamba2 layer in
+    it); the gradients are the same with it on or off.
     """
     check_ported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = params["embed"][tokens]
+    x = _inputs(params, cfg, tokens, embeds)
     require_exact_f32_products(x)
     B, S = x.shape[:2]
     dev = x.device
@@ -175,56 +221,75 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor, mode: str = "train",
     if mode == "prefill":
         state = init_decode_state(cfg, B, S, device=dev)
     keep = mode != "train"          # train threads zero states, keeps none
+    remat = remat and mode == "train"
 
     moe_aux = torch.zeros((), dtype=torch.float32, device=dev)
     layers = params["layers"]
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
+        def rwkv_layer(h, i):
             lst = {k: v[i] for k, v in state.items()} if keep else None
-            x, new = rwkv6_apply({k: v[i] for k, v in layers.items()}, x,
+            h, new = rwkv6_apply({k: v[i] for k, v in layers.items()}, h,
                                  cfg, mode=mode, state=lst, chunk=32)
             if keep:
                 _put(state, (i,), new)
+            return h
+
+        layer = _checkpointed(rwkv_layer, remat)
+        for i in range(cfg.n_layers):
+            x = layer(x, i)
     elif cfg.family == "hybrid":
-        for g in range(_groups(cfg)):
+        def mamba_layer(h, g, j):
+            lst = ({k: v[g, j] for k, v in state["mamba"].items()}
+                   if keep else None)
+            delta, new = mamba2_apply({k: v[g, j] for k, v in layers.items()},
+                                      h, cfg, mode=mode, state=lst)
+            if keep:
+                _put(state["mamba"], (g, j), new)
+            return h + delta
+
+        mamba = _checkpointed(mamba_layer, remat)
+
+        def group(h, g):
             for j in range(cfg.shared_attn_every):
-                lst = ({k: v[g, j] for k, v in state["mamba"].items()}
-                       if keep else None)
-                delta, new = mamba2_apply(
-                    {k: v[g, j] for k, v in layers.items()}, x, cfg,
-                    mode=mode, state=lst)
-                x = x + delta
-                if keep:
-                    _put(state["mamba"], (g, j), new)
+                h = mamba(h, g, j)
             g_kv = ({k: v[g] for k, v in state["kv"].items()}
                     if mode == "decode" else None)
-            a_out, new_kv = attention(params["shared_attn"], x, cfg,
+            a_out, new_kv = attention(params["shared_attn"], h, cfg,
                                       mode=mode, positions=positions,
                                       cache=g_kv, cache_len=cache_len,
                                       q_chunk=q_chunk, kv_chunk=kv_chunk)
             if mode == "prefill":
                 _put(state["kv"], (g,), new_kv)
-            x = x + a_out
-            x = x + mlp_apply(params["shared_mlp"], x, cfg)
+            h = h + a_out
+            return h + mlp_apply(params["shared_mlp"], h, cfg)
+
+        group_r = _checkpointed(group, remat)
+        for g in range(_groups(cfg)):
+            x = group_r(x, g)
     else:
-        for i in range(cfg.n_layers):
+        def block(h, i):
             lp = {blk: {k: v[i] for k, v in layers[blk].items()}
                   for blk in ("attn", "mlp")}
             l_kv = ({k: v[i] for k, v in state.items()} if mode == "decode"
                     else None)
-            a_out, new_kv = attention(lp["attn"], x, cfg, mode=mode,
+            a_out, new_kv = attention(lp["attn"], h, cfg, mode=mode,
                                       positions=positions, cache=l_kv,
                                       cache_len=cache_len, q_chunk=q_chunk,
                                       kv_chunk=kv_chunk)
             if mode == "prefill":
                 _put(state, (i,), new_kv)
-            x = x + a_out
+            h = h + a_out
             if cfg.n_experts:
-                m_out, m_aux = moe_apply(lp["mlp"], x, cfg)
-                moe_aux = moe_aux + m_aux
+                m_out, m_aux = moe_apply(lp["mlp"], h, cfg)
             else:
-                m_out = mlp_apply(lp["mlp"], x, cfg)
-            x = x + m_out
+                m_out, m_aux = mlp_apply(lp["mlp"], h, cfg), None
+            return h + m_out, m_aux
+
+        block_r = _checkpointed(block, remat)
+        for i in range(cfg.n_layers):
+            x, m_aux = block_r(x, i)
+            if m_aux is not None:
+                moe_aux = moe_aux + m_aux
 
     if mode == "prefill":
         # serving needs only the last position's logits

@@ -3,8 +3,16 @@ int8 KV cache.
 
 :func:`make_prefill_step` and :func:`make_serve_step` are the units of
 the reference's engine; :class:`ServingEngine` runs them in a batched
-loop (greedy or sampled from an explicit ``torch.Generator``).  The
-reference's region-serving ``AsyncServingCore`` is not ported yet.
+loop (greedy or sampled from an explicit ``torch.Generator``).  An
+embedding-input architecture (internvl2-76b, musicgen-medium) is served
+through ``prefill`` and ``decode`` with ``embeds=``: its frontend is the
+caller's, so ``generate``, which would have to map a sampled token back
+to an embedding, raises.
+
+The region-serving counterpart — :class:`AsyncServingCore`, the bounded
+worker-pool execution front with 429/503 admission control the HTTP
+region endpoint runs on — is re-exported here from
+:mod:`repro_torch.serving.core`, as the reference's engine does.
 """
 from __future__ import annotations
 
@@ -14,23 +22,27 @@ import torch
 
 from ..configs.base import ModelConfig, RunConfig
 from ..device import resolve_device
-from ..models.model import check_ported, forward
+from ..models.model import check_ported, forward, input_key
+from .core import AsyncServingCore, ServerBusy
 from .kv_cache import quantize_prefill_cache
 
-__all__ = ["make_prefill_step", "make_serve_step", "ServingEngine"]
+__all__ = ["AsyncServingCore", "ServerBusy", "make_prefill_step",
+           "make_serve_step", "ServingEngine"]
 
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig, *,
                       q_chunk: int = 512, kv_chunk: int = 1024):
     """``prefill(params, batch) -> (last-token logits, state)``.
 
-    ``batch["tokens"]``: (B, P) ids.  With ``run.kv_quant`` the bf16
-    cache stack is quantized to int8 (kernel 7, one launch per K or V
-    stack)."""
+    ``batch["tokens"]``: (B, P) ids, or ``batch["embeds"]``: (B, P,
+    d_model) for an embedding-input config.  With ``run.kv_quant`` the
+    bf16 cache stack is quantized to int8 (kernel 7, one launch per K or
+    V stack)."""
+    key = input_key(cfg)
+
     def prefill(params, batch):
-        logits, aux = forward(params, cfg, tokens=batch["tokens"],
-                              mode="prefill", q_chunk=q_chunk,
-                              kv_chunk=kv_chunk)
+        logits, aux = forward(params, cfg, mode="prefill", q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, **{key: batch[key]})
         state = aux["state"]
         if run.kv_quant:
             state = quantize_prefill_cache(cfg, state)
@@ -42,13 +54,15 @@ def make_prefill_step(cfg: ModelConfig, run: RunConfig, *,
 def make_serve_step(cfg: ModelConfig, run: RunConfig, *,
                     kv_chunk: int = 1024):
     """``serve(params, state, batch, cache_len) -> (logits, state)``: one
-    decode step of ``batch["tokens"]`` (B, 1) at position ``cache_len``,
-    writing its K/V into ``state`` in place."""
+    decode step of ``batch["tokens"]`` (B, 1) — or ``batch["embeds"]``
+    (B, 1, d_model) — at position ``cache_len``, writing its K/V into
+    ``state`` in place."""
+    key = input_key(cfg)
+
     def serve(params, state, batch, cache_len):
-        logits, aux = forward(params, cfg, tokens=batch["tokens"],
-                              mode="decode", state=state,
+        logits, aux = forward(params, cfg, mode="decode", state=state,
                               cache_len=cache_len, q_chunk=1,
-                              kv_chunk=kv_chunk)
+                              kv_chunk=kv_chunk, **{key: batch[key]})
         return logits[:, -1], aux["state"]
 
     return serve
@@ -91,21 +105,51 @@ class ServingEngine:
         self._prefill = make_prefill_step(self.cfg, self.run)
         self._decode = make_serve_step(self.cfg, self.run)
 
-    def prefill(self, params: dict, prompts, capacity: int
-                ) -> tuple[torch.Tensor, dict]:
-        """Last-token logits of ``prompts`` (B, P) and their cache, grown
-        to ``capacity`` positions."""
-        tokens = torch.as_tensor(prompts, device=self.device).long()
-        logits, state = self._prefill(params, {"tokens": tokens})
-        return logits, grow_cache(state, capacity - tokens.shape[1],
-                                  self.cfg)
+    def prefill(self, params: dict, prompts=None, capacity: int | None = None,
+                *, embeds=None) -> tuple[torch.Tensor, dict]:
+        """Last-position logits of ``prompts`` (B, P) ids — or of
+        ``embeds`` (B, P, d_model) for an embedding-input config — and
+        their cache, grown to ``capacity`` positions."""
+        if capacity is None:
+            raise TypeError("prefill needs the cache's capacity")
+        batch = self._batch(prompts, embeds, 2)
+        logits, state = self._prefill(params, batch)
+        P = next(iter(batch.values())).shape[1]
+        return logits, grow_cache(state, capacity - P, self.cfg)
 
-    def decode(self, params: dict, state: dict, tok: torch.Tensor,
-               cache_len: int) -> tuple[torch.Tensor, dict]:
-        """Logits of one new token per sequence, ``tok`` (B,), at
-        position ``cache_len``."""
-        return self._decode(params, state, {"tokens": tok[:, None]},
+    def decode(self, params: dict, state: dict, tok: torch.Tensor | None = None,
+               cache_len: int | None = None, *, embeds=None
+               ) -> tuple[torch.Tensor, dict]:
+        """Logits of one new position per sequence at ``cache_len``: the
+        token ``tok`` (B,), or the embedding ``embeds`` (B, d_model) for
+        an embedding-input config."""
+        if cache_len is None:
+            raise TypeError("decode needs cache_len")
+        if tok is not None:
+            tok = torch.as_tensor(tok, device=self.device)[:, None]
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds, device=self.device)[:, None]
+        return self._decode(params, state, self._batch(tok, embeds, 2),
                             cache_len)
+
+    def _batch(self, tokens, embeds, ndim: int) -> dict:
+        """The step's batch: ``tokens`` (``ndim`` axes) or ``embeds``
+        (one more), whichever the config takes, on the engine's device."""
+        key = input_key(self.cfg)
+        if key == "tokens":
+            if tokens is None or embeds is not None:
+                raise ValueError(f"{self.cfg.name} takes token ids")
+            t = torch.as_tensor(tokens, device=self.device).long()
+            want = ndim
+        else:
+            if embeds is None or tokens is not None:
+                raise ValueError(f"{self.cfg.name} takes frontend "
+                                 "embeddings: pass embeds=")
+            t = torch.as_tensor(embeds, device=self.device)
+            want = ndim + 1
+        if t.dim() != want:
+            raise ValueError(f"{key}: {t.dim()} axes, expected {want}")
+        return {key: t}
 
     def generate(self, params: dict, prompts, *, new_tokens: int,
                  greedy: bool = True,
@@ -114,7 +158,19 @@ class ServingEngine:
         (B, new_tokens) int64 ids: greedy, or sampled from the softmax of
         the logits with ``generator`` when ``greedy=False``.  As in the
         reference, the loop runs ``new_tokens`` decode steps, the last of
-        which only fills the cache."""
+        which only fills the cache.
+
+        :raises ValueError: for an embedding-input config: there is no
+            map from a sampled token back to a frontend embedding (nor in
+            the reference); run ``prefill`` and ``decode`` with
+            ``embeds=`` instead.
+        """
+        if input_key(self.cfg) != "tokens":
+            raise ValueError(
+                f"{self.cfg.name} takes frontend embeddings, and generate "
+                "has no map from a sampled token to an embedding: call "
+                "prefill(params, embeds=..., capacity=...) and "
+                "decode(params, state, embeds=..., cache_len=...)")
         B, P = prompts.shape
         logits, state = self.prefill(params, prompts, P + new_tokens)
         outs = []

@@ -38,6 +38,17 @@ The reference's numpy host path (``repro``) writes
   seed whose leaves that the
   recurrences read are drawn non-zero (:func:`recurrent_tree`,
   :func:`recurrent_inputs`);
+* the embedding-input case (:func:`write_frontends_reference`) into
+  ``frontends.npz``: at the smoke widths of musicgen-medium and
+  internvl2-76b, in float32 and bf16, the train logits, a prefill and
+  one decode step fed by seeded frontend embeddings;
+* the train case (:func:`write_train_reference`) into ``train.npz``:
+  on musicgen-medium's float32 smoke model, the loss and gradients and
+  the loss and gradient norm with two microbatches, from the reference's
+  unsharded ``loss_fn`` and ``_microbatched_grads``; the parameters after
+  one AdamW and one Adafactor step from seeded gradients; and one
+  two-replica int8 gradient exchange (digests of the mean and the
+  residuals);
 * the variant set ``write_variant_set`` tunes and writes for the
   reference tuning tests' dataset (:data:`TUNED_DATASET`, 32³, two
   levels) and targets (:data:`TUNED_TARGETS`), default ladder, into
@@ -58,7 +69,8 @@ Only :func:`main` and the ``write_*`` functions import the reference:
 the card's tests and ``chip_smoke.py`` import this module for
 :func:`level`, :data:`TACPLUS`, the MoE case's seeds and the paths.
 ``--moe PATH`` writes only the MoE case, to ``PATH``; ``--recurrent
-PATH`` only the recurrent case.
+PATH`` only the recurrent case; ``--frontends PATH`` only the
+embedding-input case; ``--train PATH`` only the train case.
 """
 import contextlib
 import hashlib
@@ -111,6 +123,35 @@ RECURRENT_X_SHAPE = (2, 40)     # (batch, seq) of the block inputs
 RECURRENT_CHUNK = 8
 RECURRENT_TOKENS_SHAPE = (2, 12)
 RECURRENT_KEEP = 8
+#: the embedding-input case (``frontends.npz``): musicgen-medium's and
+#: internvl2-76b's smoke configs on a numpy-seeded tree
+#: (:func:`model_tree`) and seeded frontend embeddings, N(0, 1) · 0.02 in
+#: float32 as the reference's stub frontend makes them
+#: (:func:`frontend_inputs`): the train logits over ``FRONTEND_SHAPE``, a
+#: prefill of all but the last position (bf16 cache) and one decode step
+#: of the last
+FRONTEND_FIXTURE = os.path.join(HERE, "frontends.npz")
+FRONTEND_ARCHS = ("musicgen_medium", "internvl2_76b")
+FRONTEND_SEED = 2424
+FRONTEND_DTYPES = ("float32", "bfloat16")
+FRONTEND_SHAPE = (2, 12)        # (batch, positions)
+#: the train case (``train.npz``), on musicgen-medium's float32 smoke
+#: model, a numpy-seeded tree and batch (:func:`train_batch`: labels whose
+#: last position is -1, as the reference's pipelines mask it),
+#: ``RunConfig(remat="layer")``: the loss and gradients, the loss and
+#: gradient norm with two microbatches; the parameters after one AdamW
+#: and after one Adafactor step, and one two-replica gradient exchange,
+#: from seeded gradients and residuals shaped as the model's leaves
+#: (:func:`exchange_inputs`; the steps take replica 0's), the exchange
+#: stored as SHA-256 digests of the mean and the new residuals (it is
+#: exact on either device)
+TRAIN_FIXTURE = os.path.join(HERE, "train.npz")
+TRAIN_ARCH = "musicgen_medium"
+TRAIN_SEED = 2525
+TRAIN_BATCH = (4, 16)           # (batch, positions)
+TRAIN_ADAMW = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+TRAIN_ADAFACTOR = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+TRAIN_PODS = 2
 
 #: Relative max-error tolerances of the port's language-model tests, in
 #: one table for tests/test_torch_lm_serving.py,
@@ -136,10 +177,36 @@ TOL = {"block": {"float32": 1e-5, "bfloat16": 1e-2},
 #: conv state rounded to bf16 (the reference keeps it bf16 in every
 #: dtype), where a float32 difference can flip a rounding; and the
 #: reference's own decode-vs-train test holds it at 2e-2 in bf16
+#: The train path's kinds (tests/test_torch_train.py and the train case
+#: of tests/test_torch_card_reference.py): ``"loss"``, a smoke model's
+#: loss; ``"grads"``, each gradient leaf's relative max error (bf16
+#: gradients are rounded to bf16 and flow back through bf16 activations
+#: whose roundings may fall one step apart: 1.9e-2 is the worst leaf
+#: read, zamba2's one-group ``conv_w``); ``"update"``, each leaf's
+#: optimizer update (new − old parameters) after a step from the same
+#: gradients, whose only differences are float32 summation order (the
+#: global norm, the factored means) and XLA's ``cos``/``pow``/``rsqrt``,
+#: one ulp from libm's (held per value: within this share of the leaf's
+#: largest update, plus one ulp of the value).
+TOL.update({"loss": {"float32": 1e-6, "bfloat16": 1e-4},
+            "grads": {"float32": 1e-5, "bfloat16": 2.5e-2},
+            "update": {"float32": 1e-5}})
 ARCH_TOL = {("logits", "zamba2_2_7b"): {"float32": 1e-4, "bfloat16": 1e-1},
             ("steps", "zamba2_2_7b"): {"float32": 1e-2, "bfloat16": 1e-1},
             ("decode_vs_train", "zamba2_2_7b"): {"float32": 5e-2,
                                                  "bfloat16": 2e-2}}
+#: the embedding-input smoke models' float32 decode steps read the bf16
+#: KV cache, where K/V values whose float32 bits differ in the last place
+#: round to the other bf16 neighbour: 1–3 of the 4,608 values of the
+#: second layer on the CPU (the first layer's are equal), each moving the
+#: steps' logits by up to ~2e-4 (1.9e-4 read on the CPU, 8.4e-4 on the
+#: card, whose float32 sums part further from the CPU's)
+ARCH_TOL.update({("steps", arch): {"float32": 2e-3, "bfloat16": 1e-2}
+                 for arch in FRONTEND_ARCHS})
+#: rwkv6-7b's chunked WKV multiplies by exp(±Σ log w) within a chunk,
+#: which amplifies float32 rounding in the backward: 1.4e-5 read on one
+#: float32 leaf (its forward keeps TOL["logits"])
+ARCH_TOL[("grads", "rwkv6_7b")] = {"float32": 5e-5, "bfloat16": 2.5e-2}
 
 
 def tol(kind: str, dtype: str, arch: str | None = None) -> float:
@@ -389,6 +456,211 @@ def write_recurrent_reference(path: str) -> dict:
     return out
 
 
+def model_tree(specs, cfg, seed: int) -> dict:
+    """A smoke model's float32 numpy tree for either package's
+    ``model_specs(cfg)``: :func:`seeded_tree`, and for an ssm or hybrid
+    config the recurrence's leaves redrawn from ``seed + 1``
+    (:func:`recurrent_tree`)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return recurrent_tree(spec_leaves(specs), seed)
+    return seeded_tree(spec_leaves(specs), seed)
+
+
+def embeddings(rng, shape: tuple) -> np.ndarray:
+    """Frontend embeddings as the reference's stub frontend makes them:
+    N(0, 1) · 0.02, float32."""
+    return rng.standard_normal(shape).astype(np.float32) * np.float32(0.02)
+
+
+def frontend_inputs(cfg) -> np.ndarray:
+    """The embedding-input case's ``FRONTEND_SHAPE + (d_model,)``
+    embeddings, from ``FRONTEND_SEED + 1``."""
+    return embeddings(np.random.default_rng(FRONTEND_SEED + 1),
+                      FRONTEND_SHAPE + (cfg.d_model,))
+
+
+def train_batch(cfg, shape: tuple, seed: int) -> dict:
+    """A seeded train batch: ``tokens`` (int32) or ``embeds`` for the
+    config's input mode, and ``labels`` (int32) in ``[0, vocab)`` with the
+    last position -1 (masked)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.input_mode == "tokens":
+        out["tokens"] = rng.integers(0, cfg.vocab_size, shape).astype(
+            np.int32)
+    else:
+        out["embeds"] = embeddings(rng, shape + (cfg.d_model,))
+    labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    labels[:, -1] = -1
+    out["labels"] = labels
+    return out
+
+
+def exchange_inputs(leaves: dict, n_pods: int, seed: int
+                    ) -> tuple[dict, dict]:
+    """Seeded ``(gradients, residuals)`` for a two-replica exchange: for
+    each ``{"a/b": (shape, init)}`` leaf, in sorted path order, float32
+    ``(n_pods, …)`` gradients N(0, 1) · 1e-2 and residuals N(0, 1) ·
+    1e-4, as flat ``{"a/b": array}`` dicts."""
+    rng = np.random.default_rng(seed)
+    grads, ef = {}, {}
+    for path in sorted(leaves):
+        shape = (n_pods,) + tuple(leaves[path][0])
+        grads[path] = (1e-2 * rng.standard_normal(shape)).astype(np.float32)
+        ef[path] = (1e-4 * rng.standard_normal(shape)).astype(np.float32)
+    return grads, ef
+
+
+def nested(flat_tree: dict) -> dict:
+    """The nested dict of ``{"a/b": leaf}``."""
+    out: dict = {}
+    for path, v in flat_tree.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return out
+
+
+def flat(tree, prefix: str = "") -> dict:
+    """``{"a/b": leaf}`` of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def _as_reference(tree: dict, specs: dict) -> dict:
+    import jax.numpy as jnp
+
+    return {k: _as_reference(v, specs[k]) if isinstance(v, dict)
+            else jnp.asarray(v).astype(specs[k].dtype)
+            for k, v in tree.items()}
+
+
+def write_frontends_reference(path: str) -> dict:
+    """Run the embedding-input case on the reference and save its outputs
+    (float32 arrays) to ``path``; returns them.  Set ``XLA_FLAGS`` before
+    JAX starts (see :func:`main`)."""
+    from dataclasses import replace
+
+    import jax.numpy as jnp
+
+    from repro.configs import RunConfig, smoke_config
+    from repro.models import model as rmodel
+    from repro.serving import engine as rengine
+
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        for dtype in FRONTEND_DTYPES:
+            cfg = replace(smoke_config(arch), dtype=dtype)
+            specs = rmodel.model_specs(cfg)
+            params = _as_reference(model_tree(specs, cfg, FRONTEND_SEED),
+                                   specs)
+            emb = jnp.asarray(frontend_inputs(cfg))
+            tag = f"{arch}/{dtype}"
+            logits, _ = rmodel.forward(params, cfg, embeds=emb, mode="train")
+            out[f"{tag}/train"] = f32(logits)
+            run = RunConfig(kv_quant=False)
+            lg, state = rengine.make_prefill_step(cfg, run)(
+                params, {"embeds": emb[:, :-1]})
+            out[f"{tag}/prefill"] = f32(lg)
+            state = rengine.ServingEngine(cfg, run)._grow_cache(state, 1)
+            lg, _ = rengine.make_serve_step(cfg, run)(
+                params, state, {"embeds": emb[:, -1:]},
+                jnp.int32(FRONTEND_SHAPE[1] - 1))
+            out[f"{tag}/decode"] = f32(lg)
+    np.savez_compressed(path, **out)
+    return out
+
+
+def reference_exchange(grads: list, efs: list) -> tuple[dict, list]:
+    """The reference's two-replica exchange, its ``_quant_leaf`` and
+    ``_dequant_leaf`` composed as ``make_train_step_compressed``'s
+    ``exchange.one`` composes them, run eagerly: ``grads``/``efs`` one
+    nested dict of a replica each.  Returns ``(the mean gradient, each
+    replica's new residual)``."""
+    import jax.numpy as jnp
+
+    from repro.optim.grad_compress import _dequant_leaf, _quant_leaf
+
+    g_flat, e_flat = [flat(g) for g in grads], [flat(e) for e in efs]
+    mean, new_e = {}, [{} for _ in grads]
+    for path in sorted(g_flat[0]):
+        deqs = []
+        for r, (g, e) in enumerate(zip(g_flat, e_flat)):
+            leaf = g[path]
+            gc = leaf.astype(jnp.float32) + e[path]
+            q, scale = _quant_leaf(gc.reshape(-1))
+            deq = _dequant_leaf(q, scale, gc.shape)
+            new_e[r][path] = gc - deq
+            deqs.append(deq)
+        mean[path] = jnp.stack(deqs).mean(axis=0).astype(
+            g_flat[0][path].dtype)
+    return mean, new_e
+
+
+def write_train_reference(path: str) -> dict:
+    """Run the train case on the reference's unsharded functions and save
+    its outputs to ``path`` (float32 arrays; the exchange as digests);
+    returns them."""
+    from dataclasses import replace
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import RunConfig, smoke_config
+    from repro.launch.train import _microbatched_grads, loss_fn
+    from repro.models import model as rmodel
+    from repro.optim.adafactor import (AdafactorConfig, adafactor_init,
+                                       adafactor_update)
+    from repro.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                   global_norm)
+
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))
+    cfg = replace(smoke_config(TRAIN_ARCH), dtype="float32")
+    specs = rmodel.model_specs(cfg)
+    params = _as_reference(model_tree(specs, cfg, TRAIN_SEED), specs)
+    batch = {k: jnp.asarray(v) for k, v in
+             train_batch(cfg, TRAIN_BATCH, TRAIN_SEED + 1).items()}
+    run = RunConfig(remat="layer")
+    (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        params, batch, cfg, run)
+    out = {"loss": f32(loss)}
+    out.update({f"grads/{k}": f32(v) for k, v in flat(grads).items()})
+    # the optimizer steps take replica 0's seeded gradients: the model's
+    # own would carry their float32 summation order into Adam's first
+    # step, which divides each gradient by its magnitude
+    g2, e2 = exchange_inputs(spec_leaves(specs), TRAIN_PODS, TRAIN_SEED + 2)
+    step_grads = nested({k: jnp.asarray(v[0]) for k, v in g2.items()})
+    for name, opt, init, update in (
+            ("adamw", AdamWConfig(**TRAIN_ADAMW), adamw_init, adamw_update),
+            ("adafactor", AdafactorConfig(**TRAIN_ADAFACTOR), adafactor_init,
+             adafactor_update)):
+        new, _, stats = update(params, step_grads, init(params, opt), opt)
+        out.update({f"{name}/{k}": f32(v) for k, v in stats.items()})
+        out.update({f"{name}/params/{k}": f32(v)
+                    for k, v in flat(new).items()})
+    loss, _, grads = _microbatched_grads(params, batch, cfg,
+                                         replace(run, microbatches=2))
+    out["mb2/loss"] = f32(loss)
+    out["mb2/grad_norm"] = f32(global_norm(grads))
+    mean, new_e = reference_exchange(
+        [{k: jnp.asarray(v[r]) for k, v in g2.items()}
+         for r in range(TRAIN_PODS)],
+        [{k: jnp.asarray(v[r]) for k, v in e2.items()}
+         for r in range(TRAIN_PODS)])
+    for k in g2:
+        out[f"exchange/mean/{k}"] = np.asarray(digest(f32(mean[k])))
+        out[f"exchange/ef/{k}"] = np.asarray(digest(np.stack(
+            [f32(e[k]) for e in new_e])))
+    np.savez_compressed(path, **out)
+    return out
+
+
 def moe_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
     """The MoE case's float32 ``moe_apply`` input ``(2, 24, d_model)`` and
     the smoke model's train tokens ``(2, 8)``, from ``MOE_SEED + 1``."""
@@ -507,6 +779,8 @@ def main() -> None:
     recon = write_reference(CONTAINER)
     write_moe_reference(MOE_FIXTURE)
     write_recurrent_reference(RECURRENT_FIXTURE)
+    write_frontends_reference(FRONTEND_FIXTURE)
+    write_train_reference(TRAIN_FIXTURE)
     np.savez_compressed(RECON, recon=recon)
     levels = write_tacplus_reference(TACPLUS_CONTAINER)
     with open(TACPLUS_RECON, "w") as f:
@@ -517,7 +791,7 @@ def main() -> None:
         json.dump(tuned, f, indent=1, sort_keys=True)
         f.write("\n")
     for p in (CONTAINER, RECON, MOE_FIXTURE, RECURRENT_FIXTURE,
-              TACPLUS_CONTAINER,
+              FRONTEND_FIXTURE, TRAIN_FIXTURE, TACPLUS_CONTAINER,
               TACPLUS_RECON,
               *(os.path.join(TUNED_SET, n)
                 for n in sorted(os.listdir(TUNED_SET))), TUNED_JSON):
@@ -533,5 +807,9 @@ if __name__ == "__main__":
         write_moe_reference(sys.argv[2])
     elif sys.argv[1:2] == ["--recurrent"]:
         write_recurrent_reference(sys.argv[2])
+    elif sys.argv[1:2] == ["--frontends"]:
+        write_frontends_reference(sys.argv[2])
+    elif sys.argv[1:2] == ["--train"]:
+        write_train_reference(sys.argv[2])
     else:
         main()

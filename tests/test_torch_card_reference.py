@@ -35,7 +35,18 @@ files the reference wrote:
   step (zamba2 cut to its first group), on numpy-seeded trees whose
   recurrence leaves are non-zero, on the card within the CPU tests'
   tolerances (``make_card_reference.TOL``: blocks float32 1e-5, bf16
-  1e-2; models float32 1e-4, bf16 1e-2).
+  1e-2; models float32 1e-4, bf16 1e-2);
+* the embedding-input case (``frontends.npz``): musicgen-medium's and
+  internvl2-76b's smoke models fed by seeded frontend embeddings, train
+  logits, a prefill and one decode step, in float32 and bf16, within the
+  CPU tests' tolerances (``TOL``/``ARCH_TOL``: ``"logits"``,
+  ``"steps"``);
+* the train case (``train.npz``): musicgen-medium's float32 smoke model,
+  its loss and gradients (``TOL["loss"]``, ``TOL["grads"]``), the loss
+  and gradient norm with two microbatches, one AdamW and one Adafactor
+  step from seeded gradients (each value within ``TOL["update"]`` of its
+  leaf's largest update plus one ulp), and a two-replica gradient
+  exchange on kernels 7 and 8 at group 256, bit for bit (its digests).
 
 The ``cuda`` tests import no JAX, so they run on the card's machine with
 ``pytest --noconftest -m cuda``.  The CPU tests regenerate the fixtures
@@ -60,11 +71,16 @@ from repro_torch.convert import dataset_from_arrays, params_from_reference
 from repro_torch.core import amr, hybrid
 from repro_torch.io import variants as vrt
 from repro_torch.kernels import ops
+from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as tlay
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models import ssm as tssm
+from repro_torch.optim import adafactor as tada
+from repro_torch.optim import adamw as tadam
+from repro_torch.optim import grad_compress as tgc
+from repro_torch.optim.adamw import global_norm
 from repro_torch.serving import make_prefill_step, make_serve_step
 from repro_torch.serving.engine import grow_cache
 from repro_torch.tuning import measure_metrics, write_variant_set
@@ -486,3 +502,175 @@ def test_recurrent_on_card_matches_reference(arch, dtype):
     torch.set_float32_matmul_precision("highest")
     _recurrent_match(_port_recurrent(arch, dtype, dev),
                      _recurrent_fixture(), dtype)
+
+
+# ------------------------------------------------- embedding-input decoders
+
+def _load(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _regenerate(flag: str, path: str) -> dict:
+    """The reference's outputs of one case, written again by
+    ``make_card_reference.py`` in a child process (so that its XLA flags
+    take effect)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.abspath(os.path.join(HERE, "..", "src"))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "card_reference",
+                                      "make_card_reference.py"),
+         flag, path], env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return _load(path)
+
+
+def _port_frontends(arch: str, dtype: str, device: str) -> dict:
+    """The port's outputs of the embedding-input case for ``arch`` on
+    ``device``, as float32 numpy arrays under the fixture's keys."""
+    cfg = replace(smoke_config(arch), dtype=dtype)
+    tree = fixture.model_tree(tmodel.model_specs(cfg), cfg,
+                              fixture.FRONTEND_SEED)
+    params = params_from_reference(tree, cfg, device=device)
+    emb = torch.from_numpy(fixture.frontend_inputs(cfg)).to(device)
+    f32 = lambda t: t.float().cpu().numpy()
+    tag = f"{arch}/{dtype}"
+    out = {}
+    logits, _ = tmodel.forward(params, cfg, embeds=emb, mode="train")
+    out[f"{tag}/train"] = f32(logits)
+    run = RunConfig(kv_quant=False)
+    lg, state = make_prefill_step(cfg, run)(params, {"embeds": emb[:, :-1]})
+    out[f"{tag}/prefill"] = f32(lg)
+    lg, _ = make_serve_step(cfg, run)(
+        params, grow_cache(state, 1, cfg), {"embeds": emb[:, -1:]},
+        emb.shape[1] - 1)
+    out[f"{tag}/decode"] = f32(lg)
+    return out
+
+
+def _frontends_match(got: dict, want: dict, arch: str, dtype: str) -> None:
+    for key, g in got.items():
+        w = want[key]
+        assert g.shape == w.shape and np.isfinite(g).all(), key
+        kind = "steps" if key.endswith("/decode") else "logits"
+        assert _rel(w, g) <= fixture.tol(kind, dtype, arch), (key,
+                                                              _rel(w, g))
+
+
+def test_frontends_fixture_regenerates(tmp_path):
+    """float32 within 1e-6 and bf16 within 1e-2, relative."""
+    got = _regenerate("--frontends", str(tmp_path / "frontends.npz"))
+    want = _load(fixture.FRONTEND_FIXTURE)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        limit = 1e-6 if "float32" in k else 1e-2
+        assert _rel(want[k], got[k]) <= limit, k
+
+
+@pytest.mark.parametrize("dtype", fixture.FRONTEND_DTYPES)
+@pytest.mark.parametrize("arch", fixture.FRONTEND_ARCHS)
+def test_port_matches_frontends_fixture_on_cpu(arch, dtype):
+    _frontends_match(_port_frontends(arch, dtype, "cpu"),
+                     _load(fixture.FRONTEND_FIXTURE), arch, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", fixture.FRONTEND_DTYPES)
+@pytest.mark.parametrize("arch", fixture.FRONTEND_ARCHS)
+def test_frontends_on_card_match_reference(arch, dtype):
+    dev = _card()
+    torch.set_float32_matmul_precision("highest")
+    _frontends_match(_port_frontends(arch, dtype, dev),
+                     _load(fixture.FRONTEND_FIXTURE), arch, dtype)
+
+
+# ------------------------------------------------- the train step
+
+def _nested(flat_tree: dict, device: str) -> dict:
+    return fixture.nested({k: torch.from_numpy(np.asarray(v)).to(device)
+                           for k, v in flat_tree.items()})
+
+
+def _train_match(device: str) -> None:
+    """The port's train case on ``device`` against ``train.npz``."""
+    want = _load(fixture.TRAIN_FIXTURE)
+    cfg = replace(smoke_config(fixture.TRAIN_ARCH), dtype="float32")
+    specs = tmodel.model_specs(cfg)
+    tree = fixture.model_tree(specs, cfg, fixture.TRAIN_SEED)
+    params = params_from_reference(tree, cfg, device=device)
+    batch = {k: torch.from_numpy(v).to(device).long() if v.dtype == np.int32
+             else torch.from_numpy(v).to(device) for k, v in
+             fixture.train_batch(cfg, fixture.TRAIN_BATCH,
+                                 fixture.TRAIN_SEED + 1).items()}
+    run = RunConfig(remat="layer")
+    loss, _, grads = ttrain.value_and_grad(params, batch, cfg, run)
+    f32 = lambda t: t.float().cpu().numpy()
+    assert _rel(want["loss"], f32(loss)) <= fixture.tol("loss", "float32")
+    for path, g in fixture.flat(grads).items():
+        assert _rel(want[f"grads/{path}"], f32(g)) <= fixture.tol(
+            "grads", "float32"), path
+    # each optimizer's step from the seeded gradients the reference took
+    g2, e2 = fixture.exchange_inputs(fixture.spec_leaves(specs),
+                                     fixture.TRAIN_PODS,
+                                     fixture.TRAIN_SEED + 2)
+    step_grads = _nested({k: v[0] for k, v in g2.items()}, device)
+    for name, opt, init, update in (
+            ("adamw", tadam.AdamWConfig(**fixture.TRAIN_ADAMW),
+             tadam.adamw_init, tadam.adamw_update),
+            ("adafactor", tada.AdafactorConfig(**fixture.TRAIN_ADAFACTOR),
+             tada.adafactor_init, tada.adafactor_update)):
+        new, _, stats = update(params, step_grads, init(params, opt), opt)
+        assert float(stats["lr"]) == float(want[f"{name}/lr"])
+        assert abs(float(stats["grad_norm"]) - float(want[f"{name}/grad_norm"])
+                   ) <= 1e-6 * float(want[f"{name}/grad_norm"])
+        for path, p in fixture.flat(new).items():
+            w, o, g = (want[f"{name}/params/{path}"],
+                       fixture.flat(tree)[path], f32(p))
+            limit = (fixture.TOL["update"]["float32"] * np.abs(w - o).max()
+                     + np.spacing(np.abs(w)))
+            assert (np.abs(g - w) <= limit).all(), (name, path)
+    loss2, _, grads2 = ttrain._microbatched_grads(
+        params, batch, cfg, replace(run, microbatches=2))
+    assert _rel(want["mb2/loss"], f32(loss2)) <= fixture.tol("loss",
+                                                            "float32")
+    assert _rel(want["mb2/grad_norm"], f32(global_norm(grads2))) <= 1e-6
+    # the exchange, exact: kernel 7 once and kernel 8 once a leaf
+    ops.reset_launches()
+    mean, new_e = tgc.compress_pod_reduce(
+        _nested(g2, device), _nested(e2, device), n_pods=fixture.TRAIN_PODS)
+    launches = dict(ops.launches)
+    n_leaves = len(g2) if device != "cpu" else 0
+    assert (launches["group_quant"], launches["group_dequant"]) == (
+        n_leaves, n_leaves)
+    for path in g2:
+        m = fixture.flat(mean)[path].cpu().numpy()
+        assert fixture.digest(m[0]) == str(want[f"exchange/mean/{path}"])
+        assert np.array_equal(m[0], m[1])
+        assert fixture.digest(fixture.flat(new_e)[path].cpu().numpy()) == str(
+            want[f"exchange/ef/{path}"]), path
+
+
+def test_train_fixture_regenerates(tmp_path):
+    """Every array within 1e-6, relative to its largest magnitude; the
+    exchange's digests equal."""
+    got = _regenerate("--train", str(tmp_path / "train.npz"))
+    want = _load(fixture.TRAIN_FIXTURE)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        if k.startswith("exchange/"):
+            assert str(got[k]) == str(want[k]), k
+        else:
+            assert _rel(want[k], got[k]) <= 1e-6, k
+
+
+def test_port_matches_train_fixture_on_cpu():
+    _train_match("cpu")
+
+
+@pytest.mark.cuda
+def test_train_on_card_matches_reference():
+    dev = _card()
+    torch.set_float32_matmul_precision("highest")
+    _train_match(dev)

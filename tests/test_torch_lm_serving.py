@@ -258,16 +258,16 @@ def _port_runs(ref, arch: str, dtype: str, kv_quant: bool) -> dict:
 
 
 def test_configs_match_reference():
+    """Every arch of the reference's registry loads, field for field the
+    reference's config and smoke config; an unknown id raises."""
     for arch in R_ARCH_IDS:
-        if arch in PORTED_IDS:
-            assert asdict(get_config(arch)) == asdict(r_get(arch))
-            assert asdict(smoke_config(arch)) == asdict(r_smoke(arch))
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_config(arch)
+        assert asdict(get_config(arch)) == asdict(r_get(arch))
+        assert asdict(smoke_config(arch)) == asdict(r_smoke(arch))
     with pytest.raises(KeyError):
         get_config("gpt2")
-    assert set(PORTED_IDS) == set(ARCHS)
+    assert PORTED_IDS == list(R_ARCH_IDS)
+    assert set(PORTED_IDS) == set(ARCHS) | {"internvl2_76b",
+                                           "musicgen_medium"}
 
 
 def test_model_specs_and_init():
@@ -556,14 +556,32 @@ def test_params_from_reference_recurrent_tree(ref, arch):
             tree["shared_attn"]["wq"].shape)
 
 
-@pytest.mark.parametrize("change", [
-    {"family": "vlm", "input_mode": "embeddings"}], ids=["embeddings"])
-def test_unported_families_raise(change):
+@pytest.mark.parametrize("change, runs", [
+    ({"family": "vlm", "input_mode": "embeddings"}, True),
+    ({"family": "vision"}, False),
+    ({"input_mode": "patches"}, False)],
+    ids=["embeddings", "unknown_family", "unknown_input"])
+def test_unported_families_raise(change, runs):
+    """A family or an input mode the reference does not have raises; an
+    embedding-input dense stack builds (no token table) and serves."""
     cfg = replace(smoke_config("deepseek_7b"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*2.4"):
-        tmodel.model_specs(cfg)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, RunConfig(), device="cpu")
+    if not runs:
+        with pytest.raises(NotImplementedError, match="reference"):
+            tmodel.model_specs(cfg)
+        with pytest.raises(NotImplementedError):
+            ServingEngine(cfg, RunConfig(), device="cpu")
+        return
+    specs = tmodel.model_specs(cfg)
+    assert "embed" not in specs and set(specs["layers"]) == {"attn", "mlp"}
+    eng = ServingEngine(cfg, RunConfig(), device="cpu")
+    params = tlay.init_from_specs(specs, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    emb = torch.randn((B, P, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+    logits, _ = eng.prefill(params, capacity=P + 1, embeds=emb)
+    assert tuple(logits.shape) == (B, cfg.vocab_size)
+    with pytest.raises(ValueError, match="embeds"):
+        eng.generate(params, _tokens(cfg, 1, (B, P)), new_tokens=2)
 
 
 def _decode_vs_train(cfg, params) -> float:

@@ -15,7 +15,10 @@ the reference on the CPU.
 * ``core.sz.SZResult.compression_ratio``;
 * ``core.opst.merge_subblocks``, ``core.blocks.subblocks_tile_exactly``
   (on the random grids of ``tests/test_partition.py``) and
-  ``core.compat.zstd_module``.
+  ``core.compat.zstd_module``;
+* ``serving.engine``'s re-exports of ``AsyncServingCore`` and
+  ``ServerBusy`` (the reference's engine carries them beside its LM
+  steps).
 
 The reference is imported inside the test bodies only.
 """
@@ -416,3 +419,18 @@ def test_zstd_module_matches_reference():
 
     assert compat.zstd_module() is rcompat.zstd_module()
     assert (compat.zstd_module() is None) == (not compat.HAVE_ZSTD)
+
+
+# ---------------------------------------------------------------- serving
+
+
+def test_engine_reexports_serving_core():
+    from repro.serving import engine as rengine
+
+    from repro_torch.serving import core, engine
+
+    assert engine.AsyncServingCore is core.AsyncServingCore
+    assert engine.ServerBusy is core.ServerBusy
+    for name in ("AsyncServingCore", "ServerBusy"):
+        assert name in engine.__all__ and name in rengine.__all__
+    assert set(rengine.__all__) <= set(engine.__all__)
