@@ -283,7 +283,37 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    are first held within 2.5e-2 of the one-batch gradients (the CPU
    tests' bf16 gradient tolerance); the loss falls.  Printed: step s,
    tokens/s, peak bytes, a profiled step's launches and busy share,
-   ``float32_matmul_precision`` (``"highest"``).
+   ``float32_matmul_precision`` (``"highest"``);
+12. the resilient loop on one card, through
+   ``repro_torch.launch.train.train_loop`` with a ``checkpoint_dir``:
+   musicgen-medium at full width cut to 8 of its 48 layers (229,664,256
+   parameters), float32, AdamW (lr 1e-3, one warmup step), fed by the
+   port's ``embedding_batches`` at phase 11's batch shape (seed 31).
+   Run (a): 6 steps, a checkpoint every 3 (the loss falls; the restored
+   step-6 state equals the saved one bit for bit); run (b): a fresh
+   8-step loop resumes at step 6, its stream advanced there (history
+   from step 6; profiled: launches, busy share); run (c): a stream that
+   raises ``SimulatedFailure`` when step 4's batch is fetched, then a
+   loop resumed from step 3, held to (a)'s parameters within
+   ``LOOP_RESUME_REL_MAX`` (the bit-exact outcome printed).  Then (a)'s
+   state saved and restored once lossless (equal bit for bit) and once
+   lossy at ``eb_rel = 1e-4``, each read alone: kernel 5 exactly once
+   for each rank-3 lossy leaf on the save and kernel 6 on the restore,
+   every lossy leaf within ``eb`` (+ float32 rounding), the moments
+   lossless; two leaves' card blobs byte for byte and their card decodes
+   bit for bit against the CPU's plain encode and decode; kernels 5 and
+   6 against their plain versions at the largest leaf's shape, timed.
+   Last, one granite-moe-1b-a400m expert leaf at full shape (``w_up``,
+   24 × 32 × 1,024 × 512) through ``core.sz.lorenzo_codes`` and
+   ``lorenzo_decode``, the functions the tensor codec calls: kernels 1
+   and 2 once each on its ``(32, 1024, 512)`` bricks, equal to their
+   plain versions, timed.  Printed: the temporary directory's free
+   bytes, each step's synchronized seconds and the watchdog's durations
+   (host time around each step call, which returns before its kernels
+   end), save and restore seconds, file bytes and their ratio, the save's
+   shares in the host copy, kernel 5 and the byte pass (zlib where
+   ``zstandard`` is missing), and each run's launch counts
+   (``loop_launches`` on the kernel rows).
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -360,6 +390,23 @@ TRAIN_PODS = 2
 TRAIN_ADAFACTOR_CASE = ("deepseek_7b", 4, 1648398336)
 # the exchange's leaves recorded for the exact and residual checks
 TRAIN_EXCHANGE_LEAVES = ("lm_head", "layers/mlp/w_up")
+# phase 12: train_loop on musicgen-medium at full width cut to 8 of its
+# 48 layers (a full-depth float32 checkpoint with AdamW's moments is
+# ~16 GB, and its lossy encode a zlib pass on the host), float32, from
+# embedding_batches at phase 11's batch shape; the lossy checkpoint's
+# bound; the two leaves whose card blobs and decodes are held to the
+# CPU's plain versions (kernel 6's planes and three-pass routes); one
+# expert leaf at full shape for kernels 1 and 2
+LOOP_ARCH, LOOP_LAYERS = "musicgen_medium", 8
+LOOP_SEED = 31
+LOOP_EB_REL = 1e-4
+LOOP_HELD_LEAVES = ("layers/attn/wq", "layers/mlp/w_up")
+LOOP_EXPERT = ("granite_moe_1b_a400m", "layers/mlp/w_up")
+# run (c), resumed from its step-3 checkpoint, against run (a): the same
+# kernels on the same inputs from the same state, so only a device
+# reduction whose order varied could move a value: each parameter leaf
+# within 1e-6 of its largest magnitude (bit-exactness is printed)
+LOOP_RESUME_REL_MAX = 1e-6
 # the MoE layer's routing, dispatch and expert operators
 MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
                 "aten::searchsorted", "aten::index_copy_",
@@ -3140,6 +3187,459 @@ def training(torch, smi: str) -> dict:
     return out
 
 
+class SyncedClock:
+    """Wall seconds between consecutive batches the loop takes from a
+    stream, each ended by a synchronize: one full loop step apiece (its
+    launches, its kernels, its logging and any save it starts)."""
+
+    def __init__(self, torch, stream):
+        self.torch, self.stream = torch, stream
+        self.stamps = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        return next(self.stream)
+
+    def seconds(self) -> list[float]:
+        return [b - a for a, b in zip(self.stamps, self.stamps[1:])]
+
+
+class SaveClock:
+    """Times, while active, what a checkpoint write spends in kernel 5
+    (``ops.lorenzo3d_codes``, synchronized around each call) and in the
+    tensor codec's byte pass on the host (``repro_torch.io.tensor``'s
+    ``zlib.compress``, or ``zstd_compress`` where ``zstandard`` is
+    installed), from whichever thread writes."""
+
+    def __init__(self, torch, ops, tensor_mod):
+        self.torch, self.ops, self.mod = torch, ops, tensor_mod
+        self.k5_s = self.byte_pass_s = 0.0
+        self.codec = "zstd" if tensor_mod.HAVE_ZSTD else "zlib"
+
+    def _timed(self, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.byte_pass_s += time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        import types
+        import zlib
+
+        self.orig = (self.ops.lorenzo3d_codes, self.mod.zlib,
+                     self.mod.zstd_compress)
+
+        def k5(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig[0](*a, **kw)
+            self.torch.cuda.synchronize()
+            self.k5_s += time.perf_counter() - t0
+            return out
+        self.ops.lorenzo3d_codes = k5
+        self.mod.zlib = types.SimpleNamespace(
+            compress=self._timed(zlib.compress), crc32=zlib.crc32)
+        self.mod.zstd_compress = self._timed(self.orig[2])
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.lorenzo3d_codes, self.mod.zlib,
+         self.mod.zstd_compress) = self.orig
+
+
+class RecordWatchdogs:
+    """While active, ``train_loop``'s ``StepWatchdog`` is a subclass that
+    keeps every instance made: yields the list, whose watchdogs' step
+    durations can be read after the loop returns."""
+
+    def __init__(self, resilience):
+        self.mod = resilience
+
+    def __enter__(self):
+        made = []
+        self.orig = orig = self.mod.StepWatchdog
+
+        class Kept(orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+        self.mod.StepWatchdog = Kept
+        return made
+
+    def __exit__(self, *exc):
+        self.mod.StepWatchdog = self.orig
+
+
+def failing_stream(stream, fail_at: int, ready: str):
+    """``stream`` that raises ``SimulatedFailure`` when batch ``fail_at``
+    is asked for, once ``ready`` (the checkpoint written before it) is on
+    disk: the loop's last save is non-blocking."""
+    from repro_torch.runtime import FailureInjector
+
+    inj = FailureInjector(fail_at_step=fail_at)
+    for i, batch in enumerate(stream):
+        if i == fail_at:
+            t0 = time.perf_counter()
+            while not os.path.exists(ready):
+                check(time.perf_counter() - t0 < 120, f"no {ready}")
+                time.sleep(0.01)
+        inj.check(i)
+        yield batch
+
+
+def same_trees(torch, a: dict, b: dict) -> bool:
+    from repro_torch.optim.tree import leaves
+
+    la, lb = leaves(a), dict(leaves(b))
+    return len(la) == len(lb) and all(
+        p in lb and x.dtype == lb[p].dtype and x.shape == lb[p].shape
+        and torch.equal(x, lb[p].to(x.device)) for p, x in la)
+
+
+def tree_rel(torch, want: dict, got: dict) -> float:
+    """The largest per-leaf ``max |got − want| / max |want|``."""
+    from repro_torch.optim.tree import leaves
+
+    g = dict(leaves(got))
+    return max(float((g[p].float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+               for p, w in leaves(want))
+
+
+def resilient_loop(torch, smi: str) -> dict:
+    """Phase 12: ``train_loop`` on the card with checkpoints (musicgen-
+    medium at full width, 8 of its 48 layers, float32, AdamW, the port's
+    ``embedding_batches``): run (a), the resumed run (b), the failed and
+    resumed run (c); then a measured lossless and lossy save and restore
+    (kernels 5 and 6 on the lossy leaves), two lossy blobs and decodes
+    held to the CPU's plain versions, and one granite-moe expert leaf at
+    full shape through ``lorenzo_codes``/``lorenzo_decode`` (kernels 1
+    and 2 on ``(E, d, f)`` bricks).  Returns the printed readings with
+    each run's launch counts."""
+    import itertools
+    import json as js
+    import shutil
+    import signal
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import sz
+    from repro_torch.data import embedding_batches
+    from repro_torch.io import tensor as tio_tensor
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import SimulatedFailure, resilience
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    arch, depth = LOOP_ARCH, LOOP_LAYERS
+    cfg = replace(get_config(arch), n_layers=depth, dtype="float32")
+    run = RunConfig(remat="layer")
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    shape = SimpleNamespace(global_batch=TRAIN_BATCH[0],
+                            seq_len=TRAIN_BATCH[1])
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    usage = shutil.disk_usage(root)
+    out = {"card": smi, "arch": arch, "layers": depth,
+           "of_layers": get_config(arch).n_layers,
+           "params": model.param_counts(cfg)[0], "dtype": "float32",
+           "batch": TRAIN_BATCH, "optimizer": "adamw lr=1e-3 warmup=1",
+           "run": "remat=layer", "tmp_free_bytes": usage.free,
+           "tmp_dir": root, "launches": {}}
+    print(f"resilient loop: temporary directory {root}, "
+          f"{usage.free} bytes free of {usage.total}")
+    sigterm = signal.getsignal(signal.SIGTERM)
+
+    def stream(start: int = 0):
+        return itertools.islice(embedding_batches(
+            cfg, shape, seed=LOOP_SEED, device=dev), start, None)
+
+    def loop(steps: int, data, ckpt: str, **kw):
+        return train.train_loop(
+            cfg, run, data, steps=steps, opt_cfg=opt, checkpoint_dir=ckpt,
+            checkpoint_every=3, log_every=1, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(LOOP_SEED),
+            **kw)
+
+    def counted(key: str, fn):
+        """``fn()`` read alone: the launch counts set to 0 just before it
+        and read just after (also when it raises)."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            out["launches"][key] = dict(ops.launches)
+
+    try:
+        # ---- (a) six steps, a checkpoint every three
+        dir_a = os.path.join(root, "a")
+        clock = SyncedClock(torch, stream())
+        t0 = time.perf_counter()
+        with RecordWatchdogs(resilience) as wds:
+            params_a, opt_a, hist_a = counted("a", lambda: loop(
+                6, clock, dir_a))
+        out["a_s"] = time.perf_counter() - t0
+        out["a_history"] = hist_a
+        out["a_step_s"] = clock.seconds()
+        out["a_watchdog_s"] = list(wds[0].durations)
+        out["watchdog_note"] = ("the watchdog's durations are host time "
+                                "around each step call, which returns "
+                                "before its kernels end: no synchronize "
+                                "closes the window")
+        check([s for s, _ in hist_a] == list(range(6)),
+              f"(a): history {hist_a}")
+        check(all(np.isfinite([v for _, v in hist_a])), f"(a): {hist_a}")
+        check(hist_a[-1][1] < hist_a[0][1],
+              f"(a): the loss did not fall: {hist_a}")
+        mgr_a = CheckpointManager(dir_a, device=dev)
+        check(mgr_a.list_steps() == [3, 6], f"(a): {mgr_a.list_steps()}")
+        rp, ro, rs = mgr_a.restore(6)
+        check(rs == 6 and same_trees(torch, params_a, rp)
+              and same_trees(torch, opt_a, ro),
+              "(a): the restored step-6 state != the saved state")
+        del rp, ro
+
+        # ---- (b) a fresh loop of 8 steps resumes at step 6
+        t0 = time.perf_counter()
+        res_b = {}
+        with RecordWatchdogs(resilience) as wds:
+            out["b_profile"] = device_profile(
+                torch, lambda: res_b.setdefault("r", counted(
+                    "b", lambda: loop(8, stream(6), dir_a))), warm_up=False)
+        out["b_s"] = time.perf_counter() - t0
+        _, opt_b, hist_b = res_b.pop("r")
+        out["b_history"] = hist_b
+        out["b_watchdog_s"] = list(wds[0].durations)
+        check(hist_b and hist_b[0][0] >= 6 and [s for s, _ in hist_b]
+              == [6, 7], f"(b): history {hist_b}")
+        check(int(opt_b["step"]) == 8, f"(b): opt step {opt_b['step']}")
+        del opt_b
+        shutil.rmtree(dir_a)
+        torch.cuda.empty_cache()
+
+        # ---- (c) a failure when step 4's batch is fetched, then a resume
+        dir_c = os.path.join(root, "c")
+        t0 = time.perf_counter()
+        try:
+            counted("c_failed", lambda: loop(6, failing_stream(
+                stream(), 4, os.path.join(dir_c, "step_00000003.json")),
+                dir_c))
+            check(False, "(c): no SimulatedFailure")
+        except SimulatedFailure as exc:
+            out["c_failure"] = str(exc)
+        torch.cuda.empty_cache()
+        check(CheckpointManager(dir_c, device=dev).list_steps() == [3],
+              "(c): the failed run's checkpoints")
+        params_c, opt_c, hist_c = counted("c_resumed", lambda: loop(
+            6, stream(3), dir_c))
+        out["c_s"] = time.perf_counter() - t0
+        out["c_history"] = hist_c
+        check(hist_c[0][0] == 3, f"(c): history {hist_c}")
+        out["c_vs_a_bit_exact"] = {"params": same_trees(torch, params_a,
+                                                        params_c),
+                                   "opt": same_trees(torch, opt_a, opt_c)}
+        out["c_vs_a_params_rel"] = tree_rel(torch, params_a, params_c)
+        out["c_vs_a_history_equal"] = hist_c == hist_a[3:]
+        check(out["c_vs_a_params_rel"] <= LOOP_RESUME_REL_MAX,
+              f"(c): params {out['c_vs_a_params_rel']} from (a)'s")
+        del params_c, opt_c
+        shutil.rmtree(dir_c)
+        torch.cuda.empty_cache()
+
+        # ---- measured saves and restores of (a)'s final state
+        saves = {}
+        n_rank3 = 0
+        for kind, eb_rel in (("lossless", 0.0), ("lossy", LOOP_EB_REL)):
+            d = os.path.join(root, kind)
+            mgr = CheckpointManager(d, lossy_eb_rel=eb_rel, device=dev)
+            with SaveClock(torch, ops, tio_tensor) as sc:
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                mgr.save(6, params_a, opt_a)
+                t1 = time.perf_counter()
+                mgr.wait()
+                t2 = time.perf_counter()
+            save_launches = dict(ops.launches)
+            ops.reset_launches()
+            t3 = time.perf_counter()
+            rp, ro, _ = mgr.restore(6)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            restore_launches = dict(ops.launches)
+            out["launches"][f"{kind}_save"] = save_launches
+            out["launches"][f"{kind}_restore"] = restore_launches
+            npz = os.path.join(d, "step_00000006.npz")
+            with open(os.path.join(d, "step_00000006.json")) as f:
+                manifest = js.load(f)
+            lossy = {manifest["entries"][k]["path"]: (k, v["eb"])
+                     for k, v in manifest["lossy"].items()}
+            st = {"save_s": t2 - t0, "host_copy_s": t1 - t0,
+                  "write_s": t2 - t1, "restore_s": t4 - t3,
+                  "file_bytes": os.path.getsize(npz),
+                  "k5_s": sc.k5_s, "byte_pass_s": sc.byte_pass_s,
+                  "byte_codec": sc.codec, "lossy_leaves": len(lossy)}
+            st.update({f"{k}_share": st[f"{k}_s"] / st["save_s"]
+                       for k in ("host_copy", "k5", "byte_pass")})
+            if kind == "lossless":
+                check(not lossy and same_trees(torch, params_a, rp)
+                      and same_trees(torch, opt_a, ro),
+                      "lossless restore != the saved state")
+                check(sum(save_launches.values()) == 0
+                      and sum(restore_launches.values()) == 0,
+                      f"lossless: launches {save_launches} "
+                      f"{restore_launches}")
+            else:
+                n_rank3 = sum(leaf_at(params_a, p[len("params/"):]).dim()
+                              == 3 for p in lossy)
+                st["rank3_lossy_leaves"] = n_rank3
+                check(n_rank3 > 0 and save_launches["lorenzo3d_codes"]
+                      == n_rank3, f"lossy save: K5 {save_launches} for "
+                                  f"{n_rank3} rank-3 leaves")
+                check(restore_launches["lorenzo3d_recon"] == n_rank3,
+                      f"lossy restore: K6 {restore_launches}")
+                worst = 0.0
+                for p, (_, eb) in lossy.items():
+                    src = leaf_at(params_a, p[len("params/"):])
+                    err = float((leaf_at(rp, p[len("params/"):]) - src)
+                                .abs().max())
+                    limit = eb + 2.0 ** -23 * float(src.abs().max())
+                    check(err <= limit, f"lossy {p}: {err} > {limit}")
+                    worst = max(worst, err / eb)
+                st["max_err_over_eb"] = worst
+                check(same_trees(torch, opt_a, ro),
+                      "lossy: the optimizer state is not lossless")
+                # two leaves: the card's blob == the CPU's plain encode,
+                # the card's decode == the plain decode, bit for bit
+                held = {}
+                with np.load(npz) as z:
+                    for p in LOOP_HELD_LEAVES:
+                        key, eb = lossy[f"params/{p}"]
+                        blob = z[key].tobytes()
+                        src = leaf_at(params_a, p)
+                        t0 = time.perf_counter()
+                        plain = tio_tensor.encode_tensor(
+                            src.cpu(), eb, device="cpu")
+                        plain_s = time.perf_counter() - t0
+                        card = tio_tensor.decode_tensor(blob, device=dev)
+                        host = tio_tensor.decode_tensor(blob, device="cpu")
+                        ok = (blob == plain, torch.equal(card.cpu(), host))
+                        held[p] = {"shape": list(src.shape),
+                                   "routes": [ops.codes3d_route(
+                                       tuple(src.shape), tuple(src.shape)),
+                                       ops.recon3d_route(
+                                       tuple(src.shape), tuple(src.shape))],
+                                   "blob_bytes": len(blob),
+                                   "blob_equal": ok[0], "decode_equal": ok[1],
+                                   "cpu_encode_s": plain_s}
+                        check(all(ok), f"lossy {p}: card != plain {ok}")
+                        del card, host
+                st["held_to_plain"] = held
+            del rp, ro
+            saves[kind] = st
+            shutil.rmtree(d)
+            torch.cuda.empty_cache()
+        saves["file_ratio"] = (saves["lossless"]["file_bytes"]
+                               / saves["lossy"]["file_bytes"])
+        out["saves"] = saves
+        out["rank3_lossy_leaves"] = n_rank3
+
+        # K5/K6 at the largest checkpoint leaf's shape, against plain
+        x = leaf_at(params_a, LOOP_HELD_LEAVES[-1]).contiguous()
+        sh, eb = tuple(x.shape), LOOP_EB_REL * float(x.abs().max())
+        codes = ops.lorenzo3d_codes(x, eb, sh)
+        check(torch.equal(codes, ref.lorenzo3d_codes(x, eb, sh)),
+              f"K5 != plain at {sh}")
+        recon = ops.lorenzo3d_recon(codes, eb, sh)
+        check(torch.equal(recon, ref.lorenzo3d_recon(codes, eb, sh)),
+              f"K6 != plain at {sh}")
+        n = x.numel()
+        out["k56_at_leaf"] = {
+            "shape": sh, "routes": [ops.codes3d_route(sh, sh),
+                                    ops.recon3d_route(sh, sh)],
+            "k5_ms": cuda_ms(lambda: ops.lorenzo3d_codes(x, eb, sh), 5,
+                             torch),
+            "k5_plain_ms": cuda_ms(lambda: ref.lorenzo3d_codes(x, eb, sh),
+                                   2, torch),
+            "k6_ms": cuda_ms(lambda: ops.lorenzo3d_recon(codes, eb, sh), 5,
+                             torch),
+            "k6_plain_ms": cuda_ms(lambda: ref.lorenzo3d_recon(codes, eb, sh),
+                                   2, torch),
+            "bound_ms": bound(12 * n, 12 * n)[0]}
+        del params_a, opt_a, x, codes, recon
+        torch.cuda.empty_cache()
+
+        # ---- one granite-moe expert leaf at full shape: K1 and K2 on
+        # (E, d, f) bricks, through lorenzo_codes / lorenzo_decode
+        e_arch, e_path = LOOP_EXPERT
+        e_cfg = get_config(e_arch)
+        spec = leaf_at(model.model_specs(e_cfg), e_path)
+        g = torch.Generator(device=dev).manual_seed(LOOP_SEED)
+        x = (torch.randn(spec.shape, generator=g, device=dev)
+             / float(np.sqrt(spec.shape[-2]))).to(spec.torch_dtype).float()
+        eb = LOOP_EB_REL * float(x.abs().max())
+        n = x.numel()
+        codes = counted("expert_encode", lambda: sz.lorenzo_codes(x, eb))
+        k1 = ops.lorenzo3d_codes_batched(x, eb)
+        check(torch.equal(k1, ref.lorenzo3d_codes_batched(x, eb)),
+              f"K1 != plain on {tuple(x.shape)}")
+        check(torch.equal(codes, torch.diff(
+            k1, dim=0, prepend=torch.zeros_like(k1[:1]))),
+            "lorenzo_codes != K1 and its axis-0 difference")
+        del k1
+        check(torch.equal(codes, sz.lorenzo_nd_codes(sz.prequant(x, eb))),
+              "lorenzo_codes != the plain N-D Lorenzo")
+        recon = counted("expert_decode", lambda: sz.lorenzo_decode(codes, eb))
+        cum = torch.cumsum(codes, dim=0).contiguous()
+        k2 = ops.lorenzo3d_recon_batched(cum, eb)
+        check(torch.equal(k2, recon) and torch.equal(
+            k2, ref.lorenzo3d_recon_batched(cum, eb)),
+            f"K2 != plain on {tuple(x.shape)}")
+        del k2
+        err = float((recon - x).abs().max())
+        check(err <= eb + 2.0 ** -23 * float(x.abs().max()),
+              f"expert leaf: error {err} > eb {eb}")
+        for key, name in (("expert_encode", "lorenzo3d_codes_batched"),
+                          ("expert_decode", "lorenzo3d_recon_batched")):
+            check(out["launches"][key][name] == 1,
+                  f"{key}: {out['launches'][key]}")
+        out["expert"] = {
+            "arch": e_arch, "leaf": e_path, "shape": tuple(x.shape),
+            "brick": tuple(x.shape[1:]), "eb": eb, "max_err": err,
+            "routes": [ops.codes_route(x), ops.recon_route(
+                tuple(x.shape[1:]))],
+            "k1_ms": cuda_ms(lambda: ops.lorenzo3d_codes_batched(x, eb), 3,
+                             torch),
+            "k1_plain_ms": cuda_ms(
+                lambda: ref.lorenzo3d_codes_batched(x, eb), 1, torch),
+            "k2_ms": cuda_ms(lambda: ops.lorenzo3d_recon_batched(cum, eb), 3,
+                             torch),
+            "k2_plain_ms": cuda_ms(
+                lambda: ref.lorenzo3d_recon_batched(cum, eb), 1, torch),
+            "bound_ms": bound(12 * n, 12 * n)[0]}
+        del x, codes, recon, cum
+        torch.cuda.empty_cache()
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("resilient loop: " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3750,6 +4250,12 @@ def main() -> int:
     print(f"training: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(trn["launches"]))
 
+    # ------------------------------------------------- 12. resilient loop
+    t0 = time.perf_counter()
+    loop = resilient_loop(torch, smi)
+    print(f"resilient loop: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(loop["launches"]))
+
     # launches on the region-serving phase (2b) and the multi-part phase
     # (2c) beside each row's own path
     for r in rows:
@@ -3782,6 +4288,22 @@ def main() -> int:
         r["train_launches"] = {
             run: counts.get(r["name"], 0)
             for run, counts in trn["launches"].items()}
+        # phase 12: the loop's runs, the measured saves and restores, and
+        # the expert leaf's encode and decode
+        r["loop_launches"] = {
+            run: counts[r["name"]] for run, counts in loop["launches"].items()}
+        # phase 12's shapes: the largest rank-3 leaf (K5/K6), the expert
+        # stack (K1/K2)
+        at = {"lorenzo3d_codes": ("k56_at_leaf", "k5"),
+              "lorenzo3d_recon": ("k56_at_leaf", "k6"),
+              "lorenzo3d_codes_batched": ("expert", "k1"),
+              "lorenzo3d_recon_batched": ("expert", "k2")}.get(r["name"])
+        if at:
+            st = loop[at[0]]
+            r["loop_shape"] = {"shape": st["shape"], "ms": st[f"{at[1]}_ms"],
+                               "plain_ms": st[f"{at[1]}_plain_ms"],
+                               "bound_ms": st["bound_ms"],
+                               "routes": st["routes"]}
         if r["name"] in QDQ:
             key = "k7" if r["name"] == "group_quant" else "k8"
             ms, plain_ms, b_ms = trn["pods"]["k7_k8_ms_at_group_256"][key]

@@ -1,1 +1,2 @@
-"""Launch layer: the single-card train steps (:mod:`.train`)."""
+"""Launch layer: the single-card train steps and the resilient train loop
+(:mod:`.train`)."""

@@ -18,9 +18,12 @@ Two step builders, as in the reference:
 
 Both steps write the new parameters and optimizer state into the trees
 they are given, in place (the reference's training loop donates them to
-its jitted step), and return them.  The reference's mesh, sharding,
-data pipeline and resilient loop (``batch_spec``, ``train_loop``) are not
-ported here.
+its jitted step), and return them.
+
+:func:`train_loop` is the reference's resilient loop on one card:
+checkpoints (:mod:`repro_torch.checkpoint`), auto-resume, preemption
+handling and a step watchdog (:mod:`repro_torch.runtime`).  The
+reference's mesh and sharding (``batch_spec``) are not ported here.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..optim.tree import leaves, replica, tree_map, unflatten
 
 __all__ = ["make_optimizer", "loss_fn", "make_train_step",
            "make_train_step_compressed", "init_train_state",
-           "init_replica_state"]
+           "init_replica_state", "train_loop"]
 
 _MOE_AUX_W = 0.01
 #: the in-place update of each optimizer config type
@@ -226,3 +229,61 @@ def init_replica_state(cfg: ModelConfig, run: RunConfig, n_pods: int,
     params_r = _replicate(params, n_pods)
     opt_r = _replicate(opt_state, n_pods)
     return params_r, opt_r, init_error_feedback(params_r)
+
+
+def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
+               opt_cfg=None, checkpoint_dir: str | None = None,
+               checkpoint_every: int = 50, resume: bool = True,
+               generator: torch.Generator | None = None,
+               watchdog_timeout: float = 0.0, log_every: int = 10,
+               device: str | torch.device = "cuda"):
+    """Resilient training loop: ``(params, opt_state, history)``.
+
+    The reference's loop, step for step: initialize (from ``generator``,
+    default seed 0 on ``device``), then restore the latest checkpoint of
+    ``checkpoint_dir`` if ``resume``; take steps ``start .. steps - 1``,
+    each on ``next(data_iter)`` (from the iterator's current position: a
+    resumed run must be given a stream advanced to its start) inside the
+    watchdog, recording ``(step, loss)`` in ``history`` every
+    ``log_every`` steps and at the last; save every ``checkpoint_every``
+    steps, and save and stop after a preemption signal; wait for the
+    last write."""
+    from ..checkpoint.manager import CheckpointManager
+    from ..runtime.resilience import PreemptionGuard, StepWatchdog
+
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    opt_cfg = opt_cfg or AdamWConfig(moments_dtype=run.optimizer_dtype)
+    step_fn, opt_cfg = make_train_step(cfg, run, opt_cfg)
+    params, opt_state = init_train_state(cfg, run, generator, opt_cfg,
+                                         device=device)
+
+    start = 0
+    mgr = None
+    if checkpoint_dir:
+        mgr = CheckpointManager(checkpoint_dir, device=device)
+        if resume:
+            restored = mgr.restore_latest()
+            if restored is not None:
+                params, opt_state, start = restored
+
+    guard = PreemptionGuard()
+    watchdog = StepWatchdog(timeout=watchdog_timeout)
+    history = []
+    for step in range(start, steps):
+        batch = next(data_iter)
+        with watchdog.step(step):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if step % log_every == 0 or step == steps - 1:
+            loss = float(metrics["loss"])
+            history.append((step, loss))
+        if mgr and (step + 1) % checkpoint_every == 0:
+            mgr.save(step + 1, params, opt_state)
+        if guard.should_stop:
+            if mgr:
+                mgr.save(step + 1, params, opt_state)
+            break
+    if mgr:
+        mgr.wait()
+    return params, opt_state, history

@@ -17,7 +17,9 @@ quantizes all the replicas' values of a leaf in one kernel-7 launch over
 an ``(n_pods · groups, 256)`` matrix and dequantizes them in one kernel-8
 launch, whose rows are at once each replica's own dequantized values
 (its residual) and the gathered codes it averages: one launch of each
-kernel a leaf and step.
+kernel a leaf and step.  The mean is the reference's ``jnp.mean``: the
+sum in replica order times float32(1 / n) (held bit for bit at 2, 3 and
+4 replicas).
 """
 from __future__ import annotations
 
@@ -96,7 +98,13 @@ def exchange_leaf(g: torch.Tensor, e: torch.Tensor, n_pods: int
     del q, s
     deq = deq.reshape(gc.shape)
     new_e = gc.sub_(deq)
-    mean = deq.sum(0) / f32(n_pods, deq.device)
+    # the reference's ``jnp.mean`` over the replicas: their sum in replica
+    # order times float32(1 / n) (XLA's reciprocal product; it equals a
+    # division only where 1 / n is exact, as at 2 and 4 replicas)
+    acc = deq[0].clone()
+    for r in range(1, n_pods):
+        acc.add_(deq[r])
+    mean = acc.mul_(f32(1.0 / n_pods, deq.device))
     return mean.to(g.dtype).expand(g.shape), new_e
 
 

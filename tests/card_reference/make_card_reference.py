@@ -49,6 +49,15 @@ The reference's numpy host path (``repro``) writes
   one AdamW and one Adafactor step from seeded gradients; and one
   two-replica int8 gradient exchange (digests of the mean and the
   residuals);
+* the checkpoint case (:func:`write_checkpoint_reference`) into
+  ``checkpoint/``: musicgen-medium's bf16 smoke model cut to one layer,
+  on a seeded tree whose large leaves are smoothed as the reference's
+  lossy checkpoint test smooths them, with a seeded Adafactor state,
+  saved at step 3 by the reference's ``CheckpointManager`` lossless
+  (``lossless/``) and lossy at ``eb_rel = 1e-3`` with the zlib byte pass
+  pinned (``lossy/``), and ``restored.json``: the dtype, shape and
+  SHA-256 (of the float32 values) of every array the reference restores
+  from each;
 * the variant set ``write_variant_set`` tunes and writes for the
   reference tuning tests' dataset (:data:`TUNED_DATASET`, 32³, two
   levels) and targets (:data:`TUNED_TARGETS`), default ladder, into
@@ -70,7 +79,8 @@ the card's tests and ``chip_smoke.py`` import this module for
 :func:`level`, :data:`TACPLUS`, the MoE case's seeds and the paths.
 ``--moe PATH`` writes only the MoE case, to ``PATH``; ``--recurrent
 PATH`` only the recurrent case; ``--frontends PATH`` only the
-embedding-input case; ``--train PATH`` only the train case.
+embedding-input case; ``--train PATH`` only the train case;
+``--checkpoint DIR`` only the checkpoint case, into ``DIR``.
 """
 import contextlib
 import hashlib
@@ -152,6 +162,19 @@ TRAIN_BATCH = (4, 16)           # (batch, positions)
 TRAIN_ADAMW = dict(lr=1e-2, warmup_steps=1, total_steps=10)
 TRAIN_ADAFACTOR = dict(lr=1e-2, warmup_steps=1, total_steps=10)
 TRAIN_PODS = 2
+
+#: The checkpoint case (:func:`write_checkpoint_reference`): the smoke
+#: model of ``CHECKPOINT_ARCH`` cut to ``CHECKPOINT_LAYERS`` layers, its
+#: tree from ``CHECKPOINT_SEED`` (:func:`checkpoint_params`), a seeded
+#: Adafactor state (:func:`checkpoint_opt`), saved at ``CHECKPOINT_STEP``
+#: once for each ``CHECKPOINT_KINDS`` entry (its ``lossy_eb_rel``)
+CHECKPOINT_DIR = os.path.join(HERE, "checkpoint")
+CHECKPOINT_ARCH = "musicgen_medium"
+CHECKPOINT_LAYERS = 1
+CHECKPOINT_SEED = 2626
+CHECKPOINT_STEP = 3
+CHECKPOINT_KINDS = {"lossless": 0.0, "lossy": 1e-3}
+CHECKPOINT_EXTRA = {"arch": CHECKPOINT_ARCH, "seed": CHECKPOINT_SEED}
 
 #: Relative max-error tolerances of the port's language-model tests, in
 #: one table for tests/test_torch_lm_serving.py,
@@ -661,6 +684,99 @@ def write_train_reference(path: str) -> dict:
     return out
 
 
+def smooth_leaf(a: np.ndarray) -> np.ndarray:
+    """A float32 leaf as the reference's lossy checkpoint test shapes it
+    (trained weights have structure, random ones do not compress): for
+    rank ≥ 2 and more than 4096 values, ``0.02 · sin(r / 9) · cos(c / 7)``
+    over its last two axes plus ``0.001`` of the leaf; else as it is."""
+    if a.ndim < 2 or a.size <= 4096:
+        return a
+    r = np.arange(a.shape[-2], dtype=np.float32)
+    c = np.arange(a.shape[-1], dtype=np.float32)
+    field = np.sin(r[:, None] / np.float32(9.0)) * np.cos(
+        c[None, :] / np.float32(7.0))
+    return (field * np.float32(0.02) + np.float32(0.001) * a).astype(
+        np.float32)
+
+
+def checkpoint_cfg(smoke):
+    """The checkpoint case's config from either package's
+    ``smoke_config``."""
+    from dataclasses import replace
+
+    return replace(smoke(CHECKPOINT_ARCH), n_layers=CHECKPOINT_LAYERS)
+
+
+def checkpoint_params(specs) -> dict:
+    """``{"a/b": float32 array}``: :func:`seeded_tree` from
+    ``CHECKPOINT_SEED``, each leaf through :func:`smooth_leaf`."""
+    tree = seeded_tree(spec_leaves(specs), CHECKPOINT_SEED)
+    return {k: smooth_leaf(v) for k, v in flat(tree).items()}
+
+
+def checkpoint_opt(shapes: dict) -> dict:
+    """``{"a/b": array}`` for an optimizer state of the leaf shapes
+    ``shapes``: ``step`` the int32 ``CHECKPOINT_STEP``, every other leaf
+    ``|N(0, 1)| · 1e-4`` (float32), drawn in sorted path order from
+    ``CHECKPOINT_SEED + 1``."""
+    rng = np.random.default_rng(CHECKPOINT_SEED + 1)
+    out = {}
+    for path in sorted(shapes):
+        if path == "step":
+            out[path] = np.asarray(CHECKPOINT_STEP, np.int32)
+        else:
+            out[path] = (1e-4 * np.abs(rng.standard_normal(
+                shapes[path]))).astype(np.float32)
+    return out
+
+
+def restored_summary(params: dict, opt: dict) -> dict:
+    """``{"params/a/b": [dtype, shape, digest]}`` of a restored state,
+    whose leaves are numpy arrays (of any dtype, ``digest`` of their
+    float32 values)."""
+    return {path: [str(a.dtype), list(a.shape),
+                   digest(np.asarray(a).astype(np.float32))]
+            for path, a in flat({"params": params, "opt": opt}).items()}
+
+
+def write_checkpoint_reference(directory: str) -> dict:
+    """Save the checkpoint case with the reference's ``CheckpointManager``
+    into ``directory/{lossless,lossy}/`` (the lossy one with the zlib
+    byte pass, as where ``zstandard`` is missing) and write
+    ``directory/restored.json``: :func:`restored_summary` of what the
+    reference restores from each.  Returns that summary."""
+    from repro.checkpoint.manager import CheckpointManager
+    from repro.configs import smoke_config
+    from repro.io import tensor as rtensor
+    from repro.models import model as rmodel
+    from repro.optim.adafactor import AdafactorConfig, adafactor_init
+
+    cfg = checkpoint_cfg(smoke_config)
+    specs = rmodel.model_specs(cfg)
+    params = _as_reference(nested(checkpoint_params(specs)), specs)
+    shapes = {k: tuple(v.shape) for k, v in flat(
+        adafactor_init(params, AdafactorConfig())).items()}
+    opt = nested(checkpoint_opt(shapes))
+    summary = {}
+    have_zstd = rtensor.HAVE_ZSTD
+    rtensor.HAVE_ZSTD = False
+    try:
+        for kind, eb_rel in CHECKPOINT_KINDS.items():
+            mgr = CheckpointManager(os.path.join(directory, kind),
+                                    lossy_eb_rel=eb_rel)
+            mgr.save(CHECKPOINT_STEP, params, opt, extra=CHECKPOINT_EXTRA,
+                     blocking=True)
+            rp, ro, step = mgr.restore(CHECKPOINT_STEP)
+            assert step == CHECKPOINT_STEP
+            summary[kind] = restored_summary(rp, ro)
+    finally:
+        rtensor.HAVE_ZSTD = have_zstd
+    with open(os.path.join(directory, "restored.json"), "w") as f:
+        json.dump(summary, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return summary
+
+
 def moe_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
     """The MoE case's float32 ``moe_apply`` input ``(2, 24, d_model)`` and
     the smoke model's train tokens ``(2, 8)``, from ``MOE_SEED + 1``."""
@@ -786,6 +902,7 @@ def main() -> None:
     with open(TACPLUS_RECON, "w") as f:
         json.dump({"levels": levels}, f, indent=1)
         f.write("\n")
+    write_checkpoint_reference(CHECKPOINT_DIR)
     tuned = write_tuned_reference(TUNED_SET)
     with open(TUNED_JSON, "w") as f:
         json.dump(tuned, f, indent=1, sort_keys=True)
@@ -793,6 +910,9 @@ def main() -> None:
     for p in (CONTAINER, RECON, MOE_FIXTURE, RECURRENT_FIXTURE,
               FRONTEND_FIXTURE, TRAIN_FIXTURE, TACPLUS_CONTAINER,
               TACPLUS_RECON,
+              *(os.path.join(CHECKPOINT_DIR, k, f"step_{CHECKPOINT_STEP:08d}{e}")
+                for k in CHECKPOINT_KINDS for e in (".npz", ".json")),
+              os.path.join(CHECKPOINT_DIR, "restored.json"),
               *(os.path.join(TUNED_SET, n)
                 for n in sorted(os.listdir(TUNED_SET))), TUNED_JSON):
         print(f"{p}: {os.path.getsize(p)} bytes")
@@ -811,5 +931,7 @@ if __name__ == "__main__":
         write_frontends_reference(sys.argv[2])
     elif sys.argv[1:2] == ["--train"]:
         write_train_reference(sys.argv[2])
+    elif sys.argv[1:2] == ["--checkpoint"]:
+        write_checkpoint_reference(sys.argv[2])
     else:
         main()

@@ -467,7 +467,8 @@ def _recurrent_match(got: dict, want: dict, dtype: str) -> None:
 def test_recurrent_fixture_regenerates(tmp_path):
     """The reference writes the stored outputs again (in a child process,
     so that its XLA flags take effect): float32 within 1e-6 and bf16
-    within 1e-2, relative."""
+    within 1e-2, relative; zamba2's float32 decode step within the port's
+    own bar against this fixture."""
     path = str(tmp_path / "recurrent.npz")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.pathsep.join(
@@ -484,6 +485,11 @@ def test_recurrent_fixture_regenerates(tmp_path):
         assert sorted(z.files) == sorted(want)
         for k in z.files:
             limit = 1e-6 if "float32" in k else 1e-2
+            if k == "model/zamba2_2_7b/float32/decode":
+                # reads the bf16 KV cache of the shared attention, whose
+                # roundings follow the XLA build: the port's own bar
+                # (:func:`_recurrent_match`)
+                limit = fixture.tol("logits", "float32")
             assert _rel(want[k], z[k]) <= limit, k
 
 
@@ -560,12 +566,21 @@ def _frontends_match(got: dict, want: dict, arch: str, dtype: str) -> None:
 
 
 def test_frontends_fixture_regenerates(tmp_path):
-    """float32 within 1e-6 and bf16 within 1e-2, relative."""
+    """float32 within 1e-6 and bf16 within 1e-2, relative; each decode
+    step within the port's own bar against this fixture
+    (``tol("steps", dtype, arch)``, as :func:`_frontends_match` holds it):
+    the float32 decode steps read the bf16 KV cache, where whether 1–3
+    K/V values round up or down follows the XLA build (2.02e-5 read for
+    ``internvl2_76b/float32/decode`` on one machine), and a fixture that
+    moves by less than the port's bar changes no verdict on the port."""
     got = _regenerate("--frontends", str(tmp_path / "frontends.npz"))
     want = _load(fixture.FRONTEND_FIXTURE)
     assert sorted(got) == sorted(want)
     for k in got:
-        limit = 1e-6 if "float32" in k else 1e-2
+        arch, dtype, _ = k.split("/")
+        limit = 1e-6 if dtype == "float32" else 1e-2
+        if k.endswith("/decode"):
+            limit = fixture.tol("steps", dtype, arch)
         assert _rel(want[k], got[k]) <= limit, k
 
 

@@ -208,18 +208,22 @@ def test_cuda_default_raises_without_card():
 
 
 def test_import_hygiene():
-    """The port imports neither jax nor any module of the reference."""
+    """The port imports neither jax, ml_dtypes nor any module of the
+    reference."""
     code = (
         "import sys, pkgutil, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "assert not bad, bad\n"
         "need = {'repro_torch.serving.sharded', 'repro_torch.serving.loadgen',\n"
         "        'repro_torch.obs.collect', 'repro_torch.obs.slo',\n"
         "        'repro_torch.models.moe', 'repro_torch.core.entropy',\n"
-        "        'repro_torch.launch.train', 'repro_torch.optim.grad_compress'}\n"
+        "        'repro_torch.launch.train', 'repro_torch.optim.grad_compress',\n"
+        "        'repro_torch.runtime.resilience', 'repro_torch.data.pipeline',\n"
+        "        'repro_torch.checkpoint.manager'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

@@ -18,7 +18,10 @@ the reference on the CPU.
   ``core.compat.zstd_module``;
 * ``serving.engine``'s re-exports of ``AsyncServingCore`` and
   ``ServerBusy`` (the reference's engine carries them beside its LM
-  steps).
+  steps);
+* ``repro_torch.data``, ``repro_torch.runtime`` and
+  ``repro_torch.checkpoint`` export the ``__all__`` of the reference's
+  ``data.pipeline``, ``runtime.resilience`` and ``checkpoint.manager``.
 
 The reference is imported inside the test bodies only.
 """
@@ -434,3 +437,22 @@ def test_engine_reexports_serving_core():
     for name in ("AsyncServingCore", "ServerBusy"):
         assert name in engine.__all__ and name in rengine.__all__
     assert set(rengine.__all__) <= set(engine.__all__)
+
+
+# ------------------------------------------------ the resilient train loop
+
+
+@pytest.mark.parametrize("package, module", [
+    ("data", "pipeline"), ("runtime", "resilience"),
+    ("checkpoint", "manager")])
+def test_train_loop_packages_export_reference_names(package, module):
+    import importlib
+
+    ref = importlib.import_module(f"repro.{package}.{module}")
+    port_pkg = importlib.import_module(f"repro_torch.{package}")
+    port_mod = importlib.import_module(f"repro_torch.{package}.{module}")
+    assert sorted(port_pkg.__all__) == sorted(port_mod.__all__) == sorted(
+        ref.__all__)
+    for name in ref.__all__:
+        assert getattr(port_pkg, name) is getattr(port_mod, name), name
+        assert type(getattr(port_pkg, name)) is type(getattr(ref, name))
