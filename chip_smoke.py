@@ -286,8 +286,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``float32_matmul_precision`` (``"highest"``);
 12. the resilient loop on one card, through
    ``repro_torch.launch.train.train_loop`` with a ``checkpoint_dir``:
-   musicgen-medium at full width cut to 8 of its 48 layers (229,664,256
-   parameters), float32, AdamW (lr 1e-3, one warmup step), fed by the
+   musicgen-medium at full width cut to 4 of its 48 layers (116,405,760
+   parameters; 8 until the whole script outgrew 1,050 s), float32, AdamW (lr 1e-3, one warmup step), fed by the
    port's ``embedding_batches`` at phase 11's batch shape (seed 31).
    Run (a): 6 steps, a checkpoint every 3 (the loss falls; the restored
    step-6 state equals the saved one bit for bit); run (b): a fresh
@@ -313,7 +313,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    end), save and restore seconds, file bytes and their ratio, the save's
    shares in the host copy, kernel 5 and the byte pass (zlib where
    ``zstandard`` is missing), and each run's launch counts
-   (``loop_launches`` on the kernel rows).
+   (``loop_launches`` on the kernel rows);
+13. the mesh (``mesh_training``): musicgen-medium at full width, 8 of
+   48 layers (229,664,256 parameters), float32, AdamW, phase 11's batch shape
+   (seed 37).  Run (a), one process: two steps of the two-replica step
+   (``make_train_step_compressed(n_pods=2)``), the exchange's inputs on
+   ``TRAIN_EXCHANGE_LEAVES`` recorded at the last step, then one
+   lossless ``CheckpointManager.save`` of replica 0.  Run (b): two ranks
+   spawned on the one card (``torch.multiprocessing``, gloo, a
+   ``file://`` rendezvous in a temporary directory, a 120 s group
+   timeout), on the mesh ``(pod=2, data=1, model=1)``, one replica a
+   rank, take the same two steps through
+   ``make_train_step_compressed(mesh=)``; kernels 7 and 8 must each
+   launch once a leaf a step on each rank (read alone: the counts set to
+   0 just before each step and read just after); the two ranks'
+   parameters must be bit-identical and each leaf within
+   ``LOOP_RESUME_REL_MAX`` of its largest magnitude of (a)'s (the
+   bit-exact outcome printed); fed (a)'s recorded gradients and
+   residuals, the exchange across ranks must equal the one-process
+   exchange bit for bit.  Run (c): the ranks restore (a)'s checkpoint
+   onto ``(data=2, model=1)`` with ``param_shardings(…,
+   rules_for(mesh, RunConfig(fsdp=True)))``; each rank's shard of each
+   leaf must equal its slice of the saved tensor bit for bit.  Printed:
+   each rank's synchronized step seconds and the exchange's share, the
+   bytes that cross a step (int8 codes and float32 scales) beside the
+   float32 gradient bytes, each rank's peak device memory and launches
+   (``mesh_launches`` on the K7/K8 rows), the restore seconds and each
+   rank's local bytes beside the full bytes.  Two ranks share one card:
+   nothing crosses a link.
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -390,14 +417,15 @@ TRAIN_PODS = 2
 TRAIN_ADAFACTOR_CASE = ("deepseek_7b", 4, 1648398336)
 # the exchange's leaves recorded for the exact and residual checks
 TRAIN_EXCHANGE_LEAVES = ("lm_head", "layers/mlp/w_up")
-# phase 12: train_loop on musicgen-medium at full width cut to 8 of its
+# phase 12: train_loop on musicgen-medium at full width cut to 4 of its
 # 48 layers (a full-depth float32 checkpoint with AdamW's moments is
-# ~16 GB, and its lossy encode a zlib pass on the host), float32, from
+# ~16 GB, and its lossy encode a zlib pass on the host; 4, not 8, keeps
+# the whole script inside its time limit), float32, from
 # embedding_batches at phase 11's batch shape; the lossy checkpoint's
 # bound; the two leaves whose card blobs and decodes are held to the
 # CPU's plain versions (kernel 6's planes and three-pass routes); one
 # expert leaf at full shape for kernels 1 and 2
-LOOP_ARCH, LOOP_LAYERS = "musicgen_medium", 8
+LOOP_ARCH, LOOP_LAYERS = "musicgen_medium", 4
 LOOP_SEED = 31
 LOOP_EB_REL = 1e-4
 LOOP_HELD_LEAVES = ("layers/attn/wq", "layers/mlp/w_up")
@@ -407,6 +435,15 @@ LOOP_EXPERT = ("granite_moe_1b_a400m", "layers/mlp/w_up")
 # reduction whose order varied could move a value: each parameter leaf
 # within 1e-6 of its largest magnitude (bit-exactness is printed)
 LOOP_RESUME_REL_MAX = 1e-6
+# phase 13: phase 12's model at 8 of its 48 layers (float32) in phase
+# 11's two-replica step, in one process and then as two gloo
+# ranks on the one card (NCCL puts no two ranks on one device), each rank
+# holding one replica; then the elastic restore onto (data=2, model=1)
+MESH_LAYERS = 8
+MESH_SEED = 37
+MESH_PODS, MESH_STEPS = 2, 2
+MESH_PG_TIMEOUT_S = 120          # the ranks' process-group timeout
+MESH_JOIN_S = 600                # the ranks must end within this
 # the MoE layer's routing, dispatch and expert operators
 MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
                 "aten::searchsorted", "aten::index_copy_",
@@ -3314,7 +3351,7 @@ def tree_rel(torch, want: dict, got: dict) -> float:
 
 def resilient_loop(torch, smi: str) -> dict:
     """Phase 12: ``train_loop`` on the card with checkpoints (musicgen-
-    medium at full width, 8 of its 48 layers, float32, AdamW, the port's
+    medium at full width, 4 of its 48 layers, float32, AdamW, the port's
     ``embedding_batches``): run (a), the resumed run (b), the failed and
     resumed run (c); then a measured lossless and lossy save and restore
     (kernels 5 and 6 on the lossy leaves), two lossy blobs and decodes
@@ -3637,6 +3674,317 @@ def resilient_loop(torch, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print("resilient loop: " + json.dumps(out, default=str))
+    return out
+
+
+def mesh_run_opt() -> tuple:
+    """Phase 13's run and optimizer: remat a layer, AdamW (lr 1e-3, one
+    warmup step)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.optim import adamw
+
+    return RunConfig(remat="layer"), adamw.AdamWConfig(lr=1e-3,
+                                                       warmup_steps=1)
+
+
+def device_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class ExchangeClock:
+    """Seconds, while active, that ``launch.train``'s step spends in
+    ``compress_pod_reduce`` (the device synchronized around each call)."""
+
+    def __init__(self, torch, dev):
+        from repro_torch.launch import train
+
+        self.torch, self.dev, self.mod, self.s = torch, dev, train, 0.0
+
+    def __enter__(self):
+        self.orig = orig = self.mod.compress_pod_reduce
+
+        def timed(*a, **kw):
+            device_sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            device_sync(self.torch, self.dev)
+            self.s += time.perf_counter() - t0
+            return out
+        self.mod.compress_pod_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compress_pod_reduce = self.orig
+
+
+def mesh_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
+    """One rank of phase 13 (spawned): joins the gloo group at ``root``'s
+    ``file://`` rendezvous, runs :func:`mesh_rank_run`, and writes its
+    readings to ``root/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(root, "rdzv"),
+        rank=rank, world_size=n,
+        timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    try:
+        out = mesh_rank_run(torch, dist, rank, n, root, cfg,
+                            torch.device(dev_type))
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+        check(not bad, f"rank {rank} imported {sorted(bad)[:5]}")
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
+                  dev) -> dict:
+    """Runs (b) and (c) of phase 13 on this rank; returns its readings."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import model
+    from repro_torch.optim import grad_compress
+    from repro_torch.optim.tree import leaves, replica
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 products must not run as TF32")
+    run, opt = mesh_run_opt()
+    out = {"rank": rank, "pid": os.getpid()}
+    mesh = init_device_mesh(dev.type, (n, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    out["pod_coordinate"] = mesh.get_local_rank("pod")
+
+    # ---- (b) the steps, one replica a rank
+    params_r, opt_r, ef_r = train.init_replica_state(
+        cfg, run, None, torch.Generator(device=dev).manual_seed(MESH_SEED),
+        opt, mesh=mesh, device=dev)
+    step, _ = train.make_train_step_compressed(cfg, run, opt_cfg=opt,
+                                               mesh=mesh)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    out["n_leaves"] = len(leaves(params_r))
+    steps = []
+    for i in range(MESH_STEPS):
+        dist.barrier()
+        device_sync(torch, dev)
+        ops.reset_launches()
+        with ExchangeClock(torch, dev) as clock:
+            t0 = time.perf_counter()
+            m = step(params_r, opt_r, ef_r, batch)[3]
+            device_sync(torch, dev)
+            sec = time.perf_counter() - t0
+        steps.append({"s": sec, "exchange_s": clock.s,
+                      "exchange_share": clock.s / sec,
+                      "launches": {k: ops.launches[k] for k in QDQ},
+                      "loss": float(m["loss"])})
+    out["steps"] = steps
+    out["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                if dev.type == "cuda" else None)
+    mgr = CheckpointManager(os.path.join(root, "ckpt"), device=dev)
+    a_params, _, _ = mgr.restore(MESH_STEPS)
+    mine = replica(params_r, 0)
+    out["vs_a_bit_exact"] = same_trees(torch, a_params, mine)
+    out["vs_a_params_rel"] = tree_rel(torch, a_params, mine)
+    identical = True
+    for _, leaf in leaves(mine):
+        got = leaf.clone() if rank == 0 else torch.empty_like(leaf)
+        dist.broadcast(got, src=0)
+        identical = identical and torch.equal(got, leaf)
+    out["ranks_bit_identical"] = identical
+    del params_r, opt_r, ef_r, a_params, mine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the exchange across ranks on (a)'s recorded inputs
+    held = torch.load(os.path.join(root, f"exchange_{rank}.pt"),
+                      map_location=dev)
+    g = {k: v["g"] for k, v in held.items()}
+    e = {k: v["e"] for k, v in held.items()}
+    grad_compress.compress_pod_reduce(g, e, mesh=mesh)
+    out["exchange_exact"] = {
+        k: [torch.equal(g[k], v["mean"]), torch.equal(e[k], v["new_e"])]
+        for k, v in held.items()}
+    del held, g, e
+
+    # ---- (c) the elastic restore onto (data=2, model=1), fsdp
+    mesh2 = init_device_mesh(dev.type, (n, 1),
+                             mesh_dim_names=("data", "model"))
+    rules = sharding.rules_for(mesh2, RunConfig(fsdp=True))
+    shardings = sharding.param_shardings(model.model_specs(cfg), mesh2,
+                                         rules)
+    pl_of = dict(leaves(shardings))
+    dist.barrier()
+    device_sync(torch, dev)
+    t0 = time.perf_counter()
+    p, o, s = mgr.restore(MESH_STEPS, mesh=mesh2, shardings=shardings)
+    device_sync(torch, dev)
+    out["restore_s"] = time.perf_counter() - t0
+    full_p, _, _ = mgr.restore(MESH_STEPS)
+    coord = mesh2.get_coordinate()
+    local = full = n_sharded = 0
+    slices_exact = s == MESH_STEPS
+    p_of = dict(leaves(p))
+    for path, whole in leaves(full_p):
+        dt = p_of[path]
+        ok = isinstance(dt, DTensor) and dt.placements == pl_of[path]
+        ok = ok and torch.equal(dt.to_local(), sharding.local_slice(
+            whole, mesh2, pl_of[path], coord))
+        slices_exact = slices_exact and ok
+        n_sharded += any(isinstance(q, Shard) for q in pl_of[path])
+        local += dt.to_local().numel() * whole.element_size()
+        full += whole.numel() * whole.element_size()
+    out["restore"] = {"slices_exact": slices_exact, "sharded_leaves":
+                      n_sharded, "leaves": len(pl_of), "local_bytes": local,
+                      "full_bytes": full, "opt_whole": all(
+                          not isinstance(t, DTensor) for _, t in leaves(o))}
+    return out
+
+
+def mesh_training(torch, smi: str, dev="cuda") -> dict:
+    """Phase 13: run (a), the two-replica step in one process and a
+    checkpoint of replica 0; runs (b) and (c) in two spawned gloo ranks
+    on the one card (:func:`mesh_rank`).  Returns the printed readings
+    with the ranks' launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import grad_compress
+    from repro_torch.optim.tree import leaves, replica
+
+    dev = torch.device(dev)
+    t_phase = time.perf_counter()
+    cfg = replace(get_config(LOOP_ARCH), n_layers=MESH_LAYERS,
+                  dtype="float32")
+    run, opt = mesh_run_opt()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {"card": smi, "arch": cfg.name, "layers": cfg.n_layers,
+           "params": model.param_counts(cfg)[0], "dtype": "float32",
+           "batch": TRAIN_BATCH, "n_pods": MESH_PODS, "steps": MESH_STEPS,
+           "optimizer": "adamw lr=1e-3 warmup=1", "run": "remat=layer",
+           "transport": "gloo, two ranks on one card: nothing crosses a "
+                        "link"}
+    try:
+        # ---- (a) one process, two replicas
+        params_r, opt_r, ef_r = train.init_replica_state(
+            cfg, run, MESH_PODS,
+            torch.Generator(device=dev).manual_seed(MESH_SEED), opt,
+            device=dev)
+        step, _ = train.make_train_step_compressed(cfg, run, MESH_PODS, opt)
+        batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+        want = {tuple(leaf_at(params_r, name).shape): name
+                for name in TRAIN_EXCHANGE_LEAVES}
+        check(len(want) == len(TRAIN_EXCHANGE_LEAVES)
+              and sum(tuple(a.shape) in want for _, a in leaves(params_r))
+              == len(want), f"mesh: recorded shapes {want}")
+        n_leaves = len(leaves(params_r))
+        a_steps = []
+        with RecordExchange(want) as rec:
+            for _ in range(MESH_STEPS):
+                device_sync(torch, dev)
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                m = step(params_r, opt_r, ef_r, batch)[3]
+                device_sync(torch, dev)
+                a_steps.append({"s": time.perf_counter() - t0,
+                                "loss": float(m["loss"]),
+                                "launches": {k: ops.launches[k]
+                                             for k in QDQ}})
+        out["a_steps"] = a_steps
+        # the bytes a step sends between the replicas, against float32
+        sizes = [a[0].numel() for _, a in leaves(params_r)]
+        groups = [-(-n // grad_compress.GROUP) for n in sizes]
+        out["exchange_bytes"] = {
+            "int8_codes": sum(g * grad_compress.GROUP for g in groups),
+            "float32_scales": 4 * sum(groups),
+            "float32_gradients": 4 * sum(sizes)}
+        # (a)'s last exchange on the recorded leaves, one file a rank
+        held = [{} for _ in range(MESH_PODS)]
+        for name in list(rec.seen):
+            g, e = rec.seen.pop(name)
+            mean, new_e = grad_compress.exchange_leaf(g, e, MESH_PODS)
+            for r in range(MESH_PODS):
+                held[r][name] = {k: v[r:r + 1].cpu() for k, v in (
+                    ("g", g), ("e", e), ("mean", mean), ("new_e", new_e))}
+            del g, e, mean, new_e
+        check(set(held[0]) == set(TRAIN_EXCHANGE_LEAVES),
+              f"mesh: recorded {sorted(held[0])}")
+        for r in range(MESH_PODS):
+            torch.save(held[r], os.path.join(root, f"exchange_{r}.pt"))
+        del held
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(root, "ckpt"), device=dev).save(
+            MESH_STEPS, replica(params_r, 0), replica(opt_r, 0),
+            blocking=True)
+        out["a_save_s"] = time.perf_counter() - t0
+        del params_r, opt_r, ef_r, batch, rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- (b), (c): two ranks on the one card
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            mesh_rank, args=(MESH_PODS, root, cfg, dev.type),
+            nprocs=MESH_PODS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=2):
+                check(time.perf_counter() - t0 < MESH_JOIN_S,
+                      f"mesh: the ranks did not end in {MESH_JOIN_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(10)
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_PODS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        out["ranks"] = ranks
+        out["launches"] = {f"rank{r['rank']}_step{i}": st["launches"]
+                           for r in ranks for i, st in enumerate(r["steps"])}
+        out["a_launches"] = [st["launches"] for st in a_steps]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("mesh: " + json.dumps(out, default=str))
+    for r in ranks:
+        check(r["pod_coordinate"] == r["rank"], f"mesh: rank {r['rank']} "
+              f"at pod {r['pod_coordinate']}")
+        check(r["n_leaves"] == n_leaves, f"mesh: {r['n_leaves']} leaves")
+        check(r["ranks_bit_identical"], "mesh: the ranks' parameters differ")
+        check(r["vs_a_params_rel"] <= LOOP_RESUME_REL_MAX,
+              f"mesh: rank {r['rank']} {r['vs_a_params_rel']} from (a)")
+        check(all(all(v) for v in r["exchange_exact"].values()),
+              f"mesh: rank {r['rank']} exchange {r['exchange_exact']}")
+        check(r["restore"]["slices_exact"] and r["restore"]["opt_whole"]
+              and r["restore"]["sharded_leaves"] > 0,
+              f"mesh: rank {r['rank']} restore {r['restore']}")
+        check(all(np.isfinite(st["loss"]) for st in r["steps"]),
+              f"mesh: rank {r['rank']} losses")
+    for key, got in out["launches"].items():
+        check(got == {k: n_leaves for k in QDQ},
+              f"mesh: {key} launched {got}, not {n_leaves} of each")
+    for got in out["a_launches"]:
+        check(got == {k: n_leaves for k in QDQ}, f"mesh: (a) launched {got}")
     return out
 
 
@@ -4256,6 +4604,12 @@ def main() -> int:
     print(f"resilient loop: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(loop["launches"]))
 
+    # ------------------------------------------------------- 13. the mesh
+    t0 = time.perf_counter()
+    mesh = mesh_training(torch, smi)
+    print(f"mesh: {time.perf_counter() - t0:.1f} s, launches "
+          + json.dumps(mesh["launches"]))
+
     # launches on the region-serving phase (2b) and the multi-part phase
     # (2c) beside each row's own path
     for r in rows:
@@ -4305,6 +4659,13 @@ def main() -> int:
                                "bound_ms": st["bound_ms"],
                                "routes": st["routes"]}
         if r["name"] in QDQ:
+            # phase 13: each rank's steps and run (a)'s
+            r["mesh_launches"] = {
+                run: counts[r["name"]]
+                for run, counts in mesh["launches"].items()}
+            r["mesh_launches"].update({
+                f"one_process_step{i}": counts[r["name"]]
+                for i, counts in enumerate(mesh["a_launches"])})
             key = "k7" if r["name"] == "group_quant" else "k8"
             ms, plain_ms, b_ms = trn["pods"]["k7_k8_ms_at_group_256"][key]
             r["group_256"] = {

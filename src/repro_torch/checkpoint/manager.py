@@ -26,6 +26,12 @@ bfloat16 (and float8) leaves are stored as same-width unsigned views and
 named by numpy's dtype names (``"bfloat16"``), with the CRC over those
 bytes.  Tensors restore onto ``device``; 0-dim integer leaves (the
 optimizers' step counter) stay on the host, where the port keeps them.
+
+**Elastic restore** — ``restore(step, mesh=, shardings=)`` reads the
+logical file on every rank and makes each parameter leaf that
+``shardings`` places a DTensor on ``mesh`` from the rank's own slice
+(``DTensor.from_local``: no collective), whatever mesh wrote it;
+optimizer leaves stay whole on ``device``.
 """
 from __future__ import annotations
 
@@ -233,9 +239,35 @@ class CheckpointManager:
             return t                  # the step counter stays on the host
         return t.to(self.device)
 
-    def restore(self, step: int):
+    def _sharded(self, path: str, t: torch.Tensor, mesh, shardings: dict):
+        """Leaf ``path`` as a DTensor on ``mesh`` built from this rank's
+        slice (copied onto ``device``), if ``shardings`` places it; else
+        placed whole."""
+        pls = shardings.get(path)
+        if pls is None:
+            return self._place(t)
+        from torch.distributed.tensor import DTensor
+
+        from ..launch.sharding import local_slice
+
+        local = local_slice(t, mesh, pls, mesh.get_coordinate()).to(
+            self.device, memory_format=torch.contiguous_format, copy=True)
+        return DTensor.from_local(local, mesh, pls, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def restore(self, step: int, *, mesh=None, shardings=None):
         """Load a checkpoint: ``(params, opt_state, step)``, the tensors on
-        ``device``."""
+        ``device``.  Given a ``mesh`` (a ``DeviceMesh`` of ``device``'s
+        type) and ``shardings`` (a tree of placements over the parameters,
+        as :func:`repro_torch.launch.sharding.param_shardings` makes), each
+        placed parameter leaf is a DTensor holding this rank's slice."""
+        if mesh is not None and shardings is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a manager "
+                                 f"on {self.device}")
+            placed = _flatten_with_paths(shardings, "params")
+        else:
+            placed = None
         base = os.path.join(self.directory, f"step_{step:08d}")
         with open(base + ".json") as f:
             manifest = json.load(f)
@@ -259,13 +291,15 @@ class CheckpointManager:
                             self.device)
                     t = t.to(getattr(torch, li["out_dtype"]))
                 else:
-                    t = self._place(_from_storable(a, meta["dtype"]))
-                flat[meta["path"]] = t
+                    t = _from_storable(a, meta["dtype"])
+                flat[meta["path"]] = (
+                    self._place(t) if placed is None
+                    else self._sharded(meta["path"], t, mesh, placed))
         tree = _unflatten_from_paths(flat)
         return tree["params"], tree["opt"], int(manifest["step"])
 
-    def restore_latest(self):
+    def restore_latest(self, *, mesh=None, shardings=None):
         steps = self.list_steps()
         if not steps:
             return None
-        return self.restore(steps[-1])
+        return self.restore(steps[-1], mesh=mesh, shardings=shardings)

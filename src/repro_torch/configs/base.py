@@ -3,12 +3,13 @@
 :class:`ModelConfig` copies the reference's frozen dataclass field for
 field, so that a config reads the same in either package.
 :class:`RunConfig` keeps the reference's knobs that the port's serving
-path and its single-card train step read, with the reference's defaults;
-the mesh knobs (``fsdp``, ``seq_shard``) come with the mesh,
-``grad_compress`` with the caller that reads it (the cells), and
-``ShapeConfig`` (the benchmark cells' input shapes) with the cells.  The
-port always loops over the stacked layers, so it has no
-``scan_layers``.
+path, its train steps and the mesh's sharding rules (``fsdp``,
+``seq_shard``, read by :func:`repro_torch.launch.sharding.rules_for`)
+read, with the reference's defaults; ``grad_compress`` comes with the
+caller that reads it (the cells), and ``ShapeConfig`` (the benchmark
+cells' input shapes) with the cells.  The port always loops over the
+stacked layers, and nothing in the reference reads ``scan_layers``, so
+the port has no ``scan_layers``.
 """
 from __future__ import annotations
 
@@ -68,11 +69,14 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Execution knobs of the serving path and the train step."""
+    """Execution knobs of the serving path, the train steps and the
+    sharding rules."""
 
     microbatches: int = 1       # gradient-accumulation steps per train step
     remat: str = "layer"        # none | layer | zero: not none checkpoints
                                 # each layer (activation checkpointing)
+    fsdp: bool = False          # shard params over the batch axes (embed)
+    seq_shard: bool = False     # shard the sequence dim on the model axis
     kv_quant: bool = False      # int8 KV cache with per-(token, head) scales
     optimizer: str = "adamw"    # adamw | adafactor (factored 2nd moment)
     optimizer_dtype: str = "float32"   # moments dtype

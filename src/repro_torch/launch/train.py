@@ -1,20 +1,24 @@
-"""Train-step construction on one card: the loss, microbatching, remat,
-the optimizer update, and the replicated step whose gradients cross
-between replicas as int8 codes.
+"""Train-step construction: the loss, microbatching, remat, the
+optimizer update, the replicated step whose gradients cross between
+replicas as int8 codes, and the placements of a global batch on a mesh
+(:func:`batch_spec`).
 
 Two step builders, as in the reference:
 
 * :func:`make_train_step` — forward and backward on the whole batch
   (in ``run.microbatches`` slices, their gradients accumulated in
-  ``run.grad_accum_dtype``), then the optimizer update;
+  ``run.grad_accum_dtype``), then the optimizer update, on one device;
 * :func:`make_train_step_compressed` — data-parallel replicas: params,
-  optimizer state and error feedback carry a leading ``(n_pods, …)``
-  replica axis; each replica computes gradients on its own slice of the
-  batch, the gradients are exchanged as int8 codes with error feedback
+  optimizer state and error feedback carry a leading replica axis; each
+  replica computes gradients on its own slice of the batch, the
+  gradients are exchanged as int8 codes with error feedback
   (:mod:`repro_torch.optim.grad_compress`: kernels 7 and 8, one launch of
-  each a leaf and step), and every replica applies the same update.  On
-  one card the replicas run one after another and the all-gather is the
-  identity; the arithmetic is the reference's.
+  each a leaf and step), and every replica applies the same update.  In
+  one process the axis holds all ``n_pods`` replicas, which run one after
+  another, and the all-gather is the identity; on a mesh with a ``pod``
+  axis each rank holds one replica (an axis of 1), takes its slice of the
+  global batch by :func:`batch_spec`'s placement, and the codes cross
+  between ranks.  The two forms give the same bits.
 
 Both steps write the new parameters and optimizer state into the trees
 they are given, in place (the reference's training loop donates them to
@@ -22,26 +26,31 @@ its jitted step), and return them.
 
 :func:`train_loop` is the reference's resilient loop on one card:
 checkpoints (:mod:`repro_torch.checkpoint`), auto-resume, preemption
-handling and a step watchdog (:mod:`repro_torch.runtime`).  The
-reference's mesh and sharding (``batch_spec``) are not ported here.
+handling and a step watchdog (:mod:`repro_torch.runtime`), unsharded;
+its mesh form is still to come.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig, RunConfig
 from ..device import resolve_device
 from ..kernels.ref import true_divide
 from ..models import model as M
-from ..models.layers import DTYPES, init_from_specs
+from ..models.layers import DTYPES, ShapeDtypeStruct, init_from_specs
 from ..optim.adafactor import (AdafactorConfig, adafactor_init,
                                adafactor_update, adafactor_update_)
 from ..optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                            adamw_update_, f32)
 from ..optim.grad_compress import compress_pod_reduce, init_error_feedback
 from ..optim.tree import leaves, replica, tree_map, unflatten
+from .mesh import axis_sizes
+from .sharding import local_slice, placements, rules_for
 
-__all__ = ["make_optimizer", "loss_fn", "make_train_step",
+__all__ = ["make_optimizer", "loss_fn", "batch_spec", "make_train_step",
            "make_train_step_compressed", "init_train_state",
            "init_replica_state", "train_loop"]
 
@@ -131,6 +140,75 @@ def _microbatched_grads(params: dict, batch: dict, cfg: ModelConfig,
     return true_divide(loss_sum, mb), metrics, acc
 
 
+def batch_spec(cfg: ModelConfig, shape, mesh, rules) -> dict:
+    """:class:`~repro_torch.models.layers.ShapeDtypeStruct` with placements
+    for one global batch of ``shape.global_batch`` × ``shape.seq_len``:
+    int32 ``labels`` and ``tokens`` placed by ``("batch", None)``, or
+    bfloat16 ``embeds`` ``(B, S, d_model)`` placed by ``("batch", None,
+    None)`` (resolved without its shape, as the reference resolves it)."""
+    B, S = shape.global_batch, shape.seq_len
+    pl = placements(rules.partition_spec(("batch", None), shape=(B, S),
+                                         mesh=mesh), mesh)
+    out = {"labels": ShapeDtypeStruct((B, S), torch.int32, pl)}
+    if cfg.input_mode == "tokens":
+        out["tokens"] = ShapeDtypeStruct((B, S), torch.int32, pl)
+    else:
+        out["embeds"] = ShapeDtypeStruct(
+            (B, S, cfg.d_model), torch.bfloat16, placements(
+                rules.partition_spec(("batch", None, None), mesh=mesh),
+                mesh))
+    return out
+
+
+def _local_batch(batch: dict, cfg: ModelConfig, mesh, rules) -> dict:
+    """This rank's slice of a global batch, by :func:`batch_spec`'s
+    placements."""
+    B, S = batch["labels"].shape
+    spec = batch_spec(cfg, SimpleNamespace(global_batch=B, seq_len=S), mesh,
+                      rules)
+    coord = mesh.get_coordinate()
+    return {k: local_slice(v, mesh, spec[k].placements, coord)
+            for k, v in batch.items()}
+
+
+def _gathered(run: dict, mesh) -> list[dict]:
+    """Every pod rank's ``run`` (a dict of 0-dim tensors), in pod order,
+    on the host."""
+    group = mesh.get_group("pod")
+    out = [{} for _ in range(dist.get_world_size(group))]
+    for k, v in run.items():
+        v = v.cpu()
+        parts = [torch.empty_like(v) for _ in out]
+        dist.all_gather(parts, v, group=group)
+        for m, p in zip(out, parts):
+            m[k] = p
+    return out
+
+
+def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
+    """The replica count of the compressed step: ``n_pods`` in one
+    process, the ``pod`` axis's size on a mesh.
+
+    :raises ValueError: with ``run.fsdp``, for a mesh axis other than
+        ``pod`` wider than 1, or for an ``n_pods`` the mesh contradicts.
+    """
+    if run.fsdp:
+        raise ValueError("the compressed step requires fsdp=False")
+    if mesh is None:
+        if n_pods is None or n_pods < 1:
+            raise ValueError(f"n_pods must be at least 1, got {n_pods}")
+        return n_pods
+    sizes = axis_sizes(mesh)
+    wide = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
+    if wide:
+        raise ValueError(f"the compressed step shards only over 'pod'; the "
+                         f"mesh has {wide}")
+    pods = sizes.get("pod", 1)
+    if n_pods is not None and n_pods != pods:
+        raise ValueError(f"n_pods={n_pods}, but the mesh has {pods} pods")
+    return pods
+
+
 def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
                     q_chunk: int = 512, kv_chunk: int = 1024):
     """``(step, opt_cfg)``: ``step(params, opt_state, batch) -> (params,
@@ -149,40 +227,64 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
 
 
 def make_train_step_compressed(cfg: ModelConfig, run: RunConfig,
-                               n_pods: int, opt_cfg=None, *,
-                               q_chunk: int = 512, kv_chunk: int = 1024):
+                               n_pods: int | None = None, opt_cfg=None, *,
+                               mesh=None, q_chunk: int = 512,
+                               kv_chunk: int = 1024):
     """``(step, opt_cfg)`` of the replicated step with int8 gradient
     exchange: ``step(params_r, opt_r, ef_r, batch) -> (params_r, opt_r,
-    ef_r, metrics)`` on ``(n_pods, …)`` trees (:func:`init_replica_state`),
-    written in place.  The batch's leading axis is split into ``n_pods``
-    equal slices, one a replica; each leaf's gradients are then exchanged
-    (kernel 7 once, kernel 8 once; with one replica, not at all) and each
-    replica takes the optimizer step with the mean.  ``metrics``: the
-    replicas' mean loss, ``ce`` and ``moe_aux``, replica 0's
-    ``grad_norm`` and ``lr``."""
-    if n_pods < 1:
-        raise ValueError(f"n_pods must be at least 1, got {n_pods}")
+    ef_r, metrics)`` on the trees of :func:`init_replica_state`, written
+    in place.
+
+    In one process (no ``mesh``) the trees' leading axis holds ``n_pods``
+    replicas and the batch's leading axis is split into ``n_pods`` equal
+    slices, one a replica.  On ``mesh`` (a ``DeviceMesh`` whose ``pod``
+    axis holds one replica a rank) ``n_pods`` is the pod axis's size, the
+    leading axis is 1, every rank is given the global batch and takes its
+    slice (replica ``r`` rows ``[r·B/n, (r+1)·B/n)``, as in one process).
+    Each leaf's gradients are then exchanged (kernel 7 once, kernel 8 once
+    a rank; with one replica, not at all) and each replica takes the
+    optimizer step with the mean.  ``metrics``: the replicas' mean loss,
+    ``ce`` and ``moe_aux`` (each summed in replica order over float32
+    ``n``), replica 0's ``grad_norm`` and ``lr`` (every replica's are the
+    same).
+
+    :raises ValueError: as :func:`_mesh_pods` says; and at the step, on a
+        mesh, for a batch the pods do not divide.
+    """
+    n_pods = _mesh_pods(run, n_pods, mesh)
+    rules = None if mesh is None else rules_for(mesh, run)
     opt_cfg, _, _ = make_optimizer(run, opt_cfg)
     update_ = _UPDATE_[type(opt_cfg)]
 
     def step(params_r, opt_r, ef_r, batch):
-        pod_batch = {k: v.reshape((n_pods, v.shape[0] // n_pods)
+        if mesh is None:
+            split = {k: v.reshape((n_pods, v.shape[0] // n_pods)
                                   + tuple(v.shape[1:]))
                      for k, v in batch.items()}
+            slices = [{k: v[r] for k, v in split.items()}
+                      for r in range(n_pods)]
+        else:
+            if batch["labels"].shape[0] % n_pods:
+                raise ValueError(f"a batch of {batch['labels'].shape[0]} "
+                                 f"rows does not split into {n_pods} pods")
+            slices = [_local_batch(batch, cfg, mesh, rules)]
         grads = tree_map(lambda p: torch.empty_like(p), params_r)
         runs = []
-        for r in range(n_pods):
+        for r, b in enumerate(slices):
             loss, metrics, g = value_and_grad(
-                replica(params_r, r), {k: v[r] for k, v in pod_batch.items()},
-                cfg, run, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                replica(params_r, r), b, cfg, run, q_chunk=q_chunk,
+                kv_chunk=kv_chunk)
             g_of = dict(leaves(g))
             for path, stack in leaves(grads):
                 stack[r].copy_(g_of[path])
             del g, g_of
             runs.append({"loss": loss, **metrics})
-        compress_pod_reduce(grads, ef_r, n_pods=n_pods)
+        compress_pod_reduce(grads, ef_r, n_pods=n_pods, mesh=mesh)
         stats = [update_(replica(params_r, r), replica(grads, r),
-                         replica(opt_r, r), opt_cfg) for r in range(n_pods)]
+                         replica(opt_r, r), opt_cfg)
+                 for r in range(len(slices))]
+        if mesh is not None and n_pods > 1:
+            runs = _gathered(runs[0], mesh)
         n = f32(n_pods)
         out = {k: torch.stack([m[k].cpu() for m in runs]).sum() / n
                for k in runs[0]}
@@ -217,17 +319,22 @@ def _replicate(tree: dict, n: int) -> dict:
     return out
 
 
-def init_replica_state(cfg: ModelConfig, run: RunConfig, n_pods: int,
-                       generator: torch.Generator, opt_cfg=None, *,
+def init_replica_state(cfg: ModelConfig, run: RunConfig,
+                       n_pods: int | None, generator: torch.Generator,
+                       opt_cfg=None, *, mesh=None,
                        device: str | torch.device = "cuda"):
     """``(params_r, opt_r, ef_r)`` for :func:`make_train_step_compressed`:
-    :func:`init_train_state`'s values, each leaf copied ``n_pods`` times
-    along a new leading axis (the step counter too, on the host), and
-    zeroed error feedback of that shape."""
+    :func:`init_train_state`'s values, each leaf copied along a new
+    leading axis (the step counter too, on the host), and zeroed error
+    feedback of that shape.  The axis holds ``n_pods`` replicas in one
+    process, and this rank's one replica on ``mesh`` (every rank draws
+    the same values from a generator seeded alike)."""
+    n_pods = _mesh_pods(run, n_pods, mesh)
+    n = 1 if mesh is not None else n_pods
     params, opt_state = init_train_state(cfg, run, generator, opt_cfg,
                                          device=device)
-    params_r = _replicate(params, n_pods)
-    opt_r = _replicate(opt_state, n_pods)
+    params_r = _replicate(params, n)
+    opt_r = _replicate(opt_state, n)
     return params_r, opt_r, init_error_feedback(params_r)
 
 

@@ -3,8 +3,16 @@
 Parameters are plain nested dicts of tensors, built from a tree of
 :class:`ParamSpec` as in the reference, so the two trees have the same
 keys and shapes (stacked layer parameters keep their leading layers
-axis).  The reference's logical sharding axes are kept on the specs for
-the reader; the port runs on one device and shards nothing.
+axis).  Each spec carries the reference's logical sharding axes, which
+:mod:`repro_torch.launch.sharding` resolves to DTensor placements on a
+mesh; :func:`abstract_from_specs` gives the tree's shapes and dtypes
+without storage.
+
+Activation constraints go through :func:`shard`, which reads a
+thread-local (mesh, rules) pair that a launcher sets with
+:func:`mesh_context`; outside one, and on a plain (not DTensor) tensor,
+it is the identity.  The port's model code runs unsharded and calls no
+constraint yet.
 
 Rounding follows the reference: :func:`rmsnorm` computes in float32 and
 rounds once; :func:`linear` multiplies in the activation dtype;
@@ -12,19 +20,34 @@ rounds once; :func:`linear` multiplies in the activation dtype;
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["ParamSpec", "DTYPES", "init_from_specs", "param_count",
+__all__ = ["ParamSpec", "ShapeDtypeStruct", "DTYPES", "init_from_specs",
+           "abstract_from_specs", "param_count", "mesh_context",
+           "current_mesh_rules", "shard", "activation_shardings",
            "require_exact_f32_products", "rmsnorm", "linear", "rope_freqs",
            "apply_rope"]
 
 #: The reference's dtype names.
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A tensor's shape and dtype, and on a mesh its placements (one
+    ``Shard(d)`` or ``Replicate()`` a mesh dim), with no storage: the
+    reference's ``jax.ShapeDtypeStruct``."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    placements: tuple | None = None
 
 
 @dataclass(frozen=True)
@@ -38,6 +61,9 @@ class ParamSpec:
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+    def sds(self) -> ShapeDtypeStruct:
+        return ShapeDtypeStruct(tuple(self.shape), self.torch_dtype)
 
 
 def _leaves(tree, prefix=()):
@@ -91,17 +117,94 @@ def init_from_specs(specs, generator: torch.Generator, *,
     :func:`repro_torch.convert.params_from_reference`).
     """
     device = resolve_device(device)
+    return _map_specs(lambda s: _init_leaf(s, generator, device), specs)
+
+
+def _map_specs(fn, specs) -> dict:
+    """The nested dict of ``fn(spec)``, built in the spec tree's order."""
     out: dict = {}
     for path, spec in _leaves(specs):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _init_leaf(spec, generator, device)
+        node[path[-1]] = fn(spec)
     return out
+
+
+def abstract_from_specs(specs) -> dict:
+    """A tree of :class:`ShapeDtypeStruct`: the dry-run's parameters,
+    which allocate nothing."""
+    return _map_specs(ParamSpec.sds, specs)
 
 
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for _, s in _leaves(specs))
+
+
+# ---------------------------------------------------------------------------
+# the (mesh, rules) context of activation sharding constraints
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, rules):
+    """Within the block (on this thread), :func:`shard` constrains
+    activations by ``rules`` on ``mesh``; contexts nest, and the outer one
+    returns on exit."""
+    prev = getattr(_CTX, "value", None)
+    _CTX.value = (mesh, rules)
+    try:
+        yield
+    finally:
+        _CTX.value = prev
+
+
+def current_mesh_rules():
+    """The innermost ``(mesh, rules)`` of this thread, or ``None``."""
+    return getattr(_CTX, "value", None)
+
+
+def shard(x, *axes):
+    """Constrain an activation's sharding by logical axis names: a DTensor
+    is redistributed to the placements its axes resolve to (dims with no
+    rule or an indivisible size are unconstrained and keep their current
+    sharding).  The identity outside a :func:`mesh_context` and on a plain
+    tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.sharding import placements
+
+    ctx = current_mesh_rules()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    mesh, rules = ctx
+    spec = rules.partition_spec(axes, shape=tuple(x.shape), mesh=mesh,
+                                unconstrained_fallback=True)
+    return x.redistribute(mesh, placements(spec, mesh, current=x.placements))
+
+
+def activation_shardings(axes_tree):
+    """Placements, one tuple a mesh dim, of each logical-axis tuple of
+    ``axes_tree`` (a tuple, or a nested dict of tuples) in the current
+    :func:`mesh_context`, without divisibility checks.
+
+    :raises RuntimeError: outside a :func:`mesh_context`.
+    """
+    from ..launch.sharding import placements
+
+    ctx = current_mesh_rules()
+    if ctx is None:
+        raise RuntimeError("activation_shardings needs a mesh_context")
+    mesh, rules = ctx
+
+    def one(axes):
+        return placements(rules.partition_spec(axes, mesh=mesh), mesh)
+    if isinstance(axes_tree, tuple):
+        return one(axes_tree)
+    return {k: activation_shardings(v) if isinstance(v, dict) else one(v)
+            for k, v in axes_tree.items()}
 
 
 def require_exact_f32_products(x: torch.Tensor) -> None:

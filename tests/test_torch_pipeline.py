@@ -223,7 +223,8 @@ def test_import_hygiene():
         "        'repro_torch.models.moe', 'repro_torch.core.entropy',\n"
         "        'repro_torch.launch.train', 'repro_torch.optim.grad_compress',\n"
         "        'repro_torch.runtime.resilience', 'repro_torch.data.pipeline',\n"
-        "        'repro_torch.checkpoint.manager'}\n"
+        "        'repro_torch.checkpoint.manager', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.sharding'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
