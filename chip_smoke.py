@@ -435,15 +435,24 @@ LOOP_EXPERT = ("granite_moe_1b_a400m", "layers/mlp/w_up")
 # reduction whose order varied could move a value: each parameter leaf
 # within 1e-6 of its largest magnitude (bit-exactness is printed)
 LOOP_RESUME_REL_MAX = 1e-6
-# phase 13: phase 12's model at 8 of its 48 layers (float32) in phase
+# phase 13: phase 12's model at 4 of its 48 layers (float32) in phase
 # 11's two-replica step, in one process and then as two gloo
 # ranks on the one card (NCCL puts no two ranks on one device), each rank
-# holding one replica; then the elastic restore onto (data=2, model=1)
-MESH_LAYERS = 8
+# holding one replica; then the elastic restore onto (data=2, model=1);
+# then the plain step in one process (a′) and data-parallel with fsdp on
+# (data=2, model=1) (d).  4, not 8, keeps the whole script inside its
+# time limit
+MESH_LAYERS = 4
 MESH_SEED = 37
 MESH_PODS, MESH_STEPS = 2, 2
 MESH_PG_TIMEOUT_S = 120          # the ranks' process-group timeout
 MESH_JOIN_S = 600                # the ranks must end within this
+# (d) against (a′): step 1's loss (relative); the gathered step-1
+# gradients of TRAIN_EXCHANGE_LEAVES (of each leaf's largest magnitude);
+# each rank's shards after step 1 against the one-process AdamW update
+# of the gathered gradients on the gathered step-0 parameters (beyond
+# one ulp of the value, of the leaf's largest update)
+DP_LOSS_REL_MAX, DP_GRAD_REL_MAX, DP_UPDATE_REL_MAX = 1e-6, 1e-5, 1e-6
 # the MoE layer's routing, dispatch and expert operators
 MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
                 "aten::searchsorted", "aten::index_copy_",
@@ -3692,30 +3701,95 @@ def device_sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-class ExchangeClock:
-    """Seconds, while active, that ``launch.train``'s step spends in
-    ``compress_pod_reduce`` (the device synchronized around each call)."""
+class TrainClock:
+    """Seconds, while active, that ``launch.train``'s steps spend in each
+    of its functions ``names`` (the device synchronized around each
+    call), and the last return value of those in ``keep``."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, *names, keep=()):
         from repro_torch.launch import train
 
-        self.torch, self.dev, self.mod, self.s = torch, dev, train, 0.0
+        self.torch, self.dev, self.mod = torch, dev, train
+        self.s, self.keep, self.last = dict.fromkeys(names, 0.0), keep, {}
 
     def __enter__(self):
-        self.orig = orig = self.mod.compress_pod_reduce
-
-        def timed(*a, **kw):
-            device_sync(self.torch, self.dev)
-            t0 = time.perf_counter()
-            out = orig(*a, **kw)
-            device_sync(self.torch, self.dev)
-            self.s += time.perf_counter() - t0
-            return out
-        self.mod.compress_pod_reduce = timed
+        self.orig = {n: getattr(self.mod, n) for n in self.s}
+        for n, fn in self.orig.items():
+            def timed(*a, _n=n, _fn=fn, **kw):
+                device_sync(self.torch, self.dev)
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                device_sync(self.torch, self.dev)
+                self.s[_n] += time.perf_counter() - t0
+                if _n in self.keep:
+                    self.last[_n] = out
+                return out
+            setattr(self.mod, n, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod.compress_pod_reduce = self.orig
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+
+class RecordGrads:
+    """While active, a host copy of the leaves ``names`` of the first
+    gradients ``launch.train._microbatched_grads`` returns (the one-process
+    step's first step)."""
+
+    def __init__(self, names):
+        from repro_torch.launch import train
+
+        self.mod, self.names, self.first = train, names, None
+
+    def __enter__(self):
+        self.orig = orig = self.mod._microbatched_grads
+
+        def recording(*a, **kw):
+            out = orig(*a, **kw)
+            if self.first is None:
+                self.first = {n: leaf_at(out[2], n).cpu() for n in self.names}
+            return out
+        self.mod._microbatched_grads = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._microbatched_grads = self.orig
+
+
+def dp_step_bytes(params: dict, n: int, mb: int) -> dict:
+    """The bytes a rank sends (and as many it receives) in a step of
+    ``make_train_step(mesh=)`` over ``n`` ranks, at a ring's volume: the
+    all-gather of each sharded parameter and the reduce-scatter of its
+    float32 gradient, ``(n − 1)/n`` of the leaf each; the all-reduce of a
+    replicated leaf's float32 gradient, ``2(n − 1)/n``; the ``mb`` label
+    counts (int64, all-reduced), the norm's float32 partial sums and the
+    ``mb + 2`` float32 metrics (all-gathered)."""
+    from repro_torch.optim.tree import leaves, sharded
+
+    share = (n - 1) / n
+    out = {"gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+    for _, p in leaves(params):
+        if sharded(p):
+            out["gather"] += share * p.numel() * p.element_size()
+            out["reduce_scatter"] += share * p.numel() * 4
+        else:
+            out["all_reduce"] += 2 * share * p.numel() * 4
+    out["scalars"] = (2 * share * 8 * mb
+                      + (n - 1) * 4 * (len(leaves(params)) + mb + 2))
+    out = {k: int(v) for k, v in out.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def update_rel(torch, want, got, old) -> float:
+    """``max(|got − want| − ulp(want), 0) / max |want − old|``: a leaf's
+    difference beyond one ulp, of its largest update."""
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) \
+        - want.abs()
+    beyond = ((got.double() - want.double()).abs() - ulp.double()).clamp_min(0)
+    return float(beyond.max() / (want.double() - old.double()).abs().max()
+                 .clamp_min(1e-30))
 
 
 def mesh_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
@@ -3744,7 +3818,8 @@ def mesh_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
 
 def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
                   dev) -> dict:
-    """Runs (b) and (c) of phase 13 on this rank; returns its readings."""
+    """Runs (b), (c) and (d) of phase 13 on this rank; returns its
+    readings."""
     import numpy as np
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Shard
@@ -3781,13 +3856,14 @@ def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
         dist.barrier()
         device_sync(torch, dev)
         ops.reset_launches()
-        with ExchangeClock(torch, dev) as clock:
+        with TrainClock(torch, dev, "compress_pod_reduce") as clock:
             t0 = time.perf_counter()
             m = step(params_r, opt_r, ef_r, batch)[3]
             device_sync(torch, dev)
             sec = time.perf_counter() - t0
-        steps.append({"s": sec, "exchange_s": clock.s,
-                      "exchange_share": clock.s / sec,
+        ex_s = clock.s["compress_pod_reduce"]
+        steps.append({"s": sec, "exchange_s": ex_s,
+                      "exchange_share": ex_s / sec,
                       "launches": {k: ops.launches[k] for k in QDQ},
                       "loss": float(m["loss"])})
     out["steps"] = steps
@@ -3850,14 +3926,110 @@ def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
                       n_sharded, "leaves": len(pl_of), "local_bytes": local,
                       "full_bytes": full, "opt_whole": all(
                           not isinstance(t, DTensor) for _, t in leaves(o))}
+    del p, o, full_p, p_of
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- (d) the plain step, data-parallel with fsdp on (data=2)
+    out["dp"] = mesh_dp_run(torch, dist, root, cfg, dev, mesh2)
+    return out
+
+
+def mesh_dp_run(torch, dist, root: str, cfg, dev, mesh) -> dict:
+    """Run (d) of phase 13 on this rank: ``init_train_state(mesh=)`` and
+    ``MESH_STEPS`` steps of ``make_train_step(mesh=)`` with fsdp, the
+    launch counts reset just before each step and read just after; the
+    step-1 gradients and shards held to (a′) and to the one-process
+    update.  Returns its readings."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import leaves, local, sharded, tree_map
+
+    run, opt = mesh_run_opt()
+    run = replace(run, fsdp=True)
+    group, n = dist.group.WORLD, dist.get_world_size()
+    coord = mesh.get_coordinate()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, state = train.init_train_state(
+        cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED), opt,
+        mesh=mesh, device=dev)
+    step, _ = train.make_train_step(cfg, run, opt, mesh=mesh)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    moments = {k: v for k, v in state.items() if k != "step"}
+    out = {"bytes": {name: {
+        "local": sum(local(t).numel() * t.element_size()
+                     for _, t in leaves(tree)),
+        "full": sum(t.numel() * t.element_size() for _, t in leaves(tree))}
+        for name, tree in (("params", params), ("moments", moments))},
+        "sharded_leaves": sum(sharded(p) for _, p in leaves(params)),
+        "leaves": len(leaves(params)),
+        "sent_bytes_a_step": dp_step_bytes(params, n, run.microbatches)}
+    old = tree_map(torch.clone, train._gather_params(params, group))
+    plain = torch.load(os.path.join(root, "plain_grads.pt"), map_location=dev)
+    steps = []
+    for i in range(MESH_STEPS):
+        dist.barrier()
+        device_sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with TrainClock(torch, dev, "_gather_params", "_reduce_grads",
+                        keep=("_reduce_grads",)) as clock:
+            t0 = time.perf_counter()
+            m = step(params, state, batch)[2]
+            device_sync(torch, dev)
+            sec = time.perf_counter() - t0
+        launches = {k: ops.launches[k] for k in KERNELS}
+        identical = True
+        for _, p in leaves(params):
+            if not sharded(p):
+                got = local(p).clone()
+                dist.broadcast(got, src=0)
+                identical = identical and torch.equal(got, local(p))
+        g_s, r_s = clock.s["_gather_params"], clock.s["_reduce_grads"]
+        steps.append({"s": sec, "gather_s": g_s, "gather_share": g_s / sec,
+                      "reduce_s": r_s, "reduce_share": r_s / sec,
+                      "launches": launches, "loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item(),
+                      "replicated_identical": identical,
+                      "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                            if dev.type == "cuda" else None)})
+        if i:
+            continue
+        # step 1: the gathered gradients against (a′)'s, and each shard
+        # against the one-process update of the gathered gradients
+        grads = train._gather_params(clock.last.pop("_reduce_grads"), group)
+        out["grads_rel"] = {
+            name: float((leaf_at(grads, name) - g).abs().max()
+                        / g.abs().max()) for name, g in plain.items()}
+        want = tree_map(torch.clone, old)
+        adamw.adamw_update_(want, grads, adamw.adamw_init(want, opt), opt)
+        del grads
+        w_of, o_of = dict(leaves(want)), dict(leaves(old))
+        worst, exact = 0.0, True
+        for path, p in leaves(params):
+            w = sharding.local_slice(w_of[path], mesh, p.placements, coord)
+            o = sharding.local_slice(o_of[path], mesh, p.placements, coord)
+            worst = max(worst, update_rel(torch, w, local(p), o))
+            exact = exact and torch.equal(w, local(p))
+        out["update_rel"], out["update_bit_exact"] = worst, exact
+        del want, w_of, o_of, old, plain
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["steps"] = steps
     return out
 
 
 def mesh_training(torch, smi: str, dev="cuda") -> dict:
     """Phase 13: run (a), the two-replica step in one process and a
-    checkpoint of replica 0; runs (b) and (c) in two spawned gloo ranks
-    on the one card (:func:`mesh_rank`).  Returns the printed readings
-    with the ranks' launch counts."""
+    checkpoint of replica 0; run (a′), the plain step in one process;
+    runs (b), (c) and (d) in two spawned gloo ranks on the one card
+    (:func:`mesh_rank`).  Returns the printed readings with the ranks'
+    launch counts."""
     import shutil
 
     import numpy as np
@@ -3935,7 +4107,31 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
             MESH_STEPS, replica(params_r, 0), replica(opt_r, 0),
             blocking=True)
         out["a_save_s"] = time.perf_counter() - t0
-        del params_r, opt_r, ef_r, batch, rec
+        del params_r, opt_r, ef_r, rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # ---- (a′) the plain step in one process; its step-1 gradients
+        params, opt_state = train.init_train_state(
+            cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED),
+            opt, device=dev)
+        step, _ = train.make_train_step(cfg, run, opt)
+        plain_steps = []
+        with RecordGrads(TRAIN_EXCHANGE_LEAVES) as rec:
+            for _ in range(MESH_STEPS):
+                device_sync(torch, dev)
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                m = step(params, opt_state, batch)[2]
+                device_sync(torch, dev)
+                plain_steps.append({"s": time.perf_counter() - t0,
+                                    "loss": float(m["loss"]),
+                                    "grad_norm": float(m["grad_norm"]),
+                                    "launches": {k: ops.launches[k]
+                                                 for k in KERNELS}})
+        torch.save(rec.first, os.path.join(root, "plain_grads.pt"))
+        out["plain_steps"] = plain_steps
+        del params, opt_state, batch, rec
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -3962,10 +4158,36 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         out["launches"] = {f"rank{r['rank']}_step{i}": st["launches"]
                            for r in ranks for i, st in enumerate(r["steps"])}
         out["a_launches"] = [st["launches"] for st in a_steps]
+        # (a′) and (d): no kernel is on the plain step's path
+        out["dp_launches"] = {f"dp_rank{r['rank']}_step{i}": st["launches"]
+                              for r in ranks
+                              for i, st in enumerate(r["dp"]["steps"])}
+        out["dp_launches"].update({f"plain_step{i}": st["launches"]
+                                   for i, st in enumerate(plain_steps)})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
+    want = plain_steps[0]["loss"]
+    out["dp_step1_loss_rel"] = abs(
+        ranks[0]["dp"]["steps"][0]["loss"] - want) / abs(want)
     print("mesh: " + json.dumps(out, default=str))
+    d = ranks[0]["dp"]
+    print("mesh (d), rank 0, fsdp on (data=2, model=1), two ranks on one "
+          "card through gloo, nothing crosses a link: " + json.dumps({
+              "step_s": [st["s"] for st in d["steps"]],
+              "gather_share": [st["gather_share"] for st in d["steps"]],
+              "reduce_share": [st["reduce_share"] for st in d["steps"]],
+              "sent_bytes_a_step": d["sent_bytes_a_step"]["total"],
+              "compressed_step_sent_bytes": sum(
+                  out["exchange_bytes"][k]
+                  for k in ("int8_codes", "float32_scales")),
+              "peak_device_bytes": [st["peak_device_bytes"]
+                                    for st in d["steps"]],
+              "local_over_full": {k: v["local"] / v["full"]
+                                  for k, v in d["bytes"].items()},
+              "plain_step_s": [st["s"] for st in out["plain_steps"]],
+              "step1_loss_rel": out["dp_step1_loss_rel"],
+              "grads_rel": d["grads_rel"], "update_rel": d["update_rel"]}))
     for r in ranks:
         check(r["pod_coordinate"] == r["rank"], f"mesh: rank {r['rank']} "
               f"at pod {r['pod_coordinate']}")
@@ -3985,6 +4207,27 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
               f"mesh: {key} launched {got}, not {n_leaves} of each")
     for got in out["a_launches"]:
         check(got == {k: n_leaves for k in QDQ}, f"mesh: (a) launched {got}")
+    # (d) against (a′)
+    dps = [r["dp"] for r in ranks]
+    for i in range(MESH_STEPS):
+        check(len({(d["steps"][i]["loss"], d["steps"][i]["grad_norm"])
+                   for d in dps}) == 1, f"mesh: (d) step {i + 1}'s loss and "
+              f"grad_norm differ between the ranks")
+    rel = out["dp_step1_loss_rel"]
+    check(rel <= DP_LOSS_REL_MAX, f"mesh: (d) step 1's loss {rel} from (a′)")
+    for d in dps:
+        check(all(st["replicated_identical"] for st in d["steps"]),
+              "mesh: (d) replicated leaves differ between the ranks")
+        check(max(d["grads_rel"].values()) <= DP_GRAD_REL_MAX,
+              f"mesh: (d) gradients {d['grads_rel']} from (a′)'s")
+        check(d["update_rel"] <= DP_UPDATE_REL_MAX,
+              f"mesh: (d) shards {d['update_rel']} from the update")
+        check(d["sharded_leaves"] > 0 and d["bytes"]["params"]["local"]
+              < d["bytes"]["params"]["full"], f"mesh: (d) {d['bytes']}")
+        check(all(np.isfinite(st["loss"]) for st in d["steps"]),
+              "mesh: (d) losses")
+    for key, got in out["dp_launches"].items():
+        check(not any(got.values()), f"mesh: {key} launched {got}")
     return out
 
 
@@ -4672,6 +4915,10 @@ def main() -> int:
                 "shape": trn["pods"]["k7_k8_ms_at_group_256"]["shape"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
+        # phase 13's plain step: (d)'s ranks and (a′)
+        r.setdefault("mesh_launches", {}).update({
+            run: counts[r["name"]]
+            for run, counts in mesh["dp_launches"].items()})
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

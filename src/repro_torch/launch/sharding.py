@@ -38,7 +38,8 @@ from ..optim.tree import tree_map
 from .mesh import axis_sizes
 
 __all__ = ["PartitionSpec", "UNCONSTRAINED", "ShardingRules", "rules_for",
-           "placements", "local_slice", "param_shardings", "abstract_params"]
+           "placements", "local_slice", "param_shardings", "opt_shardings",
+           "abstract_params"]
 
 
 class _Unconstrained:
@@ -181,6 +182,34 @@ def param_shardings(specs, mesh, rules: ShardingRules) -> dict:
     """A tree of placements, one tuple a ``ParamSpec`` leaf of ``specs``."""
     return tree_map(lambda s: placements(
         rules.partition_spec(s.axes, shape=s.shape, mesh=mesh), mesh), specs)
+
+
+def opt_shardings(opt_cfg, specs, psh, mesh, rules: ShardingRules) -> dict:
+    """Placements of the optimizer state's tree (the reference's
+    ``_opt_shardings``), without the host step counter: AdamW's ``mu`` and
+    ``nu`` take their parameter's placements ``psh``; Adafactor's factored
+    second moments keep the parameter's surviving logical axes, and its
+    first moment (``beta1 > 0``) the parameter's placements."""
+    from ..optim.adafactor import AdafactorConfig, _factored
+
+    if not isinstance(opt_cfg, AdafactorConfig):
+        return {"mu": psh, "nu": psh}
+
+    def pl(axes, shape):
+        return placements(rules.partition_spec(axes, shape=shape, mesh=mesh),
+                          mesh)
+
+    def v_pl(s):
+        if _factored(s.shape):
+            return {"vr": pl(s.axes[:-1], s.shape[:-1]),
+                    "vc": pl(s.axes[:-2] + s.axes[-1:],
+                             s.shape[:-2] + s.shape[-1:])}
+        return {"v": pl(s.axes, s.shape)}
+
+    out = {"v": tree_map(v_pl, specs)}
+    if opt_cfg.beta1 > 0:
+        out["mu"] = psh
+    return out
 
 
 def abstract_params(specs, mesh=None, rules: ShardingRules | None = None

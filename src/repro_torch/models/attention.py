@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
-from .layers import ParamSpec, apply_rope, linear, rmsnorm, rope_freqs
+from .layers import (ParamSpec, apply_rope, linear, rmsnorm, rope_freqs,
+                     shard)
 
 __all__ = ["attn_specs", "init_kv_cache", "quantize_heads",
            "dequantize_heads", "flash_attention", "decode_attention",
@@ -223,6 +224,9 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
     cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
 
     kv = None
     if mode == "decode":

@@ -11,8 +11,11 @@ without storage.
 Activation constraints go through :func:`shard`, which reads a
 thread-local (mesh, rules) pair that a launcher sets with
 :func:`mesh_context`; outside one, and on a plain (not DTensor) tensor,
-it is the identity.  The port's model code runs unsharded and calls no
-constraint yet.
+it is the identity.  The port's models call it at the reference's 16
+sites with the same logical axes; their activations are plain tensors
+(the data-parallel step gathers the parameters whole), so the
+constraints change no result until a ``model`` axis wider than 1 makes
+them DTensors.
 
 Rounding follows the reference: :func:`rmsnorm` computes in float32 and
 rounds once; :func:`linear` multiplies in the activation dtype;

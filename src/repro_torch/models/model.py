@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import attention, attn_specs, init_kv_cache
 from .layers import (DTYPES, ParamSpec, _leaves, require_exact_f32_products,
-                     rmsnorm)
+                     rmsnorm, shard)
 from .moe import mlp_apply, mlp_specs, moe_apply, moe_specs
 from .rwkv import init_rwkv_state, rwkv6_apply, rwkv6_specs
 from .ssm import init_mamba_state, mamba2_apply, mamba2_specs
@@ -186,8 +186,8 @@ def _inputs(params: dict, cfg, tokens, embeds) -> torch.Tensor:
 def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
             embeds: torch.Tensor | None = None, mode: str = "train",
             state: dict | None = None, cache_len: int | None = None,
-            q_chunk: int = 512, kv_chunk: int = 1024, remat: bool = False
-            ) -> tuple[torch.Tensor, dict]:
+            q_chunk: int = 512, kv_chunk: int = 1024, remat: bool = False,
+            global_tokens: int | None = None) -> tuple[torch.Tensor, dict]:
     """Returns ``(logits, aux)`` with ``aux = {"state": …, "moe_aux": …}``;
     ``moe_aux`` is the MoE layers' load-balance loss summed over the
     layers and divided by ``n_layers`` (0 for the other families).
@@ -203,12 +203,17 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     threaded in every mode, from zeros in train and prefill; RWKV chunks
     by 32 and Mamba2 by 256, the reference's.  ``remat`` checkpoints each
     layer in train mode (a hybrid: each group, and each Mamba2 layer in
-    it); the gradients are the same with it on or off.
+    it); the gradients are the same with it on or off.  ``global_tokens``:
+    on a mesh, the token count of the global batch whose rows ``tokens`` /
+    ``embeds`` are (:func:`~repro_torch.models.moe.moe_apply`).
+
+    The activations pass the reference's ``shard`` constraints, which are
+    the identity outside a ``mesh_context`` and on plain tensors.
     """
     check_ported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = _inputs(params, cfg, tokens, embeds)
+    x = shard(_inputs(params, cfg, tokens, embeds), "batch", "seq", None)
     require_exact_f32_products(x)
     B, S = x.shape[:2]
     dev = x.device
@@ -232,7 +237,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
                                  cfg, mode=mode, state=lst, chunk=32)
             if keep:
                 _put(state, (i,), new)
-            return h
+            return shard(h, "batch", "seq", None)
 
         layer = _checkpointed(rwkv_layer, remat)
         for i in range(cfg.n_layers):
@@ -251,7 +256,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
 
         def group(h, g):
             for j in range(cfg.shared_attn_every):
-                h = mamba(h, g, j)
+                h = shard(mamba(h, g, j), "batch", "seq", None)
             g_kv = ({k: v[g] for k, v in state["kv"].items()}
                     if mode == "decode" else None)
             a_out, new_kv = attention(params["shared_attn"], h, cfg,
@@ -261,7 +266,8 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
             if mode == "prefill":
                 _put(state["kv"], (g,), new_kv)
             h = h + a_out
-            return h + mlp_apply(params["shared_mlp"], h, cfg)
+            h = h + mlp_apply(params["shared_mlp"], h, cfg)
+            return shard(h, "batch", "seq", None)
 
         group_r = _checkpointed(group, remat)
         for g in range(_groups(cfg)):
@@ -278,12 +284,13 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
                                       kv_chunk=kv_chunk)
             if mode == "prefill":
                 _put(state, (i,), new_kv)
-            h = h + a_out
+            h = shard(h + a_out, "batch", "seq", None)
             if cfg.n_experts:
-                m_out, m_aux = moe_apply(lp["mlp"], h, cfg)
+                m_out, m_aux = moe_apply(lp["mlp"], h, cfg,
+                                         global_tokens=global_tokens)
             else:
                 m_out, m_aux = mlp_apply(lp["mlp"], h, cfg), None
-            return h + m_out, m_aux
+            return shard(h + m_out, "batch", "seq", None), m_aux
 
         block_r = _checkpointed(block, remat)
         for i in range(cfg.n_layers):
@@ -295,7 +302,8 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
         # serving needs only the last position's logits
         x = x[:, -1:]
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    logits = torch.matmul(x, params["lm_head"].to(x.dtype))
+    logits = shard(torch.matmul(x, params["lm_head"].to(x.dtype)), "batch",
+                   None, "vocab")
     aux = {"moe_aux": moe_aux / max(cfg.n_layers, 1),
            "state": state if keep else None}
     return logits, aux

@@ -11,9 +11,12 @@ batched matrix products over the experts.  The reference's expert
 products and dispatch run outside any Pallas kernel, and so do the
 port's: no kernel of ``kernels/`` is on this layer's path.
 
-The port runs on one device, so it has no expert sharding, and its group
-loop is a Python loop (the reference's ``lax.scan``), so it needs no
-``unroll`` switch either.
+The port has no expert sharding yet (the ``shard`` constraints on the
+expert buffers are wired, and are the identity on plain tensors), and
+its group loop is a Python loop (the reference's ``lax.scan``), so it
+needs no ``unroll`` switch either.  On a data-parallel mesh a rank routes
+its own rows, in groups sized by the global batch's token count
+(``moe_apply(global_tokens=)``), each group whole within the rank.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ import math
 
 import torch
 
-from .layers import ParamSpec, linear, require_exact_f32_products, rmsnorm
+from .layers import (ParamSpec, linear, require_exact_f32_products, rmsnorm,
+                     shard)
 
-__all__ = ["moe_specs", "moe_apply", "mlp_specs", "mlp_apply", "silu",
-           "gelu_tanh"]
+__all__ = ["moe_specs", "moe_apply", "group_tokens", "mlp_specs", "mlp_apply",
+           "silu", "gelu_tanh"]
 
 
 def mlp_specs(cfg) -> dict:
@@ -67,6 +71,7 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         up = silu(linear(xn, params["w_gate"])) * up
     else:
         up = gelu_tanh(up)
+    up = shard(up, "batch", None, "mlp")
     return linear(up, params["w_down"])
 
 
@@ -154,11 +159,13 @@ def _moe_groups(params: dict, groups: torch.Tensor, cfg
     # (G, e, c, d) → (e, G·c, d): one batched product an expert
     expert_in = buf[:-1].reshape(G, e, capacity, d).transpose(0, 1) \
         .reshape(e, G * capacity, d)
+    expert_in = shard(expert_in, "experts", None, None)
 
     h = torch.bmm(expert_in, params["w_up"].to(expert_in.dtype))
     gt = torch.bmm(expert_in, params["w_gate"].to(expert_in.dtype))
     h = silu(gt) * h
     expert_out = torch.bmm(h, params["w_down"].to(h.dtype))
+    expert_out = shard(expert_out, "experts", None, None)
     expert_out = expert_out.reshape(e, G, capacity, d).transpose(0, 1) \
         .reshape(G * e * capacity, d)
 
@@ -175,25 +182,45 @@ def _moe_group(params: dict, tokens: torch.Tensor, cfg
     return out[0], aux[0]
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg, *,
-              group_size: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+def group_tokens(n: int, group_size: int = 4096) -> int:
+    """The token group of ``n`` tokens: ``min(group_size, n)``, halved
+    until it divides ``n``."""
+    gs = min(group_size, n)
+    while n % gs:
+        gs //= 2
+    return gs
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg, *, group_size: int = 4096,
+              global_tokens: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE body (the caller adds the residual).  Returns
     ``(out, aux_loss)`` for ``x`` (B, S, d).
 
-    Tokens are routed in groups: ``gs = min(group_size, B·S)``, halved
-    until it divides ``B·S``.  Capacity is provisioned per group, and
-    ``aux`` is the mean over the groups.  The groups go through in passes
-    of at most ``group_size`` tokens (one group, or many small ones at
-    once), so a pass's buffers stay those of one full group.
+    Tokens are routed in groups of :func:`group_tokens` ``(B·S)``.
+    Capacity is provisioned per group, and ``aux`` is the mean over the
+    groups.  The groups go through in passes of at most ``group_size``
+    tokens (one group, or many small ones at once), so a pass's buffers
+    stay those of one full group.
+
+    ``global_tokens``: ``x`` is a rank's rows of a global batch of that
+    many tokens; the groups are the global batch's, and ``aux`` is this
+    rank's groups' sum over the global group count, so that the ranks'
+    terms add up to the global mean.
+
+    :raises ValueError: if a global group would span ranks (``B·S`` is
+        not a whole number of groups).
     """
     require_exact_f32_products(x)
     B, S, d = x.shape
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
     tokens = xn.reshape(B * S, d)
     n = tokens.shape[0]
-    gs = min(group_size, n)
-    while n % gs:
-        gs //= 2
+    n_global = n if global_tokens is None else global_tokens
+    gs = group_tokens(n_global, group_size)
+    if n % gs:
+        raise ValueError(f"a token group of {gs} (of {n_global} tokens) "
+                         f"spans ranks holding {n} tokens each")
     per_pass = max(group_size // gs, 1) * gs
     outs = []
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -201,4 +228,4 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *,
         out, aux = _moe_groups(params, chunk.reshape(-1, gs, d), cfg)
         outs.append(out.reshape(-1, d))
         aux_sum = aux_sum + aux.sum()
-    return torch.cat(outs).reshape(B, S, d), aux_sum / (n // gs)
+    return torch.cat(outs).reshape(B, S, d), aux_sum / (n_global // gs)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .layers import ParamSpec, linear, rmsnorm
+from .layers import ParamSpec, linear, rmsnorm, shard
 from .moe import silu
 
 __all__ = ["rwkv6_specs", "rwkv6_apply", "init_rwkv_state"]
@@ -158,12 +158,14 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
     y = y.reshape(B, S, d)
     y = rmsnorm(y, p["gn"], cfg.norm_eps)         # the group-norm stand-in
     y = y * silu(g)
+    y = shard(y, "batch", None, "heads")
     x = x + linear(y, p["wo"])
 
     # ---------------- channel mix ----------------
     xc = rmsnorm(x, p["ln_c"], cfg.norm_eps)
     xm = _mix(xc, _token_shift(xc, st["shift_c"].to(xc.dtype)), p["mu_c"])
     kk = torch.square(torch.relu(linear(xm, p["ck"])))
+    kk = shard(kk, "batch", None, "mlp")
     cm = linear(kk, p["cv"]) * torch.sigmoid(linear(xm, p["cr"]))
     out = (x + cm).to(out_dtype)
     return out, {"wkv": new_wkv, "shift_t": xn[:, -1].float(),

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .layers import ParamSpec, linear, rmsnorm
+from .layers import ParamSpec, linear, rmsnorm, shard
 from .moe import silu
 
 __all__ = ["mamba2_specs", "mamba2_apply", "init_mamba_state"]
@@ -172,4 +172,5 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
     y = rmsnorm(y.reshape(B_, S, din).to(x.dtype), params["out_ln"],
                 cfg.norm_eps)
     y = y * silu(z)
+    y = shard(y, "batch", None, "heads")
     return linear(y, params["w_out"]), {"ssm": h, "conv": conv_state}

@@ -18,7 +18,7 @@ import torch
 
 from ..models.layers import DTYPES
 from .adamw import AdamWConfig, f32, global_norm, lr_schedule
-from .tree import leaves, tree_map
+from .tree import leaves, local, tree_map
 
 __all__ = ["AdafactorConfig", "adafactor_init", "adafactor_update",
            "adafactor_update_", "adafactor_beta2"]
@@ -114,21 +114,26 @@ def _leaf_update(p, g, v: dict, m, beta2, lr, cfg: AdafactorConfig) -> None:
 
 
 @torch.no_grad()
-def adafactor_update_(params, grads, opt_state, cfg: AdafactorConfig
-                      ) -> dict:
+def adafactor_update_(params, grads, opt_state, cfg: AdafactorConfig, *,
+                      group=None) -> dict:
     """One Adafactor step written into ``params`` and ``opt_state`` in
     place; returns the stats ``{"grad_norm", "lr"}`` (the norm is only
-    reported: Adafactor clips each leaf's update by its RMS)."""
+    reported: Adafactor clips each leaf's update by its RMS).  On a mesh
+    (the ranks' ``group``) the leaves are replicated DTensors, and each
+    rank updates its local copy; the factored moments would reduce over
+    a sharded dim, so the trees must not be sharded."""
     step = opt_state["step"].add_(1)
     beta2 = adafactor_beta2(cfg, step)
     lr = lr_schedule(AdamWConfig(lr=cfg.lr, warmup_steps=cfg.warmup_steps,
                                  total_steps=cfg.total_steps), step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, group=group)
     dev = gnorm.device
     beta2_d, lr_d = beta2.to(dev), lr.to(dev)
-    g_of, v_of = dict(leaves(grads)), dict(leaves(opt_state["v"]))
-    m_of = dict(leaves(opt_state["mu"])) if "mu" in opt_state else {}
-    for path, p in leaves(params):
+    g_of, v_of = (dict(leaves(tree_map(local, t)))
+                  for t in (grads, opt_state["v"]))
+    m_of = (dict(leaves(tree_map(local, opt_state["mu"])))
+            if "mu" in opt_state else {})
+    for path, p in leaves(tree_map(local, params)):
         v = {k: v_of[path + (k,)] for k in (("vr", "vc") if _factored(
             p.shape) else ("v",))}
         _leaf_update(p, g_of[path], v, m_of.get(path), beta2_d, lr_d, cfg)

@@ -10,6 +10,10 @@ the CPU), so the card and the CPU use the same bits; only ``cos`` and
 numbers stay products; every division divides by a tensor (on the card
 PyTorch turns a division by a Python number into a product with its
 reciprocal).
+
+On a data-parallel mesh the trees' leaves are DTensors and the update
+runs on each rank's local shards; the clipping norm is the whole
+gradient's (:func:`global_norm` with the ranks' ``group``).
 """
 from __future__ import annotations
 
@@ -17,9 +21,10 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..models.layers import DTYPES
-from .tree import leaves, tree_map
+from .tree import leaves, local, sharded, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_update_",
            "lr_schedule", "global_norm"]
@@ -56,11 +61,31 @@ def lr_schedule(cfg, step) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, group=None) -> torch.Tensor:
     """√(Σ x²) over every leaf in float32, the leaves summed in the
-    reference's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for _, x in leaves(tree)))
+    reference's order.
+
+    With a process ``group`` (a data-parallel mesh's ranks) the leaves
+    may be DTensors: the ranks exchange their leaves' local sums of
+    squares in one all-gather; a :func:`~.tree.sharded` leaf's sum is
+    its shards' sums added in rank order, a replicated leaf's is rank
+    0's, counted once.  Every rank gets the same bits."""
+    pairs = leaves(tree)
+    if group is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for _, x in pairs))
+    sq = torch.stack([torch.sum(torch.square(local(x).float()))
+                      for _, x in pairs]).cpu()
+    parts = [torch.empty_like(sq) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, sq, group=group)
+    total = 0
+    for i, (_, x) in enumerate(pairs):
+        s = parts[0][i]
+        if sharded(x):
+            for p in parts[1:]:
+                s = s + p[i]
+        total = total + s
+    return torch.sqrt(total).to(local(pairs[0][1]).device)
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
@@ -73,15 +98,18 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 
 @torch.no_grad()
-def adamw_update_(params, grads, opt_state, cfg: AdamWConfig) -> dict:
+def adamw_update_(params, grads, opt_state, cfg: AdamWConfig, *,
+                  group=None) -> dict:
     """One AdamW step written into ``params`` and ``opt_state`` in place
     (the reference's jitted step donates them); returns the stats
     ``{"grad_norm", "lr"}``.  Each new value is the reference's: the
     gradient scaled by ``min(1, clip_norm / ‖g‖)``, float32 moments,
     bias-corrected, ``weight_decay · p`` added, ``p − lr · delta``
-    rounded to the parameter's dtype."""
+    rounded to the parameter's dtype.  On a mesh (DTensor leaves placed
+    alike in the three trees, and the ranks' ``group``) each rank updates
+    its local shards, clipped by the whole gradient's norm."""
     step = opt_state["step"].add_(1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, group=group)
     dev = gnorm.device
     scale = torch.minimum(f32(1.0, dev), f32(cfg.clip_norm, dev)
                           / torch.maximum(gnorm, f32(1e-9, dev)))
@@ -90,9 +118,9 @@ def adamw_update_(params, grads, opt_state, cfg: AdamWConfig) -> dict:
     bc1, bc2 = ((1 - b ** t).to(dev) for b in (cfg.b1, cfg.b2))
     lr_d = lr.to(dev)
     b1, b2 = cfg.b1, cfg.b2
-    g_of, m_of, v_of = (dict(leaves(t_)) for t_ in
+    g_of, m_of, v_of = (dict(leaves(tree_map(local, t_))) for t_ in
                         (grads, opt_state["mu"], opt_state["nu"]))
-    for path, p in leaves(params):
+    for path, p in leaves(tree_map(local, params)):
         g = g_of[path].float() * scale
         m, v = m_of[path], v_of[path]
         m32 = m.float() * b1 + (1 - b1) * g

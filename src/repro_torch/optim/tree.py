@@ -1,14 +1,16 @@
 """Parameter trees as nested dicts of tensors, walked in the reference's
 leaf order: ``jax.tree.leaves`` visits a dict's keys sorted, so every
 reduction over leaves (the global gradient norm) adds them in that
-order."""
+order.  On a mesh a leaf may be a DTensor: :func:`local` is the shard a
+rank holds, and :func:`sharded` says whether other ranks hold other
+parts."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
 
-__all__ = ["leaves", "tree_map", "unflatten", "replica"]
+__all__ = ["leaves", "tree_map", "unflatten", "replica", "local", "sharded"]
 
 
 def leaves(tree) -> list[tuple[tuple[str, ...], torch.Tensor]]:
@@ -49,3 +51,20 @@ def replica(tree, r: int) -> dict:
     """Views of replica ``r`` of a tree whose leaves carry a leading
     replica axis: writing into a view writes into the stack."""
     return tree_map(lambda a: a[r], tree)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (writing into it writes into the DTensor);
+    a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def sharded(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor split on a mesh dim wider than 1."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and n > 1
+        for p, n in zip(t.placements, t.device_mesh.shape))
