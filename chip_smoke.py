@@ -314,19 +314,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    shares in the host copy, kernel 5 and the byte pass (zlib where
    ``zstandard`` is missing), and each run's launch counts
    (``loop_launches`` on the kernel rows);
-13. the mesh (``mesh_training``): musicgen-medium at full width, 8 of
-   48 layers (229,664,256 parameters), float32, AdamW, phase 11's batch shape
-   (seed 37).  Run (a), one process: two steps of the two-replica step
-   (``make_train_step_compressed(n_pods=2)``), the exchange's inputs on
-   ``TRAIN_EXCHANGE_LEAVES`` recorded at the last step, then one
-   lossless ``CheckpointManager.save`` of replica 0.  Run (b): two ranks
-   spawned on the one card (``torch.multiprocessing``, gloo, a
-   ``file://`` rendezvous in a temporary directory, a 120 s group
-   timeout), on the mesh ``(pod=2, data=1, model=1)``, one replica a
-   rank, take the same two steps through
-   ``make_train_step_compressed(mesh=)``; kernels 7 and 8 must each
-   launch once a leaf a step on each rank (read alone: the counts set to
-   0 just before each step and read just after); the two ranks'
+13. the mesh (``mesh_training``): musicgen-medium at full width, 4 of
+   48 layers (116,405,760 parameters), float32, AdamW, phase 11's batch
+   shape (seed 37).  Run (a), one process: two steps of the two-replica
+   step (``make_train_step_compressed(n_pods=2)``), the exchange's inputs
+   on ``TRAIN_EXCHANGE_LEAVES`` recorded at the last step, then one
+   lossless ``CheckpointManager.save`` of replica 0.  Run (a′): two steps
+   of the plain step in one process.  Run (b): two ranks spawned on the
+   one card (``torch.multiprocessing``, gloo, a ``file://`` rendezvous in
+   a temporary directory, a 120 s group timeout), on the mesh ``(pod=2,
+   data=1, model=1)``, one replica a rank, take the same two steps
+   through ``make_train_step_compressed(mesh=)``; kernels 7 and 8 must
+   each launch once a leaf a step on each rank (read alone: the counts
+   set to 0 just before each step and read just after); the two ranks'
    parameters must be bit-identical and each leaf within
    ``LOOP_RESUME_REL_MAX`` of its largest magnitude of (a)'s (the
    bit-exact outcome printed); fed (a)'s recorded gradients and
@@ -334,13 +334,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    exchange bit for bit.  Run (c): the ranks restore (a)'s checkpoint
    onto ``(data=2, model=1)`` with ``param_shardings(…,
    rules_for(mesh, RunConfig(fsdp=True)))``; each rank's shard of each
-   leaf must equal its slice of the saved tensor bit for bit.  Printed:
-   each rank's synchronized step seconds and the exchange's share, the
-   bytes that cross a step (int8 codes and float32 scales) beside the
-   float32 gradient bytes, each rank's peak device memory and launches
-   (``mesh_launches`` on the K7/K8 rows), the restore seconds and each
-   rank's local bytes beside the full bytes.  Two ranks share one card:
-   nothing crosses a link.
+   leaf must equal its slice of the saved tensor bit for bit.  Run (d):
+   two steps of ``make_train_step(mesh=)`` on ``(data=2, model=1)`` with
+   fsdp, held to (a′) (step 1's loss, gradients, the update of them).
+   Run (e): ``train_loop(mesh=)`` there, the model cut to 2 layers, from
+   ``embedding_batches`` (seed 37): (e1) 4 steps saving every 2 (the histories the same on both
+   ranks; the step-4 file, restored in one process, equal to the ranks'
+   state gathered whole); (e2) ``SIGTERM`` to rank 1's own process as
+   batch 1 is drawn (both ranks save step 2 and stop); (e3) resumed from
+   (e2)'s file through step 3 (its parameters within
+   ``LOOP_RESUME_REL_MAX`` of (e1)'s, bit-exactness printed).  Every
+   kernel must launch 0 times in (a′), (d) and each run of (e).
+   Printed: each rank's synchronized step seconds and the exchange's,
+   the gather's and the reduction's shares, the bytes that cross a step
+   (int8 codes and float32 scales) beside the float32 gradient bytes,
+   each rank's peak device memory and launches (``mesh_launches`` on the
+   kernel rows), the restore seconds and each rank's local bytes beside
+   the full bytes; (e)'s step seconds, each save's seconds with the
+   gather's, host copy's and write's shares, the restore seconds with the
+   optimizer placement, file bytes.  Two ranks share one card: nothing
+   crosses a link;
+14. the entry point (``entry_point``): ``python -m
+   repro_torch.launch.train_lm --preset 20m --steps 20 --ckpt <tmp>``,
+   then the same with ``--steps 30``, each a child process (``runpy``, as
+   ``-m`` runs it, then the launch counts printed).  Each must exit 0 on
+   the one-rank smoke mesh on the card, the first run's last logged loss
+   must lie below its first, the second must resume at step 20; its
+   tokens/s are printed, and every kernel must launch 0 times in each
+   (``entry_launches`` on the kernel rows).
 
 Prints the card's name and power limit, the script's wall time, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -447,6 +468,18 @@ MESH_SEED = 37
 MESH_PODS, MESH_STEPS = 2, 2
 MESH_PG_TIMEOUT_S = 120          # the ranks' process-group timeout
 MESH_JOIN_S = 600                # the ranks must end within this
+# (e): train_loop(mesh=) on (data=2, model=1), fsdp, phase 13's model
+# cut to MESH_LOOP_LAYERS of its 48 layers and phase 13's run, from
+# embedding_batches (seed MESH_SEED) at phase 11's batch shape: (e1)
+# MESH_LOOP_STEPS steps saving every MESH_LOOP_EVERY; (e2) SIGTERM to
+# rank 1 as batch MESH_PREEMPT_AT is drawn; (e3) resumed from (e2)'s
+# file through step MESH_LOOP_STEPS - 1.  2, not 4: at 4 the whole script
+# read 1,056.1 s, over its 1,050 s bar
+MESH_LOOP_LAYERS = 2
+MESH_LOOP_STEPS, MESH_LOOP_EVERY, MESH_PREEMPT_AT = 4, 2, 1
+# phase 14: python -m repro_torch.launch.train_lm at the example's
+# defaults (8 × 128 tokens, two microbatches, AdamW), then resumed
+ENTRY_PRESET, ENTRY_STEPS, ENTRY_TIMEOUT_S = "20m", (20, 30), 300
 # (d) against (a′): step 1's loss (relative); the gathered step-1
 # gradients of TRAIN_EXCHANGE_LEAVES (of each leaf's largest magnitude);
 # each rank's shards after step 1 against the one-process AdamW update
@@ -3238,15 +3271,16 @@ class SyncedClock:
     stream, each ended by a synchronize: one full loop step apiece (its
     launches, its kernels, its logging and any save it starts)."""
 
-    def __init__(self, torch, stream):
+    def __init__(self, torch, stream, dev=None):
         self.torch, self.stream = torch, stream
+        self.dev = torch.device("cuda") if dev is None else dev
         self.stamps = []
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        self.torch.cuda.synchronize()
+        device_sync(self.torch, self.dev)
         self.stamps.append(time.perf_counter())
         return next(self.stream)
 
@@ -3932,6 +3966,11 @@ def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
 
     # ---- (d) the plain step, data-parallel with fsdp on (data=2)
     out["dp"] = mesh_dp_run(torch, dist, root, cfg, dev, mesh2)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- (e) the resilient loop on (data=2), fsdp
+    out["loop"] = mesh_loop_run(torch, dist, rank, root, cfg, dev, mesh2)
     return out
 
 
@@ -4021,6 +4060,174 @@ def mesh_dp_run(torch, dist, root: str, cfg, dev, mesh) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     out["steps"] = steps
+    return out
+
+
+class MeshSaveClock:
+    """Times, while active, each ``CheckpointManager.save`` call on this
+    rank (its seconds, and within them the leaves' gathers,
+    ``optim.tree.whole`` as the manager calls it, and the host copies,
+    the device synchronized around each) and each write (``_write``, on
+    the writer's thread): ``saves`` and ``writes``, one dict a call, in
+    order."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.saves, self.writes, self.cur = [], [], None
+
+    def _timed(self, fn, key):
+        def call(*a, **kw):
+            device_sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            device_sync(self.torch, self.dev)
+            self.cur[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        from repro_torch.checkpoint import manager
+
+        self.mod = manager
+        cls = manager.CheckpointManager
+        self.orig = (manager.whole, manager._host_copy, cls.save, cls._write)
+        whole, host_copy, save, write = self.orig
+        clock = self
+
+        def timed_save(mgr, step, *a, **kw):
+            clock.cur = {"step": step, "gather_s": 0.0, "host_copy_s": 0.0}
+            t0 = time.perf_counter()
+            out = save(mgr, step, *a, **kw)
+            clock.cur["call_s"] = time.perf_counter() - t0
+            clock.saves.append(clock.cur)
+            return out
+
+        def timed_write(mgr, step, host):
+            t0 = time.perf_counter()
+            out = write(mgr, step, host)
+            clock.writes.append({"step": step,
+                                 "write_s": time.perf_counter() - t0})
+            return out
+        manager.whole = self._timed(whole, "gather_s")
+        manager._host_copy = self._timed(host_copy, "host_copy_s")
+        cls.save, cls._write = timed_save, timed_write
+        return self
+
+    def __exit__(self, *exc):
+        cls = self.mod.CheckpointManager
+        (self.mod.whole, self.mod._host_copy, cls.save,
+         cls._write) = self.orig
+
+
+def preempting_stream(stream, at: int):
+    """``stream`` that sends ``SIGTERM`` to its own process when batch
+    ``at`` is drawn."""
+    import signal
+
+    for i, batch in enumerate(stream):
+        if i == at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        yield batch
+
+
+def mesh_loop_run(torch, dist, rank: int, root: str, cfg, dev, mesh) -> dict:
+    """Run (e) of phase 13 on this rank: ``train_loop(mesh=)`` with fsdp
+    on ``mesh``, ``cfg`` cut to ``MESH_LOOP_LAYERS`` layers, three times, the launch counts reset just before each run
+    and read just after: (e1) ``MESH_LOOP_STEPS`` steps saving every
+    ``MESH_LOOP_EVERY``, its last file held on rank 0 against the state
+    gathered whole; (e2) a fresh directory, ``SIGTERM`` to rank 1 as
+    batch ``MESH_PREEMPT_AT`` is drawn; (e3) resumed from (e2)'s file, its
+    stream advanced, through step ``MESH_LOOP_STEPS - 1``, its parameters
+    held on rank 0 against (e1)'s file.  Returns its readings."""
+    import itertools
+    import signal
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import embedding_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    run, opt = mesh_run_opt()
+    run = replace(run, fsdp=True)
+    cfg = replace(cfg, n_layers=MESH_LOOP_LAYERS)
+    group = dist.group.WORLD
+    shape = ShapeConfig("train", "train", seq_len=TRAIN_BATCH[1],
+                        global_batch=TRAIN_BATCH[0])
+    dirs = {tag: os.path.join(root, f"loop_{tag}") for tag in ("e1", "e2")}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"layers": cfg.n_layers, "params": model.param_counts(cfg)[0]}
+
+    def loop(tag, d, steps, every, start=0, preempt=False):
+        stream = itertools.islice(embedding_batches(
+            cfg, shape, seed=MESH_SEED, device=dev), start, None)
+        if preempt and rank == 1:
+            stream = preempting_stream(stream, MESH_PREEMPT_AT - start)
+        stream = SyncedClock(torch, stream, dev)
+        prev = signal.getsignal(signal.SIGTERM)
+        dist.barrier()
+        device_sync(torch, dev)
+        ops.reset_launches()
+        with MeshSaveClock(torch, dev) as saves, TrainClock(
+                torch, dev, "_restore_latest") as clock:
+            t0 = time.perf_counter()
+            params, state, hist = train.train_loop(
+                cfg, run, stream, steps=steps, opt_cfg=opt,
+                checkpoint_dir=d, checkpoint_every=every, log_every=1,
+                generator=torch.Generator(device=dev).manual_seed(MESH_SEED),
+                mesh=mesh, device=dev)
+            device_sync(torch, dev)
+            wall = time.perf_counter() - t0
+        launches = {k: ops.launches[k] for k in KERNELS}
+        signal.signal(signal.SIGTERM, prev)
+        files = CheckpointManager(d, device=dev).list_steps()
+        out[tag] = {
+            "s": wall, "step_s": stream.seconds(), "history": hist,
+            "opt_step": int(state["step"]), "files": files,
+            "file_bytes": {s: sum(os.path.getsize(os.path.join(
+                d, f"step_{s:08d}.{ext}")) for ext in ("npz", "json"))
+                for s in files},
+            "restore_s": clock.s["_restore_latest"],
+            "saves": saves.saves, "writes": saves.writes,
+            "launches": launches}
+        return params, state
+
+    # (e1): the run, and its last file against the state gathered whole
+    params, state = loop("e1", dirs["e1"], MESH_LOOP_STEPS, MESH_LOOP_EVERY)
+    whole = {"params": train._gather_params(params, group),
+             "opt": train._gather_params(state, group)}
+    del params, state
+    e1_params = None                  # rank 0: (e1)'s file, for (e3)
+    if rank == 0:
+        e1_params, o, s = CheckpointManager(dirs["e1"], device=dev).restore(
+            MESH_LOOP_STEPS)
+        out["e1"]["file_equals_state"] = (
+            s == MESH_LOOP_STEPS
+            and same_trees(torch, whole["params"], e1_params)
+            and same_trees(torch, whole["opt"], o))
+        del o
+    del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e2): preempted on rank 1 alone
+    loop("e2", dirs["e2"], MESH_LOOP_STEPS, 100, preempt=True)
+    # (e3): resumed from (e2)'s file
+    stopped = out["e2"]["files"][-1] if out["e2"]["files"] else 0
+    params, state = loop("e3", dirs["e2"], MESH_LOOP_STEPS, 100,
+                         start=stopped)
+    got = train._gather_params(params, group)
+    del params, state
+    if rank == 0:
+        out["e3"]["vs_e1_rel"] = tree_rel(torch, e1_params, got)
+        out["e3"]["vs_e1_bit_exact"] = same_trees(torch, e1_params, got)
+    del got, e1_params
+    out["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                if dev.type == "cuda" else None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4164,6 +4371,10 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
                               for i, st in enumerate(r["dp"]["steps"])}
         out["dp_launches"].update({f"plain_step{i}": st["launches"]
                                    for i, st in enumerate(plain_steps)})
+        # (e): each loop run on each rank
+        out["loop_launches"] = {f"loop_{tag}_rank{r['rank']}":
+                                r["loop"][tag]["launches"]
+                                for r in ranks for tag in ("e1", "e2", "e3")}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4228,6 +4439,132 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
               "mesh: (d) losses")
     for key, got in out["dp_launches"].items():
         check(not any(got.values()), f"mesh: {key} launched {got}")
+    # (e) the resilient loop
+    loops = [r["loop"] for r in ranks]
+    print("mesh (e), train_loop(mesh=) on (data=2, model=1) with fsdp, two "
+          "ranks on one card through gloo, nothing crosses a link: "
+          + json.dumps(mesh_loop_summary(loops, smi)))
+    e1 = [lp["e1"] for lp in loops]
+    check(len({json.dumps(e["history"]) for e in e1}) == 1,
+          f"mesh: (e1)'s histories differ: {[e['history'] for e in e1]}")
+    check([st for st, _ in e1[0]["history"]] == list(range(MESH_LOOP_STEPS))
+          and all(np.isfinite(v) for _, v in e1[0]["history"]),
+          f"mesh: (e1) history {e1[0]['history']}")
+    check(e1[0]["files"] == list(range(MESH_LOOP_EVERY, MESH_LOOP_STEPS + 1,
+                                       MESH_LOOP_EVERY)),
+          f"mesh: (e1) files {e1[0]['files']}")
+    check(e1[0].get("file_equals_state") is True,
+          "mesh: (e1)'s last file != the ranks' state gathered whole")
+    e2 = [lp["e2"] for lp in loops]
+    for e in e2:
+        check([st for st, _ in e["history"]] == list(range(MESH_PREEMPT_AT + 1))
+              and e["opt_step"] == MESH_PREEMPT_AT + 1
+              and e["files"] == [MESH_PREEMPT_AT + 1],
+              f"mesh: (e2) did not stop both ranks at step "
+              f"{MESH_PREEMPT_AT + 1}: {[(x['history'], x['files']) for x in e2]}")
+    e3 = loops[0]["e3"]
+    check([st for st, _ in e3["history"]]
+          == list(range(MESH_PREEMPT_AT + 1, MESH_LOOP_STEPS)),
+          f"mesh: (e3) history {e3['history']}")
+    check(e3["vs_e1_rel"] <= LOOP_RESUME_REL_MAX,
+          f"mesh: (e3) {e3['vs_e1_rel']} from (e1)")
+    for key, got in out["loop_launches"].items():
+        check(not any(got.values()), f"mesh: {key} launched {got}")
+    return out
+
+
+def mesh_loop_summary(loops: list, smi: str) -> dict:
+    """Phase 13 (e)'s printed readings: each rank's step s, each save's s
+    (the call, plus the write on rank 0's writer thread) with the gather's,
+    host copy's and write's shares, the restore s, file bytes, peaks."""
+    out = {"card": smi, "layers": loops[0]["layers"],
+           "params": loops[0]["params"]}
+    for r, lp in enumerate(loops):
+        mine = {"peak_device_bytes": lp["peak_device_bytes"]}
+        for tag in ("e1", "e2", "e3"):
+            e = lp[tag]
+            saves = []
+            writes = {w["step"]: w["write_s"] for w in e["writes"]}
+            for sv in e["saves"]:
+                w = writes.pop(sv["step"], 0.0) if r == 0 else 0.0
+                total = sv["call_s"] + w
+                saves.append({"step": sv["step"], "s": total,
+                              "call_s": sv["call_s"], "write_s": w,
+                              "gather_share": sv["gather_s"] / total,
+                              "host_copy_share": sv["host_copy_s"] / total,
+                              "write_share": w / total})
+            mine[tag] = {"s": e["s"], "step_s": e["step_s"],
+                         "history": e["history"], "saves": saves,
+                         "restore_s": e["restore_s"],
+                         "file_bytes": e["file_bytes"]}
+        out[f"rank{r}"] = mine
+    e3 = loops[0]["e3"]
+    out["e3_vs_e1_rel"] = e3["vs_e1_rel"]
+    out["e3_vs_e1_bit_exact"] = e3["vs_e1_bit_exact"]
+    return out
+
+
+def entry_point(torch, smi: str, dev: str = "cuda") -> dict:
+    """Phase 14: the ``train_lm`` entry point as a user runs it, twice on
+    one checkpoint directory (``ENTRY_STEPS``), each a child process
+    (``python -m repro_torch.launch.train_lm`` by ``runpy``, as ``-m``
+    runs it, with the kernels' launch counts printed after it).  Returns
+    each run's wall s, history, reported tokens/s and launches."""
+    import re
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    code = ("import json, runpy, sys\n"
+            "from repro_torch.kernels import ops\n"
+            "sys.argv = ['train_lm'] + sys.argv[1:]\n"
+            "runpy.run_module('repro_torch.launch.train_lm', "
+            "run_name='__main__', alter_sys=True)\n"
+            "print('launches: ' + json.dumps(ops.launches))\n")
+    out = {"card": smi, "runs": []}
+    try:
+        for steps in ENTRY_STEPS:
+            argv = ["--preset", ENTRY_PRESET, "--steps", str(steps),
+                    "--ckpt", os.path.join(root, "ckpt"), "--device", dev]
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code] + argv,
+                                  env=env, cwd=root, capture_output=True,
+                                  text=True, timeout=ENTRY_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"entry point {argv} exited "
+                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+            text = proc.stdout
+            report = re.search(r"^(\d+) steps in (\d+)s \((\d+) tok/s on "
+                               r"a mesh of (\d+) rank\(s\), (.+?)\)", text,
+                               re.M)
+            check(report is not None, f"entry point report: {text[-2000:]}")
+            out["runs"].append({
+                "argv": argv, "wall_s": wall,
+                "history": [(int(a), float(b)) for a, b in re.findall(
+                    r"^ *(\d+), (\S+)$", text, re.M)],
+                "steps_taken": int(report[1]), "tokens_per_s": int(report[3]),
+                "mesh_ranks": int(report[4]), "device": report[5],
+                "model": text.splitlines()[0],
+                "launches": json.loads(re.search(r"^launches: (.*)$", text,
+                                                 re.M)[1])})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, second = out["runs"]
+    print("entry point: " + json.dumps(out))
+    check(first["history"] and first["history"][-1][1]
+          < first["history"][0][1],
+          f"entry point: the loss did not fall: {first['history']}")
+    check(first["steps_taken"] == ENTRY_STEPS[0],
+          f"entry point: took {first['steps_taken']} steps")
+    check(second["history"] and second["history"][0][0] == ENTRY_STEPS[0]
+          and second["steps_taken"] == ENTRY_STEPS[1] - ENTRY_STEPS[0],
+          f"entry point: the second run did not resume at step "
+          f"{ENTRY_STEPS[0]}: {second['history']}")
+    name = torch.cuda.get_device_name(0) if dev == "cuda" else "cpu"
+    for r in out["runs"]:
+        check(r["mesh_ranks"] == 1 and r["device"] == name,
+              f"entry point ran on {r['device']}, not {name}")
     return out
 
 
@@ -4853,6 +5190,11 @@ def main() -> int:
     print(f"mesh: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(mesh["launches"]))
 
+    # ------------------------------------------------- 14. the entry point
+    t0 = time.perf_counter()
+    entry = entry_point(torch, smi)
+    print(f"entry point: {time.perf_counter() - t0:.1f} s")
+
     # launches on the region-serving phase (2b) and the multi-part phase
     # (2c) beside each row's own path
     for r in rows:
@@ -4915,10 +5257,16 @@ def main() -> int:
                 "shape": trn["pods"]["k7_k8_ms_at_group_256"]["shape"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
-        # phase 13's plain step: (d)'s ranks and (a′)
+        # phase 13's plain step: (d)'s ranks and (a′); (e)'s loop runs
         r.setdefault("mesh_launches", {}).update({
             run: counts[r["name"]]
-            for run, counts in mesh["dp_launches"].items()})
+            for runs in (mesh["dp_launches"], mesh["loop_launches"])
+            for run, counts in runs.items()})
+        # phase 14: each entry-point run
+        r["entry_launches"] = [run["launches"][r["name"]]
+                               for run in entry["runs"]]
+        check(not any(r["entry_launches"]),
+              f"entry point launched {r['name']} {r['entry_launches']}")
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

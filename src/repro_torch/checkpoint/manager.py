@@ -14,6 +14,17 @@ same bytes.
     memory before it returns (the port's train steps then overwrite the
     parameters in place), and a writer thread serializes the copies;
     ``wait()`` joins it.
+  * **Sharded state** — a tree that holds a DTensor (the state of a
+    data-parallel mesh, :mod:`repro_torch.launch.train`) is saved by
+    every rank at once: each leaf is made whole in path order (an
+    ``all_gather_into_tensor`` of a sharded leaf over the process group,
+    :func:`repro_torch.optim.tree.whole`; a replicated leaf's local
+    tensor), global rank 0 copies it to the host and the other ranks drop
+    it, so a rank holds at most one whole leaf more on its device.  Rank
+    0 alone writes (and encodes lossy leaves); the file is the logical
+    file a one-process save of the whole tree writes, byte for byte.
+    ``wait()`` (and a blocking save) then holds every rank at a barrier
+    until the file is complete.
   * **Lossy mode** — parameter leaves of rank ≥ 2 and more than 4096
     values are stored as TACZ tensor blobs (:mod:`repro_torch.io.tensor`)
     at ``eb = eb_rel · max |a|`` of their float32 copy: their Lorenzo codes
@@ -43,11 +54,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import compat
 from ..core.sz import lorenzo_nd_recon
 from ..device import resolve_device
 from ..io import tensor as tacz_tensor
+from ..optim.tree import whole
 
 __all__ = ["CheckpointManager"]
 
@@ -120,6 +133,25 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
                          copy=True)
 
 
+def _meshed(leaves) -> bool:
+    """Whether any leaf is a DTensor (the save is then a collective).
+
+    :raises ValueError: for a DTensor whose mesh does not hold every rank
+        of the process group in rank order.
+    """
+    from torch.distributed.tensor import DTensor
+
+    meshed = False
+    for t in leaves:
+        if isinstance(t, DTensor):
+            meshed = True
+            ranks = t.device_mesh.mesh.flatten().tolist()
+            if ranks != list(range(dist.get_world_size())):
+                raise ValueError(f"a leaf's mesh holds ranks {ranks}, not "
+                                 f"every rank in rank order")
+    return meshed
+
+
 def _lossy_encode(a: torch.Tensor, eb_rel: float, device: torch.device):
     """Error-bounded "sz-light" encoding of a float32 host tensor into a
     TACZ tensor blob, the codes computed on ``device``."""
@@ -156,27 +188,46 @@ class CheckpointManager:
         self.device = resolve_device(self.device)
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._barrier = False           # a save of sharded state is open
 
     # ------------------------------- save ---------------------------------
 
     def save(self, step: int, params, opt_state, extra=None, *,
              blocking: bool = False):
         """Copy every leaf to host memory now, write asynchronously (or
-        before returning, with ``blocking``)."""
-        host = {
-            "params": {p: _host_copy(a) for p, a in
-                       _flatten_with_paths(params, "params").items()},
-            "opt": {p: _host_copy(a) for p, a in
-                    _flatten_with_paths(opt_state, "opt").items()},
-            "extra": extra or {},
-        }
+        before returning, with ``blocking``).
+
+        A tree that holds a DTensor makes this a collective: every rank
+        calls it at the same step with its own shards; rank 0 writes.
+
+        :raises ValueError: for a DTensor whose mesh does not hold every
+            rank of the process group in rank order.
+        """
+        flat = {**_flatten_with_paths(params, "params"),
+                **_flatten_with_paths(opt_state, "opt")}
+        meshed = _meshed(flat.values())
+        writer = not meshed or dist.get_rank() == 0
+        host = {"params": {}, "opt": {}, "extra": extra or {}}
+        for path in list(flat):
+            # one whole leaf at a time, in the same order on every rank
+            a = flat.pop(path)
+            if meshed:
+                a = whole(a, dist.group.WORLD)
+            if writer:
+                host[path.split("/", 1)[0]][path] = _host_copy(a)
+            del a
         self.wait()
         if blocking:
-            self._write(step, host)
+            if writer:
+                self._write(step, host)
+            if meshed:
+                dist.barrier()
         else:
-            self._thread = threading.Thread(
-                target=self._write, args=(step, host), daemon=True)
-            self._thread.start()
+            if writer:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, host), daemon=True)
+                self._thread.start()
+            self._barrier = meshed
 
     def _write(self, step: int, host):
         arrays, manifest = {}, {"step": step, "entries": {}, "lossy": {}}
@@ -221,9 +272,14 @@ class CheckpointManager:
                     pass
 
     def wait(self):
+        """Join the writer; after a save of sharded state, then meet the
+        other ranks at a barrier (the file is complete for all)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     # ------------------------------ restore --------------------------------
 

@@ -6,16 +6,17 @@ field, so that a config reads the same in either package.
 path, its train steps and the mesh's sharding rules (``fsdp``,
 ``seq_shard``, read by :func:`repro_torch.launch.sharding.rules_for`)
 read, with the reference's defaults; ``grad_compress`` comes with the
-caller that reads it (the cells), and ``ShapeConfig`` (the benchmark
-cells' input shapes) with the cells.  The port always loops over the
+caller that reads it (the cells).  The port always loops over the
 stacked layers, and nothing in the reference reads ``scan_layers``, so
-the port has no ``scan_layers``.
+the port has no ``scan_layers``.  :class:`ShapeConfig` (a batch's name,
+kind, sequence length and global batch, which the data streams read)
+copies the reference's field for field.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["ModelConfig", "RunConfig"]
+__all__ = ["ModelConfig", "RunConfig", "ShapeConfig"]
 
 
 @dataclass(frozen=True)
@@ -65,6 +66,14 @@ class ModelConfig:
     def supports_long_context(self) -> bool:
         """True if serve-time state is O(1) in context (SSM/hybrid)."""
         return self.family in ("ssm", "hybrid")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                   # train | prefill | decode
+    seq_len: int
+    global_batch: int
 
 
 @dataclass(frozen=True)

@@ -29,10 +29,12 @@ Both steps write the new parameters and optimizer state into the trees
 they are given, in place (the reference's training loop donates them to
 its jitted step), and return them.
 
-:func:`train_loop` is the reference's resilient loop on one card:
-checkpoints (:mod:`repro_torch.checkpoint`), auto-resume, preemption
-handling and a step watchdog (:mod:`repro_torch.runtime`), unsharded;
-its mesh form is still to come.
+:func:`train_loop` is the reference's resilient loop: checkpoints
+(:mod:`repro_torch.checkpoint`), auto-resume, preemption handling and a
+step watchdog (:mod:`repro_torch.runtime`), on one device or on a
+data-parallel mesh (the sharded state saved whole by rank 0, the
+restore placed on each rank's slices, the stop flag agreed across the
+ranks).
 
 The mesh step's collectives are ``torch.distributed``'s own (all-gather,
 reduce-scatter, all-reduce), called on the DTensors' local tensors:
@@ -46,7 +48,7 @@ from types import SimpleNamespace
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig, RunConfig
 from ..device import resolve_device
@@ -59,7 +61,8 @@ from ..optim.adafactor import (AdafactorConfig, adafactor_init,
 from ..optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                            adamw_update_, f32)
 from ..optim.grad_compress import compress_pod_reduce, init_error_feedback
-from ..optim.tree import leaves, local, replica, sharded, tree_map, unflatten
+from ..optim.tree import (leaves, replica, shard_dim, tree_map, unflatten,
+                          whole)
 from .mesh import axis_sizes
 from .sharding import (local_slice, opt_shardings, param_shardings,
                        placements, rules_for)
@@ -262,38 +265,11 @@ def _mesh_group(run: RunConfig, opt_cfg, mesh):
     return dist.group.WORLD
 
 
-def _shard_dim(p) -> int | None:
-    """The tensor dim that leaf ``p`` is split on over the batch axes, or
-    ``None`` for a replicated leaf or a plain tensor.
-
-    :raises ValueError: for a leaf split on two dims, or split on some
-        batch axes and replicated on others.
-    """
-    if not sharded(p):
-        return None
-    dims = {q.dim if isinstance(q, Shard) else None
-            for q, n in zip(p.placements, p.device_mesh.shape) if n > 1}
-    if len(dims) > 1:
-        raise ValueError(f"placements {p.placements}: a leaf must be split "
-                         f"on one dim over every batch axis, or on none")
-    return dims.pop()
-
-
 def _gather_params(params: dict, group) -> dict:
-    """Each leaf whole, as a plain tensor: a sharded leaf all-gathered over
-    ``group`` (its shards in rank order, which is the mesh's, along its
-    split dim), a replicated one its local tensor, not gathered."""
-    n = dist.get_world_size(group)
-
-    def whole(p):
-        d, x = _shard_dim(p), local(p)
-        if d is None:
-            return x
-        x = x.movedim(d, 0).contiguous()
-        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x, group=group)
-        return out.movedim(0, d).contiguous()
-    return tree_map(whole, params)
+    """Each leaf whole, as a plain tensor (:func:`~..optim.tree.whole`):
+    a sharded leaf all-gathered over ``group``, a replicated one its local
+    tensor, not gathered."""
+    return tree_map(lambda p: whole(p, group), params)
 
 
 def _reduce_grads(grads: dict, params: dict, group, mb: int) -> dict:
@@ -308,7 +284,7 @@ def _reduce_grads(grads: dict, params: dict, group, mb: int) -> dict:
 
     def one(path, g):
         p = p_of[path]
-        d = _shard_dim(p)
+        d = shard_dim(p)
         if d is None:
             dist.all_reduce(g, group=group)
         else:
@@ -598,12 +574,36 @@ def init_replica_state(cfg: ModelConfig, run: RunConfig,
     return params_r, opt_r, init_error_feedback(params_r)
 
 
+def _restore_latest(mgr, cfg: ModelConfig, run: RunConfig, opt_cfg, mesh):
+    """``mgr.restore_latest()`` (``None`` without a checkpoint); on
+    ``mesh``, the parameters placed by :func:`~.sharding.param_shardings`
+    (the elastic restore) and each optimizer leaf then by
+    :func:`~.sharding.opt_shardings`, as :func:`init_train_state` places
+    them: this rank's slice of the whole restored leaf, the whole leaves
+    released one at a time; the step counter stays on the host."""
+    if mesh is None:
+        return mgr.restore_latest()
+    specs = M.model_specs(cfg)
+    rules = rules_for(mesh, run)
+    psh = param_shardings(specs, mesh, rules)
+    restored = mgr.restore_latest(mesh=mesh, shardings=psh)
+    if restored is None:
+        return None
+    params, opt_state, start = restored
+    counter = opt_state.pop("step")
+    opt_state = _placed(opt_state, opt_shardings(opt_cfg, specs, psh, mesh,
+                                                 rules),
+                        mesh, mesh.get_coordinate())
+    opt_state["step"] = counter
+    return params, opt_state, start
+
+
 def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
                opt_cfg=None, checkpoint_dir: str | None = None,
                checkpoint_every: int = 50, resume: bool = True,
                generator: torch.Generator | None = None,
                watchdog_timeout: float = 0.0, log_every: int = 10,
-               device: str | torch.device = "cuda"):
+               mesh=None, device: str | torch.device = "cuda"):
     """Resilient training loop: ``(params, opt_state, history)``.
 
     The reference's loop, step for step: initialize (from ``generator``,
@@ -614,24 +614,43 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
     watchdog, recording ``(step, loss)`` in ``history`` every
     ``log_every`` steps and at the last; save every ``checkpoint_every``
     steps, and save and stop after a preemption signal; wait for the
-    last write."""
+    last write.
+
+    On ``mesh`` (a data-parallel ``DeviceMesh`` of ``device``'s type, as
+    :func:`make_train_step` takes it) every rank runs the loop: the
+    state is :func:`init_train_state`'s ``mesh=`` trees, every rank draws
+    the global batch, the restore places the parameters and the
+    optimizer state on the rank's slices (:func:`_restore_latest`), each
+    save is a collective that rank 0 writes, and ``history`` is the same
+    on every rank.  The ranks are separate processes, each with its own
+    ``PreemptionGuard``, where the reference has one controller: so after
+    each step (and its periodic save) the ranks agree on the stop flag
+    (an all-reduce of its maximum), and all save the same step and stop
+    together.  When the loop returns on any rank, its last file is
+    complete.
+
+    :raises ValueError: as :func:`make_train_step` says, for a mesh the
+        step does not support (a ``model`` axis wider than 1, Adafactor
+        with ``fsdp``), before any checkpoint is read.
+    """
     from ..checkpoint.manager import CheckpointManager
     from ..runtime.resilience import PreemptionGuard, StepWatchdog
 
     device = resolve_device(device)
+    opt_cfg = opt_cfg or AdamWConfig(moments_dtype=run.optimizer_dtype)
+    step_fn, opt_cfg = make_train_step(cfg, run, opt_cfg, mesh=mesh)
+    group = None if mesh is None else _mesh_group(run, opt_cfg, mesh)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    opt_cfg = opt_cfg or AdamWConfig(moments_dtype=run.optimizer_dtype)
-    step_fn, opt_cfg = make_train_step(cfg, run, opt_cfg)
     params, opt_state = init_train_state(cfg, run, generator, opt_cfg,
-                                         device=device)
+                                         mesh=mesh, device=device)
 
     start = 0
     mgr = None
     if checkpoint_dir:
         mgr = CheckpointManager(checkpoint_dir, device=device)
         if resume:
-            restored = mgr.restore_latest()
+            restored = _restore_latest(mgr, cfg, run, opt_cfg, mesh)
             if restored is not None:
                 params, opt_state, start = restored
 
@@ -647,7 +666,12 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
             history.append((step, loss))
         if mgr and (step + 1) % checkpoint_every == 0:
             mgr.save(step + 1, params, opt_state)
-        if guard.should_stop:
+        stop = guard.should_stop
+        if group is not None:
+            flag = torch.tensor([int(stop)], dtype=torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+            stop = bool(flag.item())
+        if stop:
             if mgr:
                 mgr.save(step + 1, params, opt_state)
             break
