@@ -286,8 +286,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``float32_matmul_precision`` (``"highest"``);
 12. the resilient loop on one card, through
    ``repro_torch.launch.train.train_loop`` with a ``checkpoint_dir``:
-   musicgen-medium at full width cut to 4 of its 48 layers (116,405,760
-   parameters; 8 until the whole script outgrew 1,050 s), float32, AdamW (lr 1e-3, one warmup step), fed by the
+   musicgen-medium at full width cut to 2 of its 48 layers (59,776,512
+   parameters; 8, then 4, until the whole script outgrew 1,050 s),
+   float32, AdamW (lr 1e-3, one warmup step), fed by the
    port's ``embedding_batches`` at phase 11's batch shape (seed 31).
    Run (a): 6 steps, a checkpoint every 3 (the loss falls; the restored
    step-6 state equals the saved one bit for bit); run (b): a fresh
@@ -314,8 +315,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    shares in the host copy, kernel 5 and the byte pass (zlib where
    ``zstandard`` is missing), and each run's launch counts
    (``loop_launches`` on the kernel rows);
-13. the mesh (``mesh_training``): musicgen-medium at full width, 4 of
-   48 layers (116,405,760 parameters), float32, AdamW, phase 11's batch
+13. the mesh (``mesh_training``): musicgen-medium at full width, 2 of
+   48 layers (59,776,512 parameters), float32, AdamW, phase 11's batch
    shape (seed 37).  Run (a), one process: two steps of the two-replica
    step (``make_train_step_compressed(n_pods=2)``), the exchange's inputs
    on ``TRAIN_EXCHANGE_LEAVES`` recorded at the last step, then one
@@ -337,14 +338,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    leaf must equal its slice of the saved tensor bit for bit.  Run (d):
    two steps of ``make_train_step(mesh=)`` on ``(data=2, model=1)`` with
    fsdp, held to (a′) (step 1's loss, gradients, the update of them).
-   Run (e): ``train_loop(mesh=)`` there, the model cut to 2 layers, from
+   Run (e): ``train_loop(mesh=)`` there, at ``MESH_LOOP_LAYERS`` layers, from
    ``embedding_batches`` (seed 37): (e1) 4 steps saving every 2 (the histories the same on both
    ranks; the step-4 file, restored in one process, equal to the ranks'
    state gathered whole); (e2) ``SIGTERM`` to rank 1's own process as
    batch 1 is drawn (both ranks save step 2 and stop); (e3) resumed from
    (e2)'s file through step 3 (its parameters within
    ``LOOP_RESUME_REL_MAX`` of (e1)'s, bit-exactness printed).  Every
-   kernel must launch 0 times in (a′), (d) and each run of (e).
+   kernel must launch 0 times in (a′), (d) and each run of (e).  Run
+   (f): four ranks spawned on the one card on ``(pod=2, data=2,
+   model=1)``, two rows of the batch a rank, take ``MESH_STEPS`` steps
+   of ``make_train_step_compressed(mesh=)`` from
+   ``init_replica_state(mesh=)``: each pod's two data ranks sum their
+   float32 gradients (one all-reduce a leaf), then the int8 codes cross
+   between the pods.  Kernels 7 and 8 must each launch once a leaf a
+   step on each rank, the others 0 times; after each step the four
+   ranks' parameters and optimizer state, and each pod's two ranks'
+   error feedback, must be the same bits (position-weighted sums of the
+   raw bits, ``checksums``); step 1's loss within ``DP_LOSS_REL_MAX`` of
+   (a)'s; each pod's step-1 exchange input on ``TRAIN_EXCHANGE_LEAVES``
+   within ``DP_GRAD_REL_MAX`` of (a)'s for that replica (the last
+   step's printed: a code of step 1 may differ by one where the two
+   reductions round apart); the exchange's outputs there equal K7 →
+   gather → K8, and their plain versions, composed on the rank's own
+   inputs, bit for bit; each rank's new parameters within
+   ``DP_UPDATE_REL_MAX`` of the one-process AdamW update of its own
+   mean.
    Printed: each rank's synchronized step seconds and the exchange's,
    the gather's and the reduction's shares, the bytes that cross a step
    (int8 codes and float32 scales) beside the float32 gradient bytes,
@@ -352,8 +371,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel rows), the restore seconds and each rank's local bytes beside
    the full bytes; (e)'s step seconds, each save's seconds with the
    gather's, host copy's and write's shares, the restore seconds with the
-   optimizer placement, file bytes.  Two ranks share one card: nothing
-   crosses a link;
+   optimizer placement, file bytes; (f)'s step seconds on each rank
+   with the within-pod reduction's and the exchange's shares, the bytes
+   a rank sends (the float32 reduction's ring volume, the int8 codes,
+   the float32 scales), each rank's peak device memory, (f)'s wall
+   seconds.  The ranks share one card: nothing crosses a link;
 14. the entry point (``entry_point``): ``python -m
    repro_torch.launch.train_lm --preset 20m --steps 20 --ckpt <tmp>``,
    then the same with ``--steps 30``, each a child process (``runpy``, as
@@ -372,6 +394,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -438,15 +461,16 @@ TRAIN_PODS = 2
 TRAIN_ADAFACTOR_CASE = ("deepseek_7b", 4, 1648398336)
 # the exchange's leaves recorded for the exact and residual checks
 TRAIN_EXCHANGE_LEAVES = ("lm_head", "layers/mlp/w_up")
-# phase 12: train_loop on musicgen-medium at full width cut to 4 of its
+# phase 12: train_loop on musicgen-medium at full width cut to 2 of its
 # 48 layers (a full-depth float32 checkpoint with AdamW's moments is
-# ~16 GB, and its lossy encode a zlib pass on the host; 4, not 8, keeps
-# the whole script inside its time limit), float32, from
+# ~16 GB, and its lossy encode a zlib pass on the host; 2, not 4: with
+# phase 13 (f) at 4 the whole script read 1,059.4 s, over its 1,050 s
+# bar), float32, from
 # embedding_batches at phase 11's batch shape; the lossy checkpoint's
 # bound; the two leaves whose card blobs and decodes are held to the
 # CPU's plain versions (kernel 6's planes and three-pass routes); one
 # expert leaf at full shape for kernels 1 and 2
-LOOP_ARCH, LOOP_LAYERS = "musicgen_medium", 4
+LOOP_ARCH, LOOP_LAYERS = "musicgen_medium", 2
 LOOP_SEED = 31
 LOOP_EB_REL = 1e-4
 LOOP_HELD_LEAVES = ("layers/attn/wq", "layers/mlp/w_up")
@@ -456,14 +480,15 @@ LOOP_EXPERT = ("granite_moe_1b_a400m", "layers/mlp/w_up")
 # reduction whose order varied could move a value: each parameter leaf
 # within 1e-6 of its largest magnitude (bit-exactness is printed)
 LOOP_RESUME_REL_MAX = 1e-6
-# phase 13: phase 12's model at 4 of its 48 layers (float32) in phase
+# phase 13: musicgen-medium at 2 of its 48 layers (float32) in phase
 # 11's two-replica step, in one process and then as two gloo
 # ranks on the one card (NCCL puts no two ranks on one device), each rank
 # holding one replica; then the elastic restore onto (data=2, model=1);
 # then the plain step in one process (a′) and data-parallel with fsdp on
-# (data=2, model=1) (d).  4, not 8, keeps the whole script inside its
-# time limit
-MESH_LAYERS = 4
+# (data=2, model=1) (d).  2, not 4: with (f) added and phase 12 at 2
+# layers the whole script read 1,167.6 s on a slower machine, over its
+# 1,050 s bar
+MESH_LAYERS = 2
 MESH_SEED = 37
 MESH_PODS, MESH_STEPS = 2, 2
 MESH_PG_TIMEOUT_S = 120          # the ranks' process-group timeout
@@ -477,6 +502,10 @@ MESH_JOIN_S = 600                # the ranks must end within this
 # read 1,056.1 s, over its 1,050 s bar
 MESH_LOOP_LAYERS = 2
 MESH_LOOP_STEPS, MESH_LOOP_EVERY, MESH_PREEMPT_AT = 4, 2, 1
+# (f): phase 13's model, run and batch (two rows a rank) in MESH_STEPS
+# compressed steps on four gloo ranks of the one card: two pods of two
+# data ranks, the gradients summed within each pod, then int8 across
+MESH_F_SHAPE = (2, 2, 1)
 # phase 14: python -m repro_torch.launch.train_lm at the example's
 # defaults (8 × 128 tokens, two microbatches, AdamW), then resumed
 ENTRY_PRESET, ENTRY_STEPS, ENTRY_TIMEOUT_S = "20m", (20, 30), 300
@@ -2308,14 +2337,21 @@ def lm_serving(torch, smi: str) -> list[dict]:
         warp_route_ms_turns=[k7_warp_ms, k7_warp_ms_2],
         decode_write_graph_ms=step, decode_write_bound_ms=step_bound,
         decode_write_host_us=step_host_us))
+    # the one PyTorch call that computes K8's function: int8 × float32
+    # promotes to float32
+    lib = lambda: torch.mul(q.view(rows_n, -1, hd), s[..., None])
     rows.append(kernel_row(
         "group_dequant", 0,
         cuda_ms(lambda: ops.group_dequant(q, s, hd), 20, torch),
         cuda_ms(lambda: ref.group_dequant(q, s, hd), 3, torch),
-        n + 4 * rows_n + 4 * n, n, None, per_readback["group_dequant"], smi,
+        n + 4 * rows_n + 4 * n, n, cuda_ms(lib, 20, torch),
+        per_readback["group_dequant"], smi,
         launches_from="quantize_prefill_cache + dequantize_kv, "
                       "full-width cache",
-        launches_per_generate=per_generate["group_dequant"]))
+        launches_per_generate=per_generate["group_dequant"],
+        library_call="torch.mul(q.view(n, d // g, g), scale[..., None])",
+        library_equal=torch.equal(lib().reshape(q.shape),
+                                  ops.group_dequant(q, s, hd))))
     del x, q, s, cache_b, layer
     qk, sk = ops.group_quant(step_k, hd)
     m = step_k.numel()
@@ -3204,7 +3240,10 @@ def training(torch, smi: str) -> dict:
                                    torch),
                            cuda_ms(lambda: ref.group_dequant(q, s, 256), 3,
                                    torch),
-                           bound(n + 4 * n_rows + 4 * n, n)[0])}
+                           bound(n + 4 * n_rows + 4 * n, n)[0]),
+                    # K8's one-call library counterpart, int8 × float32
+                    "k8_library": cuda_ms(lambda: torch.mul(
+                        q.view(n_rows, 1, 256), s[..., None]), 20, torch)}
         del gc, rows, q, s
         torch.cuda.empty_cache()
     expect(set(exact) >= {f"{p}/leaf" for p in TRAIN_EXCHANGE_LEAVES},
@@ -3394,14 +3433,15 @@ def tree_rel(torch, want: dict, got: dict) -> float:
 
 def resilient_loop(torch, smi: str) -> dict:
     """Phase 12: ``train_loop`` on the card with checkpoints (musicgen-
-    medium at full width, 4 of its 48 layers, float32, AdamW, the port's
-    ``embedding_batches``): run (a), the resumed run (b), the failed and
-    resumed run (c); then a measured lossless and lossy save and restore
-    (kernels 5 and 6 on the lossy leaves), two lossy blobs and decodes
-    held to the CPU's plain versions, and one granite-moe expert leaf at
-    full shape through ``lorenzo_codes``/``lorenzo_decode`` (kernels 1
-    and 2 on ``(E, d, f)`` bricks).  Returns the printed readings with
-    each run's launch counts."""
+    medium at full width, ``LOOP_LAYERS`` of its 48 layers, float32,
+    AdamW, the port's ``embedding_batches``): run (a), the resumed run
+    (b), the failed and resumed run (c); then a measured lossless and
+    lossy save and restore (kernels 5 and 6 on the lossy leaves), two
+    lossy blobs and decodes held to the CPU's plain versions, and one
+    granite-moe expert leaf at full shape through
+    ``lorenzo_codes``/``lorenzo_decode`` (kernels 1 and 2 on ``(E, d,
+    f)`` bricks).  Returns the printed readings with each run's launch
+    counts."""
     import itertools
     import json as js
     import shutil
@@ -4231,6 +4271,226 @@ def mesh_loop_run(torch, dist, rank: int, root: str, cfg, dev, mesh) -> dict:
     return out
 
 
+def checksums(torch, tree: dict) -> list[int]:
+    """Each leaf's raw bits summed with odd position weights (int64,
+    wrapping): one changed value changes its leaf's sum, so equal sums
+    stand for equal bits without moving the leaves between ranks."""
+    from repro_torch.optim.tree import leaves
+
+    out = []
+    for _, leaf in leaves(tree):
+        flat = leaf.detach().reshape(-1)
+        bits = flat.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                          1: torch.uint8}[flat.element_size()]).long()
+        w = torch.arange(bits.numel(), dtype=torch.int64,
+                         device=bits.device).mul_(2).add_(1)
+        out.append(int(bits.mul_(w).sum()))
+        del bits, w
+    return out
+
+
+class RecordRankExchange:
+    """While active, ``optim.grad_compress``'s ``exchange_across_ranks``
+    keeps, for each leaf whose shape (without the replica axis) ``want``
+    names, this rank's input ``g + e`` (float32) and its outputs (the
+    mean and the new residual); ``launch.train``'s ``compress_pod_reduce``
+    keeps a copy of every reduced leaf (``means``).  Both wrappers call
+    the same functions, so the step launches what it launched."""
+
+    def __init__(self, want: dict):
+        from repro_torch.launch import train
+        from repro_torch.optim import grad_compress
+
+        self.gc, self.train, self.want = grad_compress, train, want
+        self.seen, self.means = {}, None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.optim.tree import tree_map
+
+        self.orig = (self.gc.exchange_across_ranks,
+                     self.train.compress_pod_reduce)
+        across, reduce = self.orig
+
+        def recording(g, e, mesh, pod_axis="pod"):
+            name = self.want.get(tuple(g.shape[1:]))
+            x = g.float() + e if name is not None else None
+            mean, new_e = across(g, e, mesh, pod_axis)
+            if name is not None:
+                self.seen[name] = {"x": x, "mean": mean.clone(),
+                                   "new_e": new_e.clone()}
+            return mean, new_e
+
+        def keeping(grads, ef, **kw):
+            out = reduce(grads, ef, **kw)
+            self.means = tree_map(torch.clone, grads)
+            return out
+        self.gc.exchange_across_ranks = recording
+        self.train.compress_pod_reduce = keeping
+        return self
+
+    def __exit__(self, *exc):
+        (self.gc.exchange_across_ranks,
+         self.train.compress_pod_reduce) = self.orig
+
+
+def composed_exchange(torch, dist, quant, dequant, x, mesh, dtype):
+    """This rank's exchange of ``x`` (``(1, …)`` float32, its ``g + e``)
+    composed from ``quant`` (K7 or its plain version) on its rows, the
+    codes and scales all-gathered over the pod group, ``dequant`` on the
+    gathered rows: ``(the mean in dtype, the new residual)``."""
+    from repro_torch.optim import grad_compress as gc
+
+    group = mesh.get_group("pod")
+    n, me = dist.get_world_size(group), mesh.get_local_rank("pod")
+    q, sc = quant(gc._rows(x.reshape(-1)).contiguous(), gc.GROUP)
+    qs = [torch.empty_like(q) for _ in range(n)]
+    ss = [torch.empty_like(sc) for _ in range(n)]
+    dist.all_gather(qs, q, group=group)
+    dist.all_gather(ss, sc, group=group)
+    deq = dequant(torch.cat(qs), torch.cat(ss), gc.GROUP).reshape(n, -1)[
+        :, :x.numel()].reshape((n,) + tuple(x.shape[1:]))
+    return (gc._mean(deq, n).to(dtype)[None],
+            x - deq[me:me + 1])
+
+
+def pod_data_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
+    """One rank of phase 13 (f) (spawned): joins its own gloo group at
+    ``root``, runs :func:`pod_data_run`, and writes its readings to
+    ``root/f_rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(root, "rdzv_f"),
+        rank=rank, world_size=n,
+        timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    try:
+        out = pod_data_run(torch, dist, rank, root, cfg,
+                           torch.device(dev_type))
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+        check(not bad, f"rank {rank} imported {sorted(bad)[:5]}")
+        with open(os.path.join(root, f"f_rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        dist.destroy_process_group()
+
+
+def pod_data_run(torch, dist, rank: int, root: str, cfg, dev) -> dict:
+    """Run (f) of phase 13 on this rank of ``(pod=2, data=2, model=1)``:
+    ``init_replica_state(mesh=)`` and ``MESH_STEPS`` steps of
+    ``make_train_step_compressed(mesh=)``, the launch counts reset just
+    before each step and read just after.  After each step: checksums of
+    the parameters, optimizer state and error feedback (compared across
+    the ranks by the parent), the exchange recomposed from K7 → gather →
+    K8 and from their plain versions on the rank's own recorded inputs,
+    the new parameters against the one-process AdamW update of the
+    rank's own mean; at step 1 the exchange inputs against (a)'s.
+    Returns its readings."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import leaves, replica, tree_map
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    run, opt = mesh_run_opt()
+    mesh = init_device_mesh(dev.type, MESH_F_SHAPE,
+                            mesh_dim_names=("pod", "data", "model"))
+    pod, data = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
+    out = {"rank": rank, "pod": pod, "data": data}
+    params_r, opt_r, ef_r = train.init_replica_state(
+        cfg, run, None, torch.Generator(device=dev).manual_seed(MESH_SEED),
+        opt, mesh=mesh, device=dev)
+    step, _ = train.make_train_step_compressed(cfg, run, opt_cfg=opt,
+                                               mesh=mesh)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    want = {tuple(leaf_at(params_r, name).shape[1:]): name
+            for name in TRAIN_EXCHANGE_LEAVES}
+    out["n_leaves"] = len(leaves(params_r))
+    a_first = torch.load(os.path.join(root, f"exchange_first_{pod}.pt"),
+                         map_location=dev)
+    a_last = torch.load(os.path.join(root, f"exchange_{pod}.pt"),
+                        map_location=dev)
+    steps = []
+    for i in range(MESH_STEPS):
+        old_p = tree_map(torch.clone, replica(params_r, 0))
+        old_o = tree_map(torch.clone, replica(opt_r, 0))
+        dist.barrier()
+        device_sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with RecordRankExchange(want) as rec, TrainClock(
+                torch, dev, "compress_pod_reduce", "_reduce_grads") as clock:
+            t0 = time.perf_counter()
+            m = step(params_r, opt_r, ef_r, batch)[3]
+            device_sync(torch, dev)
+            sec = time.perf_counter() - t0
+        launches = {k: ops.launches[k] for k in KERNELS}
+        peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                else None)
+        ex_s, red_s = clock.s["compress_pod_reduce"], clock.s["_reduce_grads"]
+        st = {"s": sec, "exchange_s": ex_s, "exchange_share": ex_s / sec,
+              "reduce_s": red_s, "reduce_share": red_s / sec,
+              "launches": launches, "loss": float(m["loss"]),
+              "grad_norm": float(m["grad_norm"]),
+              "peak_device_bytes": peak,
+              "checksums": {name: checksums(torch, tree) for name, tree in (
+                  ("params", params_r), ("opt", opt_r), ("ef", ef_r))}}
+        # the exchange recomposed on this rank's own inputs, from the
+        # kernels and from their plain versions
+        exact = {}
+        for name, got in rec.seen.items():
+            for route, (qf, df) in (("kernels", (ops.group_quant,
+                                                 ops.group_dequant)),
+                                    ("plain", (ref.group_quant,
+                                               ref.group_dequant))):
+                mean, new_e = composed_exchange(
+                    torch, dist, qf, df, got["x"], mesh,
+                    got["mean"].dtype)
+                exact[f"{name}/{route}"] = [torch.equal(mean, got["mean"]),
+                                            torch.equal(new_e, got["new_e"])]
+                del mean, new_e
+        st["exchange_exact"] = exact
+        # this step's inputs against (a)'s: at step 1 from the same state,
+        # gated; at the last, printed (step 1's codes may differ by one
+        # where the reductions round apart, and the residuals with them)
+        held = a_first if i == 0 else (a_last if i == MESH_STEPS - 1
+                                       else {})
+        st["vs_a_x_rel"] = {}
+        for name, h in held.items():
+            a_x = h if i == 0 else h["g"].float() + h["e"]
+            x = rec.seen[name]["x"]
+            st["vs_a_x_rel"][name] = float((x - a_x).abs().max()
+                                           / a_x.abs().max())
+        # the new parameters against the one-process update of the mean
+        want_p = tree_map(torch.clone, old_p)
+        adamw.adamw_update_(want_p, replica(rec.means, 0), old_o, opt)
+        w_of, o_of = dict(leaves(want_p)), dict(leaves(old_p))
+        worst, bit_exact = 0.0, True
+        for path, leaf in leaves(replica(params_r, 0)):
+            worst = max(worst, update_rel(torch, w_of[path], leaf,
+                                          o_of[path]))
+            bit_exact = bit_exact and torch.equal(w_of[path], leaf)
+        st["update_rel"], st["update_bit_exact"] = worst, bit_exact
+        del old_p, old_o, want_p, w_of, o_of, rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        steps.append(st)
+    out["steps"] = steps
+    out["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                if dev.type == "cuda" else None)
+    return out
+
+
 def mesh_training(torch, smi: str, dev="cuda") -> dict:
     """Phase 13: run (a), the two-replica step in one process and a
     checkpoint of replica 0; run (a′), the plain step in one process;
@@ -4277,7 +4537,7 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         n_leaves = len(leaves(params_r))
         a_steps = []
         with RecordExchange(want) as rec:
-            for _ in range(MESH_STEPS):
+            for i in range(MESH_STEPS):
                 device_sync(torch, dev)
                 ops.reset_launches()
                 t0 = time.perf_counter()
@@ -4287,6 +4547,10 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
                                 "loss": float(m["loss"]),
                                 "launches": {k: ops.launches[k]
                                              for k in QDQ}})
+                if i == 0:
+                    # (f): each replica's step-1 exchange input
+                    first = {name: g.float() + e
+                             for name, (g, e) in rec.seen.items()}
         out["a_steps"] = a_steps
         # the bytes a step sends between the replicas, against float32
         sizes = [a[0].numel() for _, a in leaves(params_r)]
@@ -4308,7 +4572,9 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
               f"mesh: recorded {sorted(held[0])}")
         for r in range(MESH_PODS):
             torch.save(held[r], os.path.join(root, f"exchange_{r}.pt"))
-        del held
+            torch.save({k: v[r:r + 1].cpu() for k, v in first.items()},
+                       os.path.join(root, f"exchange_first_{r}.pt"))
+        del held, first
         t0 = time.perf_counter()
         CheckpointManager(os.path.join(root, "ckpt"), device=dev).save(
             MESH_STEPS, replica(params_r, 0), replica(opt_r, 0),
@@ -4342,25 +4608,11 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-        # ---- (b), (c): two ranks on the one card
+        # ---- (b)–(e): two ranks on the one card
         t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            mesh_rank, args=(MESH_PODS, root, cfg, dev.type),
-            nprocs=MESH_PODS, join=False, start_method="spawn")
-        try:
-            while not ctx.join(timeout=2):
-                check(time.perf_counter() - t0 < MESH_JOIN_S,
-                      f"mesh: the ranks did not end in {MESH_JOIN_S} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join(10)
+        ranks = spawn_ranks(torch, mesh_rank, MESH_PODS, root, "rank",
+                            (cfg, dev.type))
         out["ranks_s"] = time.perf_counter() - t0
-        ranks = []
-        for r in range(MESH_PODS):
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
         out["ranks"] = ranks
         out["launches"] = {f"rank{r['rank']}_step{i}": st["launches"]
                            for r in ranks for i, st in enumerate(r["steps"])}
@@ -4375,6 +4627,16 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         out["loop_launches"] = {f"loop_{tag}_rank{r['rank']}":
                                 r["loop"][tag]["launches"]
                                 for r in ranks for tag in ("e1", "e2", "e3")}
+
+        # ---- (f): four ranks on (pod=2, data=2, model=1)
+        t0 = time.perf_counter()
+        f_ranks = spawn_ranks(torch, pod_data_rank, math.prod(MESH_F_SHAPE),
+                              root, "f_rank", (cfg, dev.type))
+        out["f_s"] = time.perf_counter() - t0
+        out["f_ranks"] = f_ranks
+        out["f_launches"] = {f"f_rank{r['rank']}_step{i}": st["launches"]
+                             for r in f_ranks
+                             for i, st in enumerate(r["steps"])}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4470,6 +4732,108 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
           f"mesh: (e3) {e3['vs_e1_rel']} from (e1)")
     for key, got in out["loop_launches"].items():
         check(not any(got.values()), f"mesh: {key} launched {got}")
+    pod_data_checks(out, n_leaves, smi)
+    return out
+
+
+def pod_data_checks(out: dict, n_leaves: int, smi: str) -> None:
+    """Phase 13 (f)'s printed readings and gates, against (a)."""
+    import numpy as np
+
+    f_ranks = out["f_ranks"]
+    pods, data, _ = MESH_F_SHAPE
+    ex = out["exchange_bytes"]
+    a_loss = out["a_steps"][0]["loss"]
+    sent = {"float32_reduction_ring": int(
+                2 * (data - 1) / data * ex["float32_gradients"]),
+            "int8_codes": (pods - 1) * ex["int8_codes"],
+            "float32_scales": (pods - 1) * ex["float32_scales"]}
+    sent["total"] = sum(sent.values())
+    out["f_step1_loss_rel"] = abs(f_ranks[0]["steps"][0]["loss"]
+                                  - a_loss) / abs(a_loss)
+    print(f"mesh (f), (pod=2, data=2, model=1), four gloo ranks on one card, "
+          f"nothing crosses a link [{smi}]: " + json.dumps({
+              "wall_s": out["f_s"],
+              "step_s": {r["rank"]: [st["s"] for st in r["steps"]]
+                         for r in f_ranks},
+              "reduce_share": {r["rank"]: [st["reduce_share"]
+                                           for st in r["steps"]]
+                               for r in f_ranks},
+              "exchange_share": {r["rank"]: [st["exchange_share"]
+                                             for st in r["steps"]]
+                                 for r in f_ranks},
+              "sent_bytes_a_step_a_rank": sent,
+              "peak_device_bytes": {r["rank"]: r["peak_device_bytes"]
+                                    for r in f_ranks},
+              "losses": [st["loss"] for st in f_ranks[0]["steps"]],
+              "step1_loss_rel_vs_a": out["f_step1_loss_rel"],
+              "vs_a_x_rel": [st["vs_a_x_rel"] for st in f_ranks[0]["steps"]],
+              "update_rel": [max(r["steps"][i]["update_rel"]
+                                 for r in f_ranks)
+                             for i in range(MESH_STEPS)],
+              "update_bit_exact": all(st["update_bit_exact"]
+                                      for r in f_ranks
+                                      for st in r["steps"])}))
+    check([(r["pod"], r["data"]) for r in f_ranks]
+          == [(p, d) for p in range(pods) for d in range(data)],
+          f"mesh: (f) coordinates {[(r['pod'], r['data']) for r in f_ranks]}")
+    for i in range(MESH_STEPS):
+        sums = [r["steps"][i]["checksums"] for r in f_ranks]
+        for r, sm in zip(f_ranks, sums):
+            check(sm["params"] == sums[0]["params"]
+                  and sm["opt"] == sums[0]["opt"],
+                  f"mesh: (f) step {i + 1}: rank {r['rank']}'s parameters "
+                  f"or optimizer state differ from rank 0's")
+            check(sm["ef"] == sums[r["pod"] * data]["ef"],
+                  f"mesh: (f) step {i + 1}: rank {r['rank']}'s error "
+                  f"feedback differs from its pod partner's")
+        check(len({r["steps"][i]["loss"] for r in f_ranks}) == 1,
+              f"mesh: (f) step {i + 1}'s loss differs between the ranks")
+    rel = out["f_step1_loss_rel"]
+    check(rel <= DP_LOSS_REL_MAX, f"mesh: (f) step 1's loss {rel} from (a)")
+    for r in f_ranks:
+        check(r["n_leaves"] == n_leaves, f"mesh: (f) {r['n_leaves']} leaves")
+        first = r["steps"][0]["vs_a_x_rel"]
+        check(set(first) == set(TRAIN_EXCHANGE_LEAVES)
+              and max(first.values()) <= DP_GRAD_REL_MAX,
+              f"mesh: (f) rank {r['rank']}'s step-1 exchange inputs "
+              f"{first} from (a)'s")
+        for i, st in enumerate(r["steps"]):
+            check(len(st["exchange_exact"]) == 2 * len(TRAIN_EXCHANGE_LEAVES)
+                  and all(all(v) for v in st["exchange_exact"].values()),
+                  f"mesh: (f) rank {r['rank']} step {i + 1} exchange "
+                  f"{st['exchange_exact']}")
+            check(st["update_rel"] <= DP_UPDATE_REL_MAX,
+                  f"mesh: (f) rank {r['rank']} step {i + 1}: parameters "
+                  f"{st['update_rel']} from the update of its mean")
+            check(np.isfinite(st["loss"]), f"mesh: (f) loss {st['loss']}")
+    for key, got in out["f_launches"].items():
+        check(got == {k: n_leaves if k in QDQ else 0 for k in KERNELS},
+              f"mesh: (f) {key} launched {got}")
+
+
+def spawn_ranks(torch, fn, n: int, root: str, prefix: str,
+                args: tuple) -> list:
+    """``fn(rank, n, root, *args)`` in ``n`` spawned processes, which must
+    end within ``MESH_JOIN_S`` (any left are killed); each rank's
+    ``root/<prefix><rank>.json``, in rank order."""
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=(n, root) + args, nprocs=n, join=False,
+        start_method="spawn")
+    try:
+        while not ctx.join(timeout=2):
+            check(time.perf_counter() - t0 < MESH_JOIN_S,
+                  f"mesh: the ranks did not end in {MESH_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    out = []
+    for r in range(n):
+        with open(os.path.join(root, f"{prefix}{r}.json")) as f:
+            out.append(json.load(f))
     return out
 
 
@@ -5256,11 +5620,15 @@ def main() -> int:
             r["group_256"] = {
                 "shape": trn["pods"]["k7_k8_ms_at_group_256"]["shape"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "library_ms": (trn["pods"]["k7_k8_ms_at_group_256"][
+                    "k8_library"] if key == "k8" else None),
                 "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
-        # phase 13's plain step: (d)'s ranks and (a′); (e)'s loop runs
+        # phase 13's plain step: (d)'s ranks and (a′); (e)'s loop runs;
+        # (f)'s compressed steps on (pod=2, data=2)
         r.setdefault("mesh_launches", {}).update({
             run: counts[r["name"]]
-            for runs in (mesh["dp_launches"], mesh["loop_launches"])
+            for runs in (mesh["dp_launches"], mesh["loop_launches"],
+                         mesh["f_launches"])
             for run, counts in runs.items()})
         # phase 14: each entry-point run
         r["entry_launches"] = [run["launches"][r["name"]]

@@ -20,10 +20,12 @@ Two step builders, as in the reference:
   (:mod:`repro_torch.optim.grad_compress`: kernels 7 and 8, one launch of
   each a leaf and step), and every replica applies the same update.  In
   one process the axis holds all ``n_pods`` replicas, which run one after
-  another, and the all-gather is the identity; on a mesh with a ``pod``
-  axis each rank holds one replica (an axis of 1), takes its slice of the
-  global batch by :func:`batch_spec`'s placement, and the codes cross
-  between ranks.  The two forms give the same bits.
+  another, and the all-gather is the identity; on a mesh each rank holds
+  its pod's replica (an axis of 1) and takes its slice of the global
+  batch by :func:`batch_spec`'s placement, the data ranks of a pod sum
+  their gradients (float32, one all-reduce a leaf), and the codes cross
+  between the pods' ranks.  With one data rank a pod the two forms give
+  the same bits.
 
 Both steps write the new parameters and optimizer state into the trees
 they are given, in place (the reference's training loop donates them to
@@ -48,6 +50,7 @@ from types import SimpleNamespace
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig, RunConfig
@@ -197,10 +200,10 @@ def _local_batch(batch: dict, cfg: ModelConfig, mesh, rules) -> dict:
             for k, v in batch.items()}
 
 
-def _gathered(run: dict, mesh) -> list[dict]:
-    """Every pod rank's ``run`` (a dict of 0-dim tensors), in pod order,
-    on the host."""
-    group = mesh.get_group("pod")
+def _gathered(run: dict, mesh, axis: str = "pod") -> list[dict]:
+    """Every rank's ``run`` (a dict of 0-dim tensors) of this rank's
+    ``axis`` group of ``mesh``, in the axis's order, on the host."""
+    group = mesh.get_group(axis)
     out = [{} for _ in range(dist.get_world_size(group))]
     for k, v in run.items():
         v = v.cpu()
@@ -211,41 +214,14 @@ def _gathered(run: dict, mesh) -> list[dict]:
     return out
 
 
-def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
-    """The replica count of the compressed step: ``n_pods`` in one
-    process, the ``pod`` axis's size on a mesh.
+def _mesh_axes(mesh) -> dict[str, int]:
+    """The axis sizes of a data-parallel mesh: ``("data", "model")`` or
+    ``("pod", "data", "model")`` with a ``model`` axis of 1, which (a
+    ``DeviceMesh``) holds every rank of the process group in rank order.
 
-    :raises ValueError: with ``run.fsdp``, for a mesh axis other than
-        ``pod`` wider than 1, or for an ``n_pods`` the mesh contradicts.
-    """
-    if run.fsdp:
-        raise ValueError("the compressed step requires fsdp=False")
-    if mesh is None:
-        if n_pods is None or n_pods < 1:
-            raise ValueError(f"n_pods must be at least 1, got {n_pods}")
-        return n_pods
-    sizes = axis_sizes(mesh)
-    wide = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
-    if wide:
-        raise ValueError(f"the compressed step shards only over 'pod'; the "
-                         f"mesh has {wide}")
-    pods = sizes.get("pod", 1)
-    if n_pods is not None and n_pods != pods:
-        raise ValueError(f"n_pods={n_pods}, but the mesh has {pods} pods")
-    return pods
-
-
-def _mesh_group(run: RunConfig, opt_cfg, mesh):
-    """The process group of a data-parallel mesh's batch axes: the whole
-    process group, whose ranks the mesh holds in rank order (its ``model``
-    axis is 1).
-
-    :raises ValueError: for axes other than ``("data", "model")`` or
-        ``("pod", "data", "model")``; for a ``model`` axis wider than 1
-        (tensor parallelism, ROADMAP item 2.6b-4); for Adafactor with
-        ``fsdp`` (ROADMAP item 2.6b-5: its factored moments reduce over
-        the sharded ``embed`` dim); for a mesh that does not hold every
-        rank in rank order.
+    :raises ValueError: for other axes; for a ``model`` axis wider than 1
+        (tensor parallelism, ROADMAP item 2.6b-4); for a ``DeviceMesh``
+        that does not hold every rank in rank order.
     """
     sizes = axis_sizes(mesh)
     if tuple(sizes) not in (("data", "model"), ("pod", "data", "model")):
@@ -255,13 +231,48 @@ def _mesh_group(run: RunConfig, opt_cfg, mesh):
         raise ValueError(f"a model axis of {sizes['model']} (tensor "
                          f"parallelism) is ROADMAP item 2.6b-4; the step "
                          f"is data-parallel only")
+    if isinstance(mesh, DeviceMesh):
+        ranks = mesh.mesh.flatten().tolist()
+        if ranks != list(range(dist.get_world_size())):
+            raise ValueError(f"the mesh holds ranks {ranks}, not every rank "
+                             f"of the process group in rank order")
+    return sizes
+
+
+def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
+    """The replica count of the compressed step: ``n_pods`` in one
+    process; on a mesh (:func:`_mesh_axes`: ``("data", "model")`` or
+    ``("pod", "data", "model")``, any ``data`` size) the ``pod`` axis's
+    size, or 1 without a ``pod`` axis.
+
+    :raises ValueError: with ``run.fsdp`` (as the reference: the
+        replicas hold whole state); as :func:`_mesh_axes` says; for an
+        ``n_pods`` the mesh contradicts, or below 1 in one process.
+    """
+    if run.fsdp:
+        raise ValueError("the compressed step requires fsdp=False")
+    if mesh is None:
+        if n_pods is None or n_pods < 1:
+            raise ValueError(f"n_pods must be at least 1, got {n_pods}")
+        return n_pods
+    pods = _mesh_axes(mesh).get("pod", 1)
+    if n_pods is not None and n_pods != pods:
+        raise ValueError(f"n_pods={n_pods}, but the mesh has {pods} pods")
+    return pods
+
+
+def _mesh_group(run: RunConfig, opt_cfg, mesh):
+    """The process group of a data-parallel mesh's batch axes: the whole
+    process group (:func:`_mesh_axes`).
+
+    :raises ValueError: as :func:`_mesh_axes` says; for Adafactor with
+        ``fsdp`` (ROADMAP item 2.6b-5: its factored moments reduce over
+        the sharded ``embed`` dim).
+    """
+    _mesh_axes(mesh)
     if run.fsdp and isinstance(opt_cfg, AdafactorConfig):
         raise ValueError("Adafactor with fsdp is ROADMAP item 2.6b-5: its "
                          "factored moments reduce over the sharded dim")
-    ranks = mesh.mesh.flatten().tolist()
-    if ranks != list(range(dist.get_world_size())):
-        raise ValueError(f"the mesh holds ranks {ranks}, not every rank of "
-                         f"the process group in rank order")
     return dist.group.WORLD
 
 
@@ -427,26 +438,45 @@ def make_train_step_compressed(cfg: ModelConfig, run: RunConfig,
 
     In one process (no ``mesh``) the trees' leading axis holds ``n_pods``
     replicas and the batch's leading axis is split into ``n_pods`` equal
-    slices, one a replica.  On ``mesh`` (a ``DeviceMesh`` whose ``pod``
-    axis holds one replica a rank) ``n_pods`` is the pod axis's size, the
-    leading axis is 1, every rank is given the global batch and takes its
-    slice (replica ``r`` rows ``[r·B/n, (r+1)·B/n)``, as in one process).
-    Each leaf's gradients are then exchanged (kernel 7 once, kernel 8 once
-    a rank; with one replica, not at all) and each replica takes the
-    optimizer step with the mean.  ``metrics``: the replicas' mean loss,
-    ``ce`` and ``moe_aux`` (each summed in replica order over float32
-    ``n``), replica 0's ``grad_norm`` and ``lr`` (every replica's are the
-    same).
+    slices, one a replica; each replica's gradient is its slice's.
 
-    :raises ValueError: as :func:`_mesh_pods` says; and at the step, on a
-        mesh, for a batch the pods do not divide.
+    On ``mesh`` (``("pod", "data", "model")`` or ``("data", "model")``,
+    any ``data`` size, ``model`` 1; :func:`_mesh_pods`) ``n_pods`` is the
+    pod axis's size (1 without one), each rank holds its pod's replica
+    (a leading axis of 1), and every rank is given the global batch and
+    takes its :func:`batch_spec` rows: rank ``(p, d)`` of ``P`` pods and
+    ``D`` data ranks rows ``[(p·D + d)·B/(P·D), …)``, so that pod ``p``
+    holds rows ``[p·B/P, (p+1)·B/P)``, as in one process.  The loss
+    divides by the pod's count of labels (the data group's counts
+    all-reduced) and MoE tokens route in the pod's groups; the rank's
+    gradient, in float32, is summed over the data group (one all-reduce
+    a leaf, :func:`_reduce_grads`) and cast once to the parameter's
+    dtype: the pod's gradient, the same bits on its data ranks.  The
+    reference's pjit sums the partials in the parameter's dtype (ROADMAP
+    queue 3).
+
+    Each leaf's gradients are then exchanged (kernel 7 once, kernel 8
+    once a rank; with one replica, not at all): on a mesh each rank with
+    the ranks at its data coordinate in the other pods, over the ``pod``
+    group.  Each replica takes the optimizer step with the mean.
+    ``metrics``: the replicas' mean loss, ``ce`` and ``moe_aux`` (on a
+    mesh each pod's the sum of its data ranks' in data order; each
+    summed in replica order over float32 ``n``), replica 0's
+    ``grad_norm`` and ``lr`` (every replica's are the same).  Like the
+    reference's compressed step, it ignores ``run.microbatches``.
+
+    :raises ValueError: as :func:`_mesh_pods` says; at the step, on a
+        mesh, for a batch the pods and data ranks do not divide, and for
+        an MoE token group that would span data ranks.
     """
     n_pods = _mesh_pods(run, n_pods, mesh)
+    n_data = 1 if mesh is None else axis_sizes(mesh)["data"]
     rules = None if mesh is None else rules_for(mesh, run)
     opt_cfg, _, _ = make_optimizer(run, opt_cfg)
     update_ = _UPDATE_[type(opt_cfg)]
 
     def step(params_r, opt_r, ef_r, batch):
+        kw = {}
         if mesh is None:
             split = {k: v.reshape((n_pods, v.shape[0] // n_pods)
                                   + tuple(v.shape[1:]))
@@ -454,21 +484,35 @@ def make_train_step_compressed(cfg: ModelConfig, run: RunConfig,
             slices = [{k: v[r] for k, v in split.items()}
                       for r in range(n_pods)]
         else:
-            if batch["labels"].shape[0] % n_pods:
-                raise ValueError(f"a batch of {batch['labels'].shape[0]} "
-                                 f"rows does not split into {n_pods} pods")
+            B, S = batch["labels"].shape
+            if B % (n_pods * n_data):
+                raise ValueError(f"a batch of {B} rows does not split into "
+                                 f"{n_pods} pods of {n_data} data ranks")
             slices = [_local_batch(batch, cfg, mesh, rules)]
+            if n_data > 1:
+                count = (slices[0]["labels"] >= 0).sum().cpu()
+                dist.all_reduce(count, group=mesh.get_group("data"))
+                kw = {"label_count": count, "global_tokens": B // n_pods * S}
         grads = tree_map(lambda p: torch.empty_like(p), params_r)
         runs = []
         for r, b in enumerate(slices):
             loss, metrics, g = value_and_grad(
                 replica(params_r, r), b, cfg, run, q_chunk=q_chunk,
-                kv_chunk=kv_chunk)
+                kv_chunk=kv_chunk, **kw)
+            if n_data > 1:
+                g = _reduce_grads(tree_map(lambda t: t.float(), g),
+                                  replica(params_r, r),
+                                  mesh.get_group("data"), 1)
             g_of = dict(leaves(g))
             for path, stack in leaves(grads):
                 stack[r].copy_(g_of[path])
             del g, g_of
             runs.append({"loss": loss, **metrics})
+        if n_data > 1:
+            # the pod's values: its data ranks' added in data order
+            parts = _gathered(runs[0], mesh, "data")
+            runs = [{k: sum((p[k] for p in parts[1:]), parts[0][k])
+                     for k in parts[0]}]
         compress_pod_reduce(grads, ef_r, n_pods=n_pods, mesh=mesh)
         stats = [update_(replica(params_r, r), replica(grads, r),
                          replica(opt_r, r), opt_cfg)
@@ -563,8 +607,12 @@ def init_replica_state(cfg: ModelConfig, run: RunConfig,
     :func:`init_train_state`'s values, each leaf copied along a new
     leading axis (the step counter too, on the host), and zeroed error
     feedback of that shape.  The axis holds ``n_pods`` replicas in one
-    process, and this rank's one replica on ``mesh`` (every rank draws
-    the same values from a generator seeded alike)."""
+    process, and on ``mesh`` (as :func:`make_train_step_compressed` takes
+    it, any ``data`` size) this rank's one replica, whole: every rank
+    draws the same values from a generator seeded alike, and no
+    collective runs.
+
+    :raises ValueError: as :func:`_mesh_pods` says."""
     n_pods = _mesh_pods(run, n_pods, mesh)
     n = 1 if mesh is not None else n_pods
     params, opt_state = init_train_state(cfg, run, generator, opt_cfg,

@@ -19,12 +19,15 @@ one of two forms:
   over an ``(n_pods · groups, 256)`` matrix and dequantizes them in one
   kernel-8 launch, whose rows are at once each replica's own dequantized
   values (its residual) and the gathered codes it averages;
-* across ranks (a mesh with a ``pod`` axis, one replica a rank):
-  :func:`exchange_across_ranks` quantizes this rank's ``(groups, 256)``
-  rows in one kernel-7 launch, the int8 codes and float32 scales cross
-  by ``all_gather`` over the mesh's pod group (in pod order), and one
-  kernel-8 launch dequantizes the gathered ``(n_pods · groups, 256)``
-  rows.
+* across ranks (a mesh with a ``pod`` axis, each rank holding its pod's
+  replica): :func:`exchange_across_ranks` quantizes this rank's
+  ``(groups, 256)`` rows in one kernel-7 launch, the int8 codes and
+  float32 scales cross by ``all_gather`` over the mesh's pod group (in
+  pod order), and one kernel-8 launch dequantizes the gathered
+  ``(n_pods · groups, 256)`` rows.  With a ``data`` axis wider than 1,
+  the data ranks of a pod hold the same gradient and residual, and each
+  exchanges them over its own pod group: the ranks at its data
+  coordinate, one a pod, as every device does in the reference.
 
 Either way one launch of each kernel a leaf and step (a rank), and the
 same bits.  The mean is the reference's ``jnp.mean``: the sum in replica
@@ -127,11 +130,13 @@ def exchange_across_ranks(g: torch.Tensor, e: torch.Tensor, mesh,
                           pod_axis: str = "pod"
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One leaf's exchange between the ranks of ``mesh``'s ``pod_axis``
-    group, each holding one replica.  ``g``: this rank's gradient ``(1,
-    …)``; ``e``: its float32 residual.  Returns what :func:`exchange_leaf`
-    returns for this rank's replica: the mean ``(1, …)`` in ``g``'s dtype
-    and the new residual.  Kernel 7 once on this rank's rows, an
-    ``all_gather`` of the codes and scales, kernel 8 once on all ranks'.
+    group (this rank's: the ranks at its coordinates on the other axes,
+    one a pod), each holding its pod's replica.  ``g``: this rank's
+    gradient ``(1, …)``; ``e``: its float32 residual.  Returns what
+    :func:`exchange_leaf` returns for this rank's replica: the mean
+    ``(1, …)`` in ``g``'s dtype and the new residual.  Kernel 7 once on
+    this rank's rows, an ``all_gather`` of the codes and scales, kernel 8
+    once on all ranks'.
 
     :raises RuntimeError: if the group's rank order is not the mesh's pod
         order (the mean would then add the replicas in another order).

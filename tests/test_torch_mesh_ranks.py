@@ -279,20 +279,24 @@ def test_compressed_step_across_ranks_equals_one_process(tmp_path, n,
 
 
 def test_compressed_step_checks_its_mesh():
-    """``fsdp`` and a wide data or model axis raise, as does an
-    ``n_pods`` that the mesh contradicts; the one-process form still
-    needs at least one replica."""
+    """``fsdp`` and a wide model axis raise, as does an ``n_pods`` that
+    the mesh contradicts; a wide data axis builds (the pod's data ranks
+    reduce their gradients before the exchange); the one-process form
+    still needs at least one replica."""
     from repro_torch.launch.mesh import AbstractMesh
 
     cfg, run, opt = _step_setup("adamw")
     pods = AbstractMesh((2, 1, 1), ("pod", "data", "model"))
     with pytest.raises(ValueError):
         ttrain.make_train_step_compressed(cfg, RunConfig(fsdp=True), 2, opt)
-    for mesh in (AbstractMesh((2, 2, 1), ("pod", "data", "model")),
-                 AbstractMesh((1, 1, 2), ("pod", "data", "model"))):
-        with pytest.raises(ValueError):
-            ttrain.make_train_step_compressed(cfg, run, opt_cfg=opt,
-                                              mesh=mesh)
+    step, _ = ttrain.make_train_step_compressed(
+        cfg, run, opt_cfg=opt,
+        mesh=AbstractMesh((2, 2, 1), ("pod", "data", "model")))
+    assert callable(step)
+    with pytest.raises(ValueError):
+        ttrain.make_train_step_compressed(
+            cfg, run, opt_cfg=opt,
+            mesh=AbstractMesh((1, 1, 2), ("pod", "data", "model")))
     with pytest.raises(ValueError):
         ttrain.make_train_step_compressed(cfg, run, 4, opt, mesh=pods)
     with pytest.raises(ValueError):
