@@ -338,6 +338,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    leaf must equal its slice of the saved tensor bit for bit.  Run (d):
    two steps of ``make_train_step(mesh=)`` on ``(data=2, model=1)`` with
    fsdp, held to (a′) (step 1's loss, gradients, the update of them).
+   Run (g), after (d) in the same two ranks: two steps of
+   ``make_train_step(mesh=)`` on ``(data=2, model=1)`` with Adafactor
+   under fsdp (lr 1e-3, one warmup step), whose factored moments' means
+   and RMS clip add the ranks' partial sums over the split ``embed``
+   dim: step 1's loss within ``DP_LOSS_REL_MAX`` of (a′)'s and its
+   gradients within ``DP_GRAD_REL_MAX``; after steps 1 and 2, each
+   rank's parameter and moment shards within ``DP_UPDATE_REL_MAX`` of
+   the one-process ``adafactor_update_`` of the step's gathered
+   gradients on the state before it, gathered whole; the loss and
+   ``grad_norm`` equal on both ranks; every replicated parameter and
+   moment leaf the same bits on both; each moment leaf its
+   ``opt_shardings`` slice.
    Run (e): ``train_loop(mesh=)`` there, at ``MESH_LOOP_LAYERS`` layers, from
    ``embedding_batches`` (seed 37): (e1) 4 steps saving every 2 (the histories the same on both
    ranks; the step-4 file, restored in one process, equal to the ranks'
@@ -345,7 +357,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    batch 1 is drawn (both ranks save step 2 and stop); (e3) resumed from
    (e2)'s file through step 3 (its parameters within
    ``LOOP_RESUME_REL_MAX`` of (e1)'s, bit-exactness printed).  Every
-   kernel must launch 0 times in (a′), (d) and each run of (e).  Run
+   kernel must launch 0 times in (a′), (d), (g) and each run of (e).  Run
    (f): four ranks spawned on the one card on ``(pod=2, data=2,
    model=1)``, two rows of the batch a rank, take ``MESH_STEPS`` steps
    of ``make_train_step_compressed(mesh=)`` from
@@ -369,7 +381,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (int8 codes and float32 scales) beside the float32 gradient bytes,
    each rank's peak device memory and launches (``mesh_launches`` on the
    kernel rows), the restore seconds and each rank's local bytes beside
-   the full bytes; (e)'s step seconds, each save's seconds with the
+   the full bytes; (g)'s step seconds with the gather's, the
+   reduction's and the update's shares, the collectives the update
+   makes a step and their bytes, peak device memory and the local and
+   full bytes of the parameters and moments, beside (d)'s AdamW step;
+   (e)'s step seconds, each save's seconds with the
    gather's, host copy's and write's shares, the restore seconds with the
    optimizer placement, file bytes; (f)'s step seconds on each rank
    with the within-pod reduction's and the exchange's shares, the bytes
@@ -506,14 +522,19 @@ MESH_LOOP_STEPS, MESH_LOOP_EVERY, MESH_PREEMPT_AT = 4, 2, 1
 # compressed steps on four gloo ranks of the one card: two pods of two
 # data ranks, the gradients summed within each pod, then int8 across
 MESH_F_SHAPE = (2, 2, 1)
+# (g): (d)'s model, batch and mesh with Adafactor under fsdp (lr 1e-3,
+# one warmup step) for MESH_STEPS steps, in (d)'s two ranks; step 1's
+# beta2 is 0, so step 2 is the first to read the carried moments
 # phase 14: python -m repro_torch.launch.train_lm at the example's
 # defaults (8 × 128 tokens, two microbatches, AdamW), then resumed
 ENTRY_PRESET, ENTRY_STEPS, ENTRY_TIMEOUT_S = "20m", (20, 30), 300
-# (d) against (a′): step 1's loss (relative); the gathered step-1
-# gradients of TRAIN_EXCHANGE_LEAVES (of each leaf's largest magnitude);
-# each rank's shards after step 1 against the one-process AdamW update
-# of the gathered gradients on the gathered step-0 parameters (beyond
-# one ulp of the value, of the leaf's largest update)
+# (d) and (g) against (a′): step 1's loss (relative); the gathered
+# step-1 gradients of TRAIN_EXCHANGE_LEAVES (of each leaf's largest
+# magnitude); each rank's shards against the one-process update of the
+# step's gathered gradients on the state before it gathered whole
+# (beyond one ulp of the value, of the leaf's largest update): (d)
+# AdamW's parameters after step 1, (g) Adafactor's parameters and
+# moments after steps 1 and 2
 DP_LOSS_REL_MAX, DP_GRAD_REL_MAX, DP_UPDATE_REL_MAX = 1e-6, 1e-5, 1e-6
 # the MoE layer's routing, dispatch and expert operators
 MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
@@ -3770,6 +3791,16 @@ def mesh_run_opt() -> tuple:
                                                        warmup_steps=1)
 
 
+def mesh_adafactor_run_opt() -> tuple:
+    """(g)'s run and optimizer: remat a layer, fsdp, Adafactor (lr 1e-3,
+    one warmup step)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.optim import adafactor
+
+    return (RunConfig(remat="layer", fsdp=True, optimizer="adafactor"),
+            adafactor.AdafactorConfig(lr=1e-3, warmup_steps=1))
+
+
 def device_sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3829,6 +3860,59 @@ class RecordGrads:
 
     def __exit__(self, *exc):
         self.mod._microbatched_grads = self.orig
+
+
+class UpdateClock:
+    """While active, ``launch.train``'s in-place update for ``opt_type``
+    (the step builder reads it when it is built) timed, the device
+    synchronized around it, with the collectives it makes counted: the
+    calls of ``all_gather``, ``all_gather_into_tensor`` and
+    ``all_reduce`` and their input bytes, each step's in ``steps``."""
+
+    NAMES = ("all_gather", "all_gather_into_tensor", "all_reduce")
+
+    def __init__(self, torch, dev, opt_type):
+        import torch.distributed as dist
+
+        from repro_torch.launch import train
+
+        self.torch, self.dev, self.dist = torch, dev, dist
+        self.table, self.key, self.steps = train._UPDATE_, opt_type, []
+
+    def _counted(self, name, fn):
+        def call(*a, **kw):
+            if self.cur is not None:
+                x = a[0] if name == "all_reduce" else a[1]
+                self.cur["collectives"] += 1
+                self.cur["bytes"] += x.numel() * x.element_size()
+            return fn(*a, **kw)
+        return call
+
+    def __enter__(self):
+        self.cur = None
+        self.orig = self.table[self.key]
+        self.orig_c = {n: getattr(self.dist, n) for n in self.NAMES}
+        for n, fn in self.orig_c.items():
+            setattr(self.dist, n, self._counted(n, fn))
+
+        def timed(*a, **kw):
+            self.cur = {"s": 0.0, "collectives": 0, "bytes": 0}
+            device_sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **kw)
+            finally:
+                device_sync(self.torch, self.dev)
+                self.cur["s"] = time.perf_counter() - t0
+                self.steps.append(self.cur)
+                self.cur = None
+        self.table[self.key] = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.table[self.key] = self.orig
+        for n, fn in self.orig_c.items():
+            setattr(self.dist, n, fn)
 
 
 def dp_step_bytes(params: dict, n: int, mb: int) -> dict:
@@ -3892,8 +3976,8 @@ def mesh_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
 
 def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
                   dev) -> dict:
-    """Runs (b), (c) and (d) of phase 13 on this rank; returns its
-    readings."""
+    """Runs (b), (c), (d), (g) and (e) of phase 13 on this rank; returns
+    its readings."""
     import numpy as np
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Shard
@@ -4009,6 +4093,11 @@ def mesh_rank_run(torch, dist, rank: int, n: int, root: str, cfg,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    # ---- (g) Adafactor under fsdp on (data=2)
+    out["af"] = mesh_adafactor_run(torch, dist, root, cfg, dev, mesh2)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
     # ---- (e) the resilient loop on (data=2), fsdp
     out["loop"] = mesh_loop_run(torch, dist, rank, root, cfg, dev, mesh2)
     return out
@@ -4100,6 +4189,132 @@ def mesh_dp_run(torch, dist, root: str, cfg, dev, mesh) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     out["steps"] = steps
+    return out
+
+
+def mesh_adafactor_run(torch, dist, root: str, cfg, dev, mesh) -> dict:
+    """Run (g) of phase 13 on this rank: ``init_train_state(mesh=)`` and
+    ``MESH_STEPS`` steps of ``make_train_step(mesh=)`` with Adafactor
+    under fsdp, the launch counts reset just before each step and read
+    just after; step 1's gradients held to (a′)'s, and after each step
+    the rank's parameter and moment shards held to the one-process
+    ``adafactor_update_`` of the step's gathered gradients on the state
+    before it, gathered whole.  Returns its readings."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import model
+    from repro_torch.optim import adafactor
+    from repro_torch.optim.tree import leaves, local, sharded, tree_map
+
+    t_run = time.perf_counter()
+    run, opt = mesh_adafactor_run_opt()
+    group, coord = dist.group.WORLD, mesh.get_coordinate()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, state = train.init_train_state(
+        cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED), opt,
+        mesh=mesh, device=dev)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    moments = {k: v for k, v in state.items() if k != "step"}
+    specs = model.model_specs(cfg)
+    rules = sharding.rules_for(mesh, run)
+    osh = dict(leaves(sharding.opt_shardings(
+        opt, specs, sharding.param_shardings(specs, mesh, rules), mesh,
+        rules)))
+    out = {"bytes": {name: {
+        "local": sum(local(t).numel() * t.element_size()
+                     for _, t in leaves(tree)),
+        "full": sum(t.numel() * t.element_size() for _, t in leaves(tree))}
+        for name, tree in (("params", params), ("moments", moments))},
+        "sharded_leaves": sum(sharded(p) for _, p in leaves(params)),
+        "sharded_moments": sum(sharded(t) for _, t in leaves(moments)),
+        "moment_leaves": len(leaves(moments)),
+        "moment_slices": all(
+            t.placements == osh[path] and local(t).shape
+            == sharding.local_slice(torch.empty(t.shape, device="meta"),
+                                    mesh, osh[path], coord).shape
+            for path, t in leaves(moments))}
+
+    def gathered():
+        return {"params": tree_map(torch.clone,
+                                   train._gather_params(params, group)),
+                "moments": tree_map(torch.clone,
+                                    train._gather_params(moments, group))}
+    old = gathered()
+    plain = torch.load(os.path.join(root, "plain_grads.pt"), map_location=dev)
+    steps = []
+    with UpdateClock(torch, dev, type(opt)) as upd:
+        step, _ = train.make_train_step(cfg, run, opt, mesh=mesh)
+        for i in range(MESH_STEPS):
+            dist.barrier()
+            device_sync(torch, dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with TrainClock(torch, dev, "_gather_params", "_reduce_grads",
+                            keep=("_reduce_grads",)) as clock:
+                t0 = time.perf_counter()
+                m = step(params, state, batch)[2]
+                device_sync(torch, dev)
+                sec = time.perf_counter() - t0
+            launches = {k: ops.launches[k] for k in KERNELS}
+            peak = (torch.cuda.max_memory_allocated()
+                    if dev.type == "cuda" else None)
+            identical = True
+            for _, t in leaves(params) + leaves(moments):
+                if not sharded(t):
+                    got = local(t).clone()
+                    dist.broadcast(got, src=0)
+                    identical = identical and torch.equal(got, local(t))
+            u = upd.steps[-1]
+            g_s, r_s = clock.s["_gather_params"], clock.s["_reduce_grads"]
+            rec = {"s": sec, "gather_s": g_s, "gather_share": g_s / sec,
+                   "reduce_s": r_s, "reduce_share": r_s / sec,
+                   "update_s": u["s"], "update_share": u["s"] / sec,
+                   "update_collectives": u["collectives"],
+                   "update_collective_bytes": u["bytes"],
+                   "launches": launches, "loss": m["loss"].item(),
+                   "grad_norm": m["grad_norm"].item(),
+                   "replicated_identical": identical,
+                   "peak_device_bytes": peak}
+            # the step's gathered gradients; step 1's against (a′)'s
+            grads = train._gather_params(clock.last.pop("_reduce_grads"),
+                                         group)
+            if i == 0:
+                rec["grads_rel"] = {
+                    name: float((leaf_at(grads, name) - g).abs().max()
+                                / g.abs().max()) for name, g in plain.items()}
+            # each shard against the one-process update from the state
+            # before the step, gathered whole
+            want = tree_map(torch.clone, old["params"])
+            want_s = {**tree_map(torch.clone, old["moments"]),
+                      "step": torch.tensor(i, dtype=torch.int32)}
+            adafactor.adafactor_update_(want, grads, want_s, opt)
+            del grads
+            for name, mine, w_tree, o_tree in (
+                    ("params", params, want, old["params"]),
+                    ("moments", moments, want_s, old["moments"])):
+                w_of, o_of = dict(leaves(w_tree)), dict(leaves(o_tree))
+                worst, exact = 0.0, True
+                for path, t in leaves(mine):
+                    w = sharding.local_slice(w_of[path], mesh, t.placements,
+                                             coord)
+                    o = sharding.local_slice(o_of[path], mesh, t.placements,
+                                             coord)
+                    worst = max(worst, update_rel(torch, w, local(t), o))
+                    exact = exact and torch.equal(w, local(t))
+                rec[f"{name}_update_rel"] = worst
+                rec[f"{name}_bit_exact"] = exact
+            del want, want_s, old
+            old = gathered() if i + 1 < MESH_STEPS else None
+            steps.append(rec)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    out["steps"] = steps
+    out["s"] = time.perf_counter() - t_run
+    del params, state, moments, plain
     return out
 
 
@@ -4494,9 +4709,9 @@ def pod_data_run(torch, dist, rank: int, root: str, cfg, dev) -> dict:
 def mesh_training(torch, smi: str, dev="cuda") -> dict:
     """Phase 13: run (a), the two-replica step in one process and a
     checkpoint of replica 0; run (a′), the plain step in one process;
-    runs (b), (c) and (d) in two spawned gloo ranks on the one card
-    (:func:`mesh_rank`).  Returns the printed readings with the ranks'
-    launch counts."""
+    runs (b)–(e) and (g) in two spawned gloo ranks on the one card
+    (:func:`mesh_rank`), (f) in four.  Returns the printed readings with
+    the ranks' launch counts."""
     import shutil
 
     import numpy as np
@@ -4623,6 +4838,10 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
                               for i, st in enumerate(r["dp"]["steps"])}
         out["dp_launches"].update({f"plain_step{i}": st["launches"]
                                    for i, st in enumerate(plain_steps)})
+        # (g): no kernel is on Adafactor's mesh step either
+        out["af_launches"] = {f"af_rank{r['rank']}_step{i}": st["launches"]
+                              for r in ranks
+                              for i, st in enumerate(r["af"]["steps"])}
         # (e): each loop run on each rank
         out["loop_launches"] = {f"loop_{tag}_rank{r['rank']}":
                                 r["loop"][tag]["launches"]
@@ -4701,6 +4920,7 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
               "mesh: (d) losses")
     for key, got in out["dp_launches"].items():
         check(not any(got.values()), f"mesh: {key} launched {got}")
+    mesh_adafactor_checks(out, ranks, smi)
     # (e) the resilient loop
     loops = [r["loop"] for r in ranks]
     print("mesh (e), train_loop(mesh=) on (data=2, model=1) with fsdp, two "
@@ -4734,6 +4954,79 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         check(not any(got.values()), f"mesh: {key} launched {got}")
     pod_data_checks(out, n_leaves, smi)
     return out
+
+
+def mesh_adafactor_checks(out: dict, ranks: list, smi: str) -> None:
+    """Phase 13 (g)'s printed readings, beside (d)'s AdamW step, and its
+    gates, against (a′) and the one-process update."""
+    import numpy as np
+
+    afs = [r["af"] for r in ranks]
+    g, d = afs[0], ranks[0]["dp"]
+    want = out["plain_steps"][0]["loss"]
+    out["af_step1_loss_rel"] = abs(g["steps"][0]["loss"] - want) / abs(want)
+    print("mesh (g), rank 0, Adafactor under fsdp on (data=2, model=1), "
+          "two ranks on one card through gloo, nothing crosses a link, "
+          + smi + ": " + json.dumps({
+              "wall_s": g["s"],
+              "step_s": [st["s"] for st in g["steps"]],
+              "gather_share": [st["gather_share"] for st in g["steps"]],
+              "reduce_share": [st["reduce_share"] for st in g["steps"]],
+              "update_share": [st["update_share"] for st in g["steps"]],
+              "update_s": [st["update_s"] for st in g["steps"]],
+              "update_collectives": [st["update_collectives"]
+                                     for st in g["steps"]],
+              "update_collective_bytes": [st["update_collective_bytes"]
+                                          for st in g["steps"]],
+              "peak_device_bytes": [st["peak_device_bytes"]
+                                    for st in g["steps"]],
+              "bytes": g["bytes"],
+              "sharded_leaves": g["sharded_leaves"],
+              "sharded_moments": [g["sharded_moments"],
+                                  g["moment_leaves"]],
+              "step1_loss_rel": out["af_step1_loss_rel"],
+              "grads_rel": g["steps"][0]["grads_rel"],
+              "params_update_rel": [st["params_update_rel"]
+                                    for st in g["steps"]],
+              "moments_update_rel": [st["moments_update_rel"]
+                                     for st in g["steps"]],
+              "bit_exact": [[st["params_bit_exact"], st["moments_bit_exact"]]
+                            for st in g["steps"]],
+              "adamw_d": {"step_s": [st["s"] for st in d["steps"]],
+                          "gather_share": [st["gather_share"]
+                                           for st in d["steps"]],
+                          "reduce_share": [st["reduce_share"]
+                                           for st in d["steps"]],
+                          "peak_device_bytes": [st["peak_device_bytes"]
+                                                for st in d["steps"]],
+                          "bytes": d["bytes"]}}))
+    for i in range(MESH_STEPS):
+        check(len({(a["steps"][i]["loss"], a["steps"][i]["grad_norm"])
+                   for a in afs}) == 1, f"mesh: (g) step {i + 1}'s loss and "
+              f"grad_norm differ between the ranks")
+    rel = out["af_step1_loss_rel"]
+    check(rel <= DP_LOSS_REL_MAX, f"mesh: (g) step 1's loss {rel} from (a′)")
+    for a in afs:
+        check(max(a["steps"][0]["grads_rel"].values()) <= DP_GRAD_REL_MAX,
+              f"mesh: (g) gradients {a['steps'][0]['grads_rel']} from (a′)'s")
+        for i, st in enumerate(a["steps"]):
+            for name in ("params", "moments"):
+                check(st[f"{name}_update_rel"] <= DP_UPDATE_REL_MAX,
+                      f"mesh: (g) step {i + 1}'s {name} shards "
+                      f"{st[f'{name}_update_rel']} from the update")
+            check(st["replicated_identical"], f"mesh: (g) step {i + 1}'s "
+                  f"replicated leaves differ between the ranks")
+            check(np.isfinite(st["loss"]) and st["update_collectives"] > 0,
+                  f"mesh: (g) step {i + 1}: {st}")
+        check(a["moment_slices"], "mesh: (g) a moment leaf is not its "
+              "opt_shardings slice")
+        b = a["bytes"]
+        check(a["sharded_leaves"] > 0 and a["sharded_moments"] > 0
+              and b["params"]["local"] < b["params"]["full"]
+              and b["moments"]["local"] < b["moments"]["full"],
+              f"mesh: (g) {b}")
+    for key, got in out["af_launches"].items():
+        check(not any(got.values()), f"mesh: {key} launched {got}")
 
 
 def pod_data_checks(out: dict, n_leaves: int, smi: str) -> None:
@@ -4934,6 +5227,15 @@ def entry_point(torch, smi: str, dev: str = "cuda") -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+    laps, cur = {}, [None, t_start]
+
+    def lap(name):
+        """Ends the running phase's wall time and starts ``name``'s."""
+        now = time.perf_counter()
+        if cur[0] is not None:
+            laps[cur[0]] = now - cur[1]
+        cur[:] = [name, now]
+
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         return fail("run from a checkout: src/repro_torch is missing")
     import torch
@@ -4956,6 +5258,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------- 1. build
+    lap("1")
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s")
@@ -4969,6 +5272,7 @@ def main() -> int:
                 print(f"  ptxas {name} {fn}: {line.strip()}")
 
     # ---------------------------------------------------------- 2. main path
+    lap("2")
     t0 = time.perf_counter()
     ds = amr.synthetic_amr(SHAPE, densities=DENSITIES, refine_block=16,
                            lognormal_sigma=1.8, seed=10)
@@ -5057,18 +5361,22 @@ def main() -> int:
           f"the read made {read_prof['kernel_launches']} launches")
 
     # ------------------------------------------------ 2b. region serving
+    lap("2b")
     region = region_serving(torch, np, ops, tio, path, levels, smi)
     print("region serving: " + json.dumps(region))
 
     # --------------------------------------------- 2c. multi-part snapshots
+    lap("2c")
     mpart = multipart(torch, np, ops, tio, ds, res, eb, path, levels, smi)
     print("multi-part: " + json.dumps(mpart))
 
     # ------------------------------- 2d. tuning and variant serving
+    lap("2d")
     tuning = tuning_serving(torch, np, ops, tio, ds, smi)
     print("variant serving: " + json.dumps(tuning["serving"]))
 
     # ------------------------ 2e. sharded serving, load and SLOs
+    lap("2e")
     t0 = time.perf_counter()
     shard = sharded_serving(torch, np, ops, tio, path, levels, smi)
     shard["phase_s"] = time.perf_counter() - t0
@@ -5089,6 +5397,7 @@ def main() -> int:
           f"{shard['fleet_over_single']:.3f}x) [{smi}]")
 
     # ------------------------------------------------- 3. kernels vs plain
+    lap("3")
     rows = []
 
     def row(name, err, ms, plain_ms, bytes_moved, ops_count, library_ms,
@@ -5288,6 +5597,7 @@ def main() -> int:
     del payloads0, args, sargs, res, levels, roi
 
     # ---------------------------------------------------------- 4. TAC path
+    lap("4")
     t0 = time.perf_counter()
     ds4 = amr.synthetic_amr(SHAPE, densities=TAC_DENSITIES, refine_block=16,
                             lognormal_sigma=2.6, seed=3)
@@ -5469,6 +5779,7 @@ def main() -> int:
     del padded, codes, recon
 
     # ------------------------------------------------- 5. K5/K6 vs plain
+    lap("5")
     padded, _ = gsp.gsp_pad(fine.data, fine.mask, unit=8, device=dev)
     n_el = padded.numel()
     print(f"K5/K6 input: GSP-padded finest level of phase 2, "
@@ -5512,49 +5823,58 @@ def main() -> int:
     del padded, codes
 
     # ------------------------------------- 6. the card against the reference
+    lap("6")
     print("card vs the reference's files: " + json.dumps(
         card_reference(torch, np, ops, tio, smi)))
 
     # ------------------------------------------------- 7. LM serving
+    lap("7")
     rows += lm_serving(torch, smi)
 
     # ------------------------------------------------- 8. MoE serving
+    lap("8")
     t0 = time.perf_counter()
     moe = moe_serving(torch, smi)
     print(f"MoE serving: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(moe["launches"]))
 
     # ------------------------------------------ 9. recurrent-state serving
+    lap("9")
     t0 = time.perf_counter()
     rec = recurrent_serving(torch, smi)
     print(f"recurrent serving: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(rec["launches"]))
 
     # ------------------------------------- 10. embedding-input serving
+    lap("10")
     t0 = time.perf_counter()
     emb = embedding_serving(torch, smi)
     print(f"embedding serving: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(emb["launches"]))
 
     # ------------------------------------------------- 11. training
+    lap("11")
     t0 = time.perf_counter()
     trn = training(torch, smi)
     print(f"training: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(trn["launches"]))
 
     # ------------------------------------------------- 12. resilient loop
+    lap("12")
     t0 = time.perf_counter()
     loop = resilient_loop(torch, smi)
     print(f"resilient loop: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(loop["launches"]))
 
     # ------------------------------------------------------- 13. the mesh
+    lap("13")
     t0 = time.perf_counter()
     mesh = mesh_training(torch, smi)
     print(f"mesh: {time.perf_counter() - t0:.1f} s, launches "
           + json.dumps(mesh["launches"]))
 
     # ------------------------------------------------- 14. the entry point
+    lap("14")
     t0 = time.perf_counter()
     entry = entry_point(torch, smi)
     print(f"entry point: {time.perf_counter() - t0:.1f} s")
@@ -5623,18 +5943,20 @@ def main() -> int:
                 "library_ms": (trn["pods"]["k7_k8_ms_at_group_256"][
                     "k8_library"] if key == "k8" else None),
                 "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
-        # phase 13's plain step: (d)'s ranks and (a′); (e)'s loop runs;
-        # (f)'s compressed steps on (pod=2, data=2)
+        # phase 13's plain step: (d)'s ranks and (a′); (g)'s Adafactor
+        # steps; (e)'s loop runs; (f)'s compressed steps on (pod=2, data=2)
         r.setdefault("mesh_launches", {}).update({
             run: counts[r["name"]]
-            for runs in (mesh["dp_launches"], mesh["loop_launches"],
-                         mesh["f_launches"])
+            for runs in (mesh["dp_launches"], mesh["af_launches"],
+                         mesh["loop_launches"], mesh["f_launches"])
             for run, counts in runs.items()})
         # phase 14: each entry-point run
         r["entry_launches"] = [run["launches"][r["name"]]
                                for run in entry["runs"]]
         check(not any(r["entry_launches"]),
               f"entry point launched {r['name']} {r['entry_launches']}")
+    lap(None)
+    print("phase wall s: " + json.dumps(laps))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

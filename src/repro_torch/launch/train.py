@@ -261,18 +261,13 @@ def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
     return pods
 
 
-def _mesh_group(run: RunConfig, opt_cfg, mesh):
+def _mesh_group(mesh):
     """The process group of a data-parallel mesh's batch axes: the whole
     process group (:func:`_mesh_axes`).
 
-    :raises ValueError: as :func:`_mesh_axes` says; for Adafactor with
-        ``fsdp`` (ROADMAP item 2.6b-5: its factored moments reduce over
-        the sharded ``embed`` dim).
+    :raises ValueError: as :func:`_mesh_axes` says.
     """
     _mesh_axes(mesh)
-    if run.fsdp and isinstance(opt_cfg, AdafactorConfig):
-        raise ValueError("Adafactor with fsdp is ROADMAP item 2.6b-5: its "
-                         "factored moments reduce over the sharded dim")
     return dist.group.WORLD
 
 
@@ -356,7 +351,7 @@ def _mesh_grads(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig,
 
 def _mesh_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg, mesh, **kw):
     """:func:`make_train_step`'s step on a data-parallel mesh."""
-    group = _mesh_group(run, opt_cfg, mesh)
+    group = _mesh_group(mesh)
     rules = rules_for(mesh, run)
     update_ = _UPDATE_[type(opt_cfg)]
     mb = max(run.microbatches, 1)
@@ -405,8 +400,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     loss over the global count of labels), sums the gradients over the
     ranks in one collective a leaf (a reduce-scatter into a sharded
     leaf's shard, an all-reduce of a replicated one), and updates each
-    rank's local shards, clipped by the whole gradient's norm.  The
-    metrics are the global batch's, the same on every rank.
+    rank's local shards: AdamW clipped by the whole gradient's norm,
+    Adafactor with its factored means and RMS clip over each whole leaf
+    (sums over a split dim added across the ranks).  The metrics are the
+    global batch's, the same on every rank.
 
     :raises ValueError: as :func:`_mesh_group` says; at the step, for a
         batch the microbatches and ranks do not divide, and for an MoE
@@ -678,8 +675,8 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
     complete.
 
     :raises ValueError: as :func:`make_train_step` says, for a mesh the
-        step does not support (a ``model`` axis wider than 1, Adafactor
-        with ``fsdp``), before any checkpoint is read.
+        step does not support (a ``model`` axis wider than 1), before any
+        checkpoint is read.
     """
     from ..checkpoint.manager import CheckpointManager
     from ..runtime.resilience import PreemptionGuard, StepWatchdog
@@ -687,7 +684,7 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
     device = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(moments_dtype=run.optimizer_dtype)
     step_fn, opt_cfg = make_train_step(cfg, run, opt_cfg, mesh=mesh)
-    group = None if mesh is None else _mesh_group(run, opt_cfg, mesh)
+    group = None if mesh is None else _mesh_group(mesh)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     params, opt_state = init_train_state(cfg, run, generator, opt_cfg,

@@ -9,16 +9,26 @@ moment exists only when ``beta1 > 0`` and is stored in
 ``moments_dtype``.  ``beta2 = 1 − t^(−decay)`` and the schedule are
 float32, computed on the host as :mod:`repro_torch.optim.adamw` computes
 its scalars; means divide their sums by a tensor.
+
+On a data-parallel mesh a leaf may be split on one dim over the ranks
+(``fsdp``, the ``embed`` axis).  The update then reads the leaf's whole
+shape, and a sum over the split dim (a factored mean over the last two
+axes, the mean of a split ``vr``, the RMS clip's sum over the leaf)
+adds the ranks' partial sums in rank order before it divides by the
+whole extent: every rank gets the same bits, and a moment reduced over
+the split dim comes out replicated, as ``opt_shardings`` places it.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..models.layers import DTYPES
 from .adamw import AdamWConfig, f32, global_norm, lr_schedule
-from .tree import leaves, local, tree_map
+from .tree import leaves, local, shard_dim, tree_map
 
 __all__ = ["AdafactorConfig", "adafactor_init", "adafactor_update",
            "adafactor_update_", "adafactor_beta2"]
@@ -79,21 +89,47 @@ def adafactor_beta2(cfg: AdafactorConfig, step) -> torch.Tensor:
     return 1.0 - t ** (-cfg.decay)
 
 
-def _mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
-    """The mean as the reference takes it: the sum divided by the count."""
-    return x.sum(dim, keepdim=keepdim) / f32(x.shape[dim], x.device)
+def _ranks_sum(xs: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """Each tensor of ``xs`` summed over the ranks of ``group``: one
+    ``all_gather_into_tensor`` of them all, flattened, and the ranks'
+    parts added in rank order, so that every rank gets the same bits."""
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    n = dist.get_world_size(group)
+    parts = flat.new_empty((n * flat.numel(),))
+    dist.all_gather_into_tensor(parts, flat, group=group)
+    parts = parts.view(n, -1)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return [t.view(x.shape) for t, x in zip(
+        total.split([x.numel() for x in xs]), xs)]
 
 
-def _leaf_update(p, g, v: dict, m, beta2, lr, cfg: AdafactorConfig) -> None:
+def _leaf_update(p, g, v: dict, m, beta2, lr, cfg: AdafactorConfig,
+                 shape: tuple, split: int | None = None,
+                 group=None) -> None:
+    """One leaf's update on this rank's local tensors; ``shape`` is the
+    leaf's whole shape, ``split`` the (negative) dim that the ranks of
+    ``group`` split it on, or ``None``."""
     eps = cfg.eps
+    dev = p.device
     g = g.float()
     g2 = g * g + eps
-    if _factored(p.shape):
-        vr = v["vr"] * beta2 + _mean(g2, -1) * (1 - beta2)
-        vc = v["vc"] * beta2 + _mean(g2, -2) * (1 - beta2)
+    if _factored(shape):
+        # the means over the last two axes; over the split dim the ranks'
+        # partial sums are added first
+        r_sum, c_sum = g2.sum(-1), g2.sum(-2)
         del g2
-        denom = ((vr / torch.clamp(_mean(vr, -1, True), min=eps))[..., None]
-                 * vc[..., None, :])
+        if split == -1:
+            r_sum, = _ranks_sum([r_sum], group)
+        vr = v["vr"] * beta2 + r_sum / f32(shape[-1], dev) * (1 - beta2)
+        vr_sum = vr.sum(-1, keepdim=True)
+        if split == -2:
+            c_sum, vr_sum = _ranks_sum([c_sum, vr_sum], group)
+        vc = v["vc"] * beta2 + c_sum / f32(shape[-2], dev) * (1 - beta2)
+        del r_sum, c_sum
+        denom = ((vr / torch.clamp(vr_sum / f32(shape[-2], dev), min=eps))
+                 [..., None] * vc[..., None, :])
         u = g * torch.rsqrt(torch.clamp(denom, min=eps))
         del denom
         v["vr"].copy_(vr)
@@ -103,9 +139,12 @@ def _leaf_update(p, g, v: dict, m, beta2, lr, cfg: AdafactorConfig) -> None:
         u = g * torch.rsqrt(torch.clamp(nv, min=eps))
         v["v"].copy_(nv)
     del g
-    # RMS clip
-    rms = torch.sqrt(u.square().sum() / f32(u.numel(), u.device) + eps)
-    u = u / torch.clamp(rms / f32(cfg.clip_threshold, u.device), min=1.0)
+    # RMS clip, over the whole leaf
+    sq = u.square().sum()
+    if split is not None:
+        sq, = _ranks_sum([sq], group)
+    rms = torch.sqrt(sq / f32(math.prod(shape), dev) + eps)
+    u = u / torch.clamp(rms / f32(cfg.clip_threshold, dev), min=1.0)
     if m is not None:
         u = m.float() * cfg.beta1 + u * (1 - cfg.beta1)
         m.copy_(u)
@@ -119,9 +158,12 @@ def adafactor_update_(params, grads, opt_state, cfg: AdafactorConfig, *,
     """One Adafactor step written into ``params`` and ``opt_state`` in
     place; returns the stats ``{"grad_norm", "lr"}`` (the norm is only
     reported: Adafactor clips each leaf's update by its RMS).  On a mesh
-    (the ranks' ``group``) the leaves are replicated DTensors, and each
-    rank updates its local copy; the factored moments would reduce over
-    a sharded dim, so the trees must not be sharded."""
+    (the ranks' ``group``) the leaves are DTensors, placed alike in
+    ``params`` and ``grads`` and by ``opt_shardings`` in ``opt_state``,
+    and each rank updates its local shards: a leaf split over the ranks
+    (``optim.tree.shard_dim``) takes its whole shape's layout and means,
+    its sums over the split dim added across the ranks (the module
+    docstring)."""
     step = opt_state["step"].add_(1)
     beta2 = adafactor_beta2(cfg, step)
     lr = lr_schedule(AdamWConfig(lr=cfg.lr, warmup_steps=cfg.warmup_steps,
@@ -133,10 +175,14 @@ def adafactor_update_(params, grads, opt_state, cfg: AdafactorConfig, *,
                   for t in (grads, opt_state["v"]))
     m_of = (dict(leaves(tree_map(local, opt_state["mu"])))
             if "mu" in opt_state else {})
-    for path, p in leaves(tree_map(local, params)):
+    for path, p in leaves(params):
+        shape = tuple(p.shape)
+        d = None if group is None else shard_dim(p)
         v = {k: v_of[path + (k,)] for k in (("vr", "vc") if _factored(
-            p.shape) else ("v",))}
-        _leaf_update(p, g_of[path], v, m_of.get(path), beta2_d, lr_d, cfg)
+            shape) else ("v",))}
+        _leaf_update(local(p), g_of[path], v, m_of.get(path), beta2_d, lr_d,
+                     cfg, shape, None if d is None else d - len(shape),
+                     group)
     return {"grad_norm": gnorm, "lr": lr}
 
 

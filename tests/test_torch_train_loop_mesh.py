@@ -660,9 +660,10 @@ def test_data2_loop_tracks_one_process(data2, one_process, fsdp):
 
 @pytest.mark.parametrize("case", ["model2", "adafactor_fsdp"])
 def test_unsupported_mesh_raises_before_reading(tmp_path, monkeypatch, case):
-    """A ``model`` axis of 2 (ROADMAP item 2.6b-4) and Adafactor with
-    fsdp (2.6b-5) raise the step's ``ValueError`` before any checkpoint
-    is read or any state is made."""
+    """A ``model`` axis of 2 (ROADMAP item 2.6b-4), with AdamW or with
+    Adafactor under fsdp (which runs on a data-parallel mesh), raises the
+    step's ``ValueError`` before any checkpoint is read or any state is
+    made."""
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.optim.adafactor import AdafactorConfig
 
@@ -674,9 +675,9 @@ def test_unsupported_mesh_raises_before_reading(tmp_path, monkeypatch, case):
         mesh, run, opt, match = (AbstractMesh((1, 2), ("data", "model")),
                                  _run(True), AdamWConfig(lr=LR), "2.6b-4")
     else:
-        mesh, run, opt, match = (AbstractMesh((2, 1), ("data", "model")),
+        mesh, run, opt, match = (AbstractMesh((2, 2), ("data", "model")),
                                  RunConfig(optimizer="adafactor", fsdp=True),
-                                 AdafactorConfig(lr=LR), "2.6b-5")
+                                 AdafactorConfig(lr=LR), "2.6b-4")
     with pytest.raises(ValueError, match=match):
         ttrain.train_loop(_cfg(), run, _stream(), steps=2, opt_cfg=opt,
                           checkpoint_dir=str(tmp_path), mesh=mesh,
