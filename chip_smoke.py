@@ -42,19 +42,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``write_multipart(parts=4)`` of phase 2's result, every level's
    ``level_signature`` equal to the single file's, the
    ``MultiPartReader(device="cuda")`` decode equal to phase 2's levels
-   bit for bit (kernels 4 and 2) and timed in turns with the single-file
+   bit for bit (kernels 4 and 2) and timed once beside the single-file
    read, kernel 4's launches per level (wrapper counts; the profiler's
-   kernel count beside them), the write timed in turns with the single
+   kernel count beside them), the write timed once beside the single
    file's; the raw levels through ``ParallelTACZWriter(parts=4)`` in
    thread mode (a CUDA stream per worker; kernels 1 and 3) and in
    spawned processes (kernels 1 and 3 in the workers, whose own counts
    are printed apart as ``process_worker_launches``), against one
-   ``TACZWriter``, in turns (the reference bench's 1.5× bar printed, not
-   enforced; the single and the thread-mode write also under the
-   profiler), each decode equal to phase 2's levels; the GSP level of
-   ``tests/card_reference`` through the writer's whole-level key (one
-   part owns it; its signature equals the reference's file's and it
-   decodes to the reference's recon: kernels 5 and 6); phase 2b's six
+   ``TACZWriter``, one timed run each (the reference bench's 1.5× bar
+   printed, not enforced), each decode equal to phase 2's levels; the
+   GSP level of ``tests/card_reference`` through the writer's
+   whole-level key (one part owns it; its signature equals the
+   reference's file's and it decodes to the reference's recon: kernels
+   5 and 6); phase 2b's six
    boxes served from the directory (cold: kernels 4 and 2) equal to the
    single-file server's crops, cold and warm (three warm batches, each
    server in turn), and a part-aligned shard server that opens no part
@@ -375,7 +375,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    gather → K8, and their plain versions, composed on the rank's own
    inputs, bit for bit; each rank's new parameters within
    ``DP_UPDATE_REL_MAX`` of the one-process AdamW update of its own
-   mean.
+   mean.  Run (h), in (f)'s four ranks after (f), on a second mesh over
+   them, ``(data=2, model=2)``: two steps of ``make_train_step(mesh=)``
+   with fsdp (tensor parallelism: each ``model`` rank computes its half
+   of the heads, the ffn and the vocabulary, with all-reduces over the
+   ``model`` group where a split ends and a vocab-parallel
+   cross-entropy), held to (a′) as (d) is: step 1's loss, its gradients
+   gathered whole over both axes, each rank's shards against the
+   one-process update of them; the loss and ``grad_norm`` equal on the
+   four ranks, every replicated leaf the same bits; every kernel 0
+   launches.
    Printed: each rank's synchronized step seconds and the exchange's,
    the gather's and the reduction's shares, the bytes that cross a step
    (int8 codes and float32 scales) beside the float32 gradient bytes,
@@ -391,7 +400,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    with the within-pod reduction's and the exchange's shares, the bytes
    a rank sends (the float32 reduction's ring volume, the int8 codes,
    the float32 scales), each rank's peak device memory, (f)'s wall
-   seconds.  The ranks share one card: nothing crosses a link;
+   seconds; (h)'s step seconds with the gather's, the reduction's and the
+   ``model`` collectives' shares, the bytes a rank sends over each axis
+   (ring volume), peak device memory, local / full parameter bytes.  The
+   ranks share one card: nothing crosses a link;
 14. the entry point (``entry_point``): ``python -m
    repro_torch.launch.train_lm --preset 20m --steps 20 --ckpt <tmp>``,
    then the same with ``--steps 30``, each a child process (``runpy``, as
@@ -522,6 +534,10 @@ MESH_LOOP_STEPS, MESH_LOOP_EVERY, MESH_PREEMPT_AT = 4, 2, 1
 # compressed steps on four gloo ranks of the one card: two pods of two
 # data ranks, the gradients summed within each pod, then int8 across
 MESH_F_SHAPE = (2, 2, 1)
+# (h): (d)'s model, run, batch and fsdp on (data=2, model=2) over (f)'s
+# four ranks (a second init_device_mesh), MESH_STEPS steps with a model
+# axis of 2 (tensor parallelism)
+MESH_H_SHAPE = (2, 2)
 # (g): (d)'s model, batch and mesh with Adafactor under fsdp (lr 1e-3,
 # one warmup step) for MESH_STEPS steps, in (d)'s two ranks; step 1's
 # beta2 is 0, so step 2 is the first to read the carried moments
@@ -1207,22 +1223,25 @@ def multipart(torch, np, ops, tio, ds, res, eb: float, path: str, levels,
                    needs=("huffdec",))
             out["k4_per_level"].append(
                 out["launches"][f"read_level_{li}"]["huffdec"])
+    # one turn each: the repeats gated nothing (cut to keep the script
+    # within its wall-time bar; PERF.md §4); the profiles read the runs
+    # just made, with no warm-up
     out["write_compressed_s"] = in_turns(torch, {
         "single": lambda: tio.write(os.path.join(tmp.name, "one.tacz"), res,
                                     device="cuda"),
         "multi": lambda: tio.write_multipart(mdir, res, parts=4,
                                              device="cuda")},
-        ["single", "multi", "multi", "single"])
+        ["single", "multi"])
     out["read_s"] = in_turns(torch, {
         "single": lambda: tio.read(path, device="cuda"),
         "multi": lambda: read_all(mdir)},
-        ["single", "multi", "multi", "single"])
+        ["single", "multi"])
     # kernel 4 ends every call with one launch of its serial_kernel
     out["read_profile"] = {
         "single": device_profile(torch, lambda: tio.read(path, device="cuda"),
-                                 count="serial_kernel"),
+                                 count="serial_kernel", warm_up=False),
         "multi": device_profile(torch, lambda: read_all(mdir),
-                                count="serial_kernel")}
+                                count="serial_kernel", warm_up=False)}
 
     # ---- raw levels: every part compresses its own bricks
     def single_writer():
@@ -1241,9 +1260,9 @@ def multipart(torch, np, ops, tio, ds, res, eb: float, path: str, levels,
             return w
         return run
 
-    window("write_thread", parallel("thread"),
-           needs=("lorenzo3d_codes_batched", "hist"))
-    w, _ = window("write_process", parallel("process"))
+    _, thread_s = window("write_thread", parallel("thread"),
+                         needs=("lorenzo3d_codes_batched", "hist"))
+    w, process_s = window("write_process", parallel("process"))
     per_part = {mfst.part_name(pi): {k: v for k, v in c.items() if v}
                 for pi, c in sorted(w.worker_launches.items())}
     out["process_worker_launches"] = per_part
@@ -1255,17 +1274,17 @@ def multipart(torch, np, ops, tio, ds, res, eb: float, path: str, levels,
         for li, (g, want) in enumerate(zip(got, levels)):
             check(torch.equal(g, want),
                   f"{name}: level {li} != phase 2's level")
-    out["write_raw_s"] = in_turns(torch, {
-        "single": single_writer, "thread": parallel("thread"),
-        "process": parallel("process")},
-        ["single", "thread", "process", "process", "thread", "single"])
+    # one timed run each: the windows' thread and process writes and the
+    # single writer's, which its decode gate needs; their repeats in turns
+    # and the raw writes' profiles gated nothing and were cut to keep the
+    # script within its wall-time bar (PERF.md §4)
+    _, single_s = synced(torch, single_writer)
+    out["write_raw_s"] = {"single": [single_s], "thread": [thread_s],
+                          "process": [process_s]}
     got = read_all(os.path.join(tmp.name, "one.tacz"))
     for li, (g, want) in enumerate(zip(got, levels)):
         check(torch.equal(g, want), f"one.tacz: level {li} != phase 2's")
     del got
-    out["write_raw_profile"] = {
-        name: device_profile(torch, fn) for name, fn in (
-            ("single", single_writer), ("thread", parallel("thread")))}
     best = {k: min(v) for k, v in out["write_raw_s"].items()}
     out["speedup_over_single"] = {k: best["single"] / best[k]
                                   for k in ("thread", "process")}
@@ -1536,10 +1555,10 @@ def tuning_serving(torch, np, ops, tio, ds, smi: str) -> dict:
                                   "local_warm_s", "http_warm_s"])
                 srv.update(cold_http_s=cold_http, cold_local_s=cold_local,
                            **turns)
-                srv["http_warm_profile"] = device_profile(torch,
-                                                          http_batch)
-                srv["local_warm_profile"] = device_profile(torch,
-                                                           local_batch)
+                srv["http_warm_profile"] = device_profile(
+                    torch, http_batch, warm_up=False)
+                srv["local_warm_profile"] = device_profile(
+                    torch, local_batch, warm_up=False)
             srv["response_bytes"] = sum(c.data.nbytes for per in crops
                                         for c in per)
         finally:
@@ -2066,7 +2085,8 @@ def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
             _, st = eng.decode(params, st, tok, LM_PROMPT + i)
     return {"card": smi,
             "prefill": device_profile(
-                torch, lambda: eng.prefill(params, prompts, LM_PROMPT)),
+                torch, lambda: eng.prefill(params, prompts, LM_PROMPT),
+                warm_up=False),
             "decode_3_steps": device_profile(torch, decode_3_steps)}
 
 
@@ -2747,7 +2767,8 @@ def recurrent_serving(torch, smi: str) -> dict:
         with NamedBlocks(torch):
             st["prefill_profile"] = device_profile(
                 torch, lambda: eng.prefill(params, prompts, LM_PROMPT + 1),
-                aten_ops=RECURRENT_ATEN_OPS, ranges=NamedBlocks.NAMES)
+                warm_up=False, aten_ops=RECURRENT_ATEN_OPS,
+                ranges=NamedBlocks.NAMES)
             logits, state = eng.prefill(params, prompts, LM_PROMPT + 1)
             tok = torch.argmax(logits, dim=-1)
             st["decode_step_profile"] = device_profile(
@@ -4571,9 +4592,9 @@ def composed_exchange(torch, dist, quant, dequant, x, mesh, dtype):
 
 
 def pod_data_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
-    """One rank of phase 13 (f) (spawned): joins its own gloo group at
-    ``root``, runs :func:`pod_data_run`, and writes its readings to
-    ``root/f_rank<r>.json``."""
+    """One rank of phase 13 (f) and (h) (spawned): joins its own gloo group
+    at ``root``, runs :func:`pod_data_run` and :func:`tp_run`, and writes
+    its readings to ``root/f_rank<r>.json``."""
     import datetime
 
     import torch
@@ -4586,6 +4607,9 @@ def pod_data_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
     try:
         out = pod_data_run(torch, dist, rank, root, cfg,
                            torch.device(dev_type))
+        if dev_type == "cuda":
+            torch.cuda.empty_cache()
+        out["tp"] = tp_run(torch, dist, root, cfg, torch.device(dev_type))
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
         check(not bad, f"rank {rank} imported {sorted(bad)[:5]}")
         with open(os.path.join(root, f"f_rank{rank}.json"), "w") as f:
@@ -4704,6 +4728,249 @@ def pod_data_run(torch, dist, rank: int, root: str, cfg, dev) -> dict:
     out["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
                                 if dev.type == "cuda" else None)
     return out
+
+
+def full_leaf(torch, dist, t, mesh):
+    """A copy of leaf ``t`` whole: its local tensor all-gathered over each
+    mesh axis it is split on (``all_gather_into_tensor`` over that axis's
+    group), the minor axis first; a plain tensor cloned."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    x = t.to_local().clone() if isinstance(t, DTensor) else t.clone()
+    if not isinstance(t, DTensor):
+        return x
+    for i in reversed(range(mesh.ndim)):
+        q = t.placements[i]
+        if not isinstance(q, Shard) or mesh.shape[i] == 1:
+            continue
+        y = x.movedim(q.dim, 0).contiguous()
+        out = y.new_empty((mesh.shape[i] * y.shape[0],) + tuple(y.shape[1:]))
+        group = mesh.get_group(mesh.mesh_dim_names[i])
+        dist.all_gather_into_tensor(out, y, group=group)
+        x = out.movedim(0, q.dim).contiguous()
+    return x
+
+
+class CollectiveClock:
+    """While active, the calls of ``torch.distributed``'s ``all_reduce``,
+    ``all_gather``, ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` over each group of ``groups`` (``{name:
+    group}``): their count, their seconds (the device synchronized around
+    each) and the bytes this rank sends in them at a ring's volume
+    (all-reduce ``2(n − 1)/n`` of the tensor, all-gather ``n − 1`` times
+    the input, reduce-scatter ``(n − 1)/n`` of the input)."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+
+    def __init__(self, torch, dev, groups: dict):
+        import torch.distributed as dist
+
+        self.torch, self.dev, self.dist, self.groups = torch, dev, dist, groups
+        self.by = {k: {"calls": 0, "s": 0.0, "sent_bytes": 0} for k in groups}
+
+    def _axis(self, group):
+        for name, g in self.groups.items():
+            if group is g:
+                return name
+        return None
+
+    def _sent(self, name: str, a: tuple, n: int) -> float:
+        x = a[0] if name == "all_reduce" else a[1]
+        b = x.numel() * x.element_size()
+        return {"all_reduce": 2 * (n - 1) / n * b, "all_gather": (n - 1) * b,
+                "all_gather_into_tensor": (n - 1) * b,
+                "reduce_scatter_tensor": (n - 1) / n * b}[name]
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.dist, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            def call(*a, _n=n, _fn=fn, **kw):
+                axis = self._axis(kw.get("group"))
+                if axis is None:
+                    return _fn(*a, **kw)
+                device_sync(self.torch, self.dev)
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                device_sync(self.torch, self.dev)
+                rec = self.by[axis]
+                rec["s"] += time.perf_counter() - t0
+                rec["calls"] += 1
+                rec["sent_bytes"] += int(self._sent(
+                    _n, a, self.dist.get_world_size(kw["group"])))
+                return out
+            setattr(self.dist, n, call)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.dist, n, fn)
+
+
+def tp_run(torch, dist, root: str, cfg, dev) -> dict:
+    """Run (h) of phase 13 on this rank of ``(data=2, model=2)``, a second
+    mesh over (f)'s four ranks: ``init_train_state(mesh=)`` and
+    ``MESH_STEPS`` steps of ``make_train_step(mesh=)`` with fsdp and a
+    ``model`` axis of 2, the launch counts reset just before each step and
+    read just after, the collectives over each axis timed and their bytes
+    counted; step 1's gradients, gathered whole over both axes, held to
+    (a′)'s, and each rank's shards to the one-process update of them on
+    the init gathered whole.  Returns its readings."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import leaves, local, sharded, tree_map
+
+    t_start = time.perf_counter()
+    run, opt = mesh_run_opt()
+    run = replace(run, fsdp=True)
+    mesh = init_device_mesh(dev.type, MESH_H_SHAPE,
+                            mesh_dim_names=("data", "model"))
+    coord = mesh.get_coordinate()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params, state = train.init_train_state(
+        cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED), opt,
+        mesh=mesh, device=dev)
+    step, _ = train.make_train_step(cfg, run, opt, mesh=mesh)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    groups = {"data": mesh.get_group("data"),
+              "model": mesh.get_group("model"), "world": dist.group.WORLD}
+    out = {"coordinate": coord, "bytes": {
+        "local": sum(local(p).numel() * p.element_size()
+                     for _, p in leaves(params)),
+        "full": sum(p.numel() * p.element_size() for _, p in leaves(params))},
+        "sharded_leaves": sum(sharded(p) for _, p in leaves(params)),
+        "leaves": len(leaves(params))}
+    old = tree_map(lambda p: full_leaf(torch, dist, p, mesh), params)
+    plain = torch.load(os.path.join(root, "plain_grads.pt"), map_location=dev)
+    steps = []
+    for i in range(MESH_STEPS):
+        dist.barrier()
+        device_sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with CollectiveClock(torch, dev, groups) as coll, TrainClock(
+                torch, dev, "_gather_params", "_reduce_grads",
+                keep=("_reduce_grads",)) as clock:
+            t0 = time.perf_counter()
+            m = step(params, state, batch)[2]
+            device_sync(torch, dev)
+            sec = time.perf_counter() - t0
+        launches = {k: ops.launches[k] for k in KERNELS}
+        identical = True
+        for _, p in leaves(params):
+            if not sharded(p):
+                got = local(p).clone()
+                dist.broadcast(got, src=0)
+                identical = identical and torch.equal(got, local(p))
+        g_s, r_s = clock.s["_gather_params"], clock.s["_reduce_grads"]
+        steps.append({
+            "s": sec, "gather_s": g_s, "gather_share": g_s / sec,
+            "reduce_s": r_s, "reduce_share": r_s / sec,
+            "model_s": coll.by["model"]["s"],
+            "model_share": coll.by["model"]["s"] / sec,
+            "collectives": coll.by, "launches": launches,
+            "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "replicated_identical": identical,
+            "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                  if dev.type == "cuda" else None)})
+        if i:
+            continue
+        # step 1: the gradients gathered whole against (a′)'s, and each
+        # shard against the one-process update of them
+        grads = tree_map(lambda g: full_leaf(torch, dist, g, mesh),
+                         clock.last.pop("_reduce_grads"))
+        out["grads_rel"] = {
+            name: float((leaf_at(grads, name) - g).abs().max()
+                        / g.abs().max()) for name, g in plain.items()}
+        want = tree_map(torch.clone, old)
+        adamw.adamw_update_(want, grads, adamw.adamw_init(want, opt), opt)
+        del grads
+        w_of, o_of = dict(leaves(want)), dict(leaves(old))
+        worst, exact = 0.0, True
+        for path, p in leaves(params):
+            w = sharding.local_slice(w_of[path], mesh, p.placements, coord)
+            o = sharding.local_slice(o_of[path], mesh, p.placements, coord)
+            worst = max(worst, update_rel(torch, w, local(p), o))
+            exact = exact and torch.equal(w, local(p))
+        out["update_rel"], out["update_bit_exact"] = worst, exact
+        del want, w_of, o_of, old, plain
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["steps"] = steps
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def tp_checks(out: dict, smi: str) -> None:
+    """Phase 13 (h)'s printed readings and gates, against (a′)."""
+    import numpy as np
+
+    hs = [r["tp"] for r in out["f_ranks"]]
+    want = out["plain_steps"][0]["loss"]
+    out["h_step1_loss_rel"] = abs(hs[0]["steps"][0]["loss"] - want) / abs(
+        want)
+    h0 = hs[0]
+    print(f"mesh (h), tensor parallelism on (data=2, model=2) with fsdp, "
+          f"four gloo ranks on one card, nothing crosses a link [{smi}]: "
+          + json.dumps({
+              "wall_s": max(h["wall_s"] for h in hs),
+              "step_s": {i: [st["s"] for st in h["steps"]]
+                         for i, h in enumerate(hs)},
+              "gather_share": [st["gather_share"] for st in h0["steps"]],
+              "reduce_share": [st["reduce_share"] for st in h0["steps"]],
+              "model_collectives_share": [st["model_share"]
+                                          for st in h0["steps"]],
+              "sent_bytes_a_step_a_rank": {
+                  axis: c["sent_bytes"] for axis, c in
+                  h0["steps"][-1]["collectives"].items()},
+              "collectives_a_step": {
+                  axis: c["calls"] for axis, c in
+                  h0["steps"][-1]["collectives"].items()},
+              "peak_device_bytes": {i: [st["peak_device_bytes"]
+                                        for st in h["steps"]]
+                                    for i, h in enumerate(hs)},
+              "local_over_full": h0["bytes"]["local"] / h0["bytes"]["full"],
+              "bytes": h0["bytes"],
+              "plain_step_s": [st["s"] for st in out["plain_steps"]],
+              "d_step_s": [st["s"] for st in out["ranks"][0]["dp"]["steps"]],
+              "losses": [st["loss"] for st in h0["steps"]],
+              "step1_loss_rel": out["h_step1_loss_rel"],
+              "grads_rel": h0["grads_rel"],
+              "update_rel": max(h["update_rel"] for h in hs),
+              "update_bit_exact": all(h["update_bit_exact"] for h in hs)}))
+    check(sorted(tuple(h["coordinate"]) for h in hs)
+          == [(d, m) for d in range(2) for m in range(2)],
+          f"mesh: (h) coordinates {[h['coordinate'] for h in hs]}")
+    for i in range(MESH_STEPS):
+        check(len({(h["steps"][i]["loss"], h["steps"][i]["grad_norm"])
+                   for h in hs}) == 1, f"mesh: (h) step {i + 1}'s loss and "
+              f"grad_norm differ between the ranks")
+    rel = out["h_step1_loss_rel"]
+    check(rel <= DP_LOSS_REL_MAX, f"mesh: (h) step 1's loss {rel} from (a′)")
+    for h in hs:
+        check(all(st["replicated_identical"] for st in h["steps"]),
+              "mesh: (h) replicated leaves differ between the ranks")
+        check(set(h["grads_rel"]) == set(TRAIN_EXCHANGE_LEAVES)
+              and max(h["grads_rel"].values()) <= DP_GRAD_REL_MAX,
+              f"mesh: (h) gradients {h['grads_rel']} from (a′)'s")
+        check(h["update_rel"] <= DP_UPDATE_REL_MAX,
+              f"mesh: (h) shards {h['update_rel']} from the update")
+        check(h["sharded_leaves"] > 0 and 0.25 <= h["bytes"]["local"]
+              / h["bytes"]["full"] < 1.05 * 0.25, f"mesh: (h) {h['bytes']}")
+        check(all(np.isfinite(st["loss"]) for st in h["steps"]),
+              "mesh: (h) losses")
+        check(all(st["collectives"]["model"]["calls"] > 0
+                  for st in h["steps"]),
+              "mesh: (h) made no collective over the model axis")
+    for key, got in out["h_launches"].items():
+        check(not any(got.values()), f"mesh: (h) {key} launched {got}")
 
 
 def mesh_training(torch, smi: str, dev="cuda") -> dict:
@@ -4847,7 +5114,8 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
                                 r["loop"][tag]["launches"]
                                 for r in ranks for tag in ("e1", "e2", "e3")}
 
-        # ---- (f): four ranks on (pod=2, data=2, model=1)
+        # ---- (f), then (h): four ranks on (pod=2, data=2, model=1), then
+        # on (data=2, model=2)
         t0 = time.perf_counter()
         f_ranks = spawn_ranks(torch, pod_data_rank, math.prod(MESH_F_SHAPE),
                               root, "f_rank", (cfg, dev.type))
@@ -4856,6 +5124,10 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         out["f_launches"] = {f"f_rank{r['rank']}_step{i}": st["launches"]
                              for r in f_ranks
                              for i, st in enumerate(r["steps"])}
+        # (h): no kernel is on the tensor-parallel plain step's path
+        out["h_launches"] = {f"h_rank{r['rank']}_step{i}": st["launches"]
+                             for r in f_ranks
+                             for i, st in enumerate(r["tp"]["steps"])}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4953,6 +5225,7 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
     for key, got in out["loop_launches"].items():
         check(not any(got.values()), f"mesh: {key} launched {got}")
     pod_data_checks(out, n_leaves, smi)
+    tp_checks(out, smi)
     return out
 
 
@@ -5046,7 +5319,7 @@ def pod_data_checks(out: dict, n_leaves: int, smi: str) -> None:
                                   - a_loss) / abs(a_loss)
     print(f"mesh (f), (pod=2, data=2, model=1), four gloo ranks on one card, "
           f"nothing crosses a link [{smi}]: " + json.dumps({
-              "wall_s": out["f_s"],
+              "wall_s_with_h": out["f_s"],
               "step_s": {r["rank"]: [st["s"] for st in r["steps"]]
                          for r in f_ranks},
               "reduce_share": {r["rank"]: [st["reduce_share"]
@@ -5944,11 +6217,13 @@ def main() -> int:
                     "k8_library"] if key == "k8" else None),
                 "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
         # phase 13's plain step: (d)'s ranks and (a′); (g)'s Adafactor
-        # steps; (e)'s loop runs; (f)'s compressed steps on (pod=2, data=2)
+        # steps; (e)'s loop runs; (f)'s compressed steps on (pod=2, data=2);
+        # (h)'s tensor-parallel steps on (data=2, model=2)
         r.setdefault("mesh_launches", {}).update({
             run: counts[r["name"]]
             for runs in (mesh["dp_launches"], mesh["af_launches"],
-                         mesh["loop_launches"], mesh["f_launches"])
+                         mesh["loop_launches"], mesh["f_launches"],
+                         mesh["h_launches"])
             for run, counts in runs.items()})
         # phase 14: each entry-point run
         r["entry_launches"] = [run["launches"][r["name"]]

@@ -12,7 +12,13 @@ Two step builders, as in the reference:
   or ``pod`` × ``data``): each rank takes its rows of every global
   microbatch, and with ``RunConfig.fsdp`` the parameters and optimizer
   state are sharded ZeRO-3 style on the ``embed`` axis (gathered whole
-  for the forward, the gradients reduce-scattered into the shards);
+  for the forward, the gradients reduce-scattered into the shards); and
+  tensor-parallel over a ``model`` axis wider than 1 for the dense
+  attention and MLP families with AdamW: each ``model`` rank holds and
+  computes its slice of the heads, the ffn and the vocabulary, with
+  explicit collectives over the ``model`` group
+  (:func:`~repro_torch.models.layers.model_parallel`) and a
+  vocab-parallel cross-entropy;
 * :func:`make_train_step_compressed` — data-parallel replicas: params,
   optimizer state and error feedback carry a leading replica axis; each
   replica computes gradients on its own slice of the batch, the
@@ -58,7 +64,7 @@ from ..device import resolve_device
 from ..kernels.ref import true_divide
 from ..models import model as M
 from ..models.layers import (DTYPES, ShapeDtypeStruct, init_from_specs,
-                             mesh_context)
+                             mesh_context, model_group, model_parallel)
 from ..optim.adafactor import (AdafactorConfig, adafactor_init,
                                adafactor_update, adafactor_update_)
 from ..optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -91,6 +97,58 @@ def make_optimizer(run: RunConfig, opt_cfg=None):
     return cfg, adamw_init, adamw_update
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """``logsumexp(logits) − logits[idx]`` a position, on a ``model``
+    rank's slice of the vocabulary: the local max all-reduced (MAX), the
+    local sum of exponentials all-reduced (SUM), the gold logit taken on
+    the rank that holds it and all-reduced (SUM); float32 inside, the
+    result in the logits' dtype.  The gradient is the local softmax less
+    the local one-hot, times the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, idx, group):
+        n = logits.shape[-1]
+        x = logits.float()
+        m = x.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        s = torch.exp(x - m[..., None]).sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        logz = torch.log(s) + m
+        mine = idx - dist.get_rank(group) * n
+        inside = (mine >= 0) & (mine < n)
+        mine = mine.clamp(0, n - 1)
+        gold = torch.gather(x, -1, mine[..., None])[..., 0]
+        gold = torch.where(inside, gold, torch.zeros_like(gold))
+        dist.all_reduce(gold, group=group)
+        ctx.save_for_backward(logits, logz, mine, inside)
+        return (logz - gold).to(logits.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, mine, inside = ctx.saved_tensors
+        g = g.float()
+        grad = torch.exp(logits.float() - logz[..., None]) * g[..., None]
+        grad.scatter_add_(-1, mine[..., None],
+                          -torch.where(inside, g, torch.zeros_like(g))[
+                              ..., None])
+        return grad.to(logits.dtype), None, None
+
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp − gold logit`` at each position; a negative label
+    indexes from the end, as the reference's gather does (its term is
+    masked out by the caller).  Under tensor parallelism ``logits`` is a
+    ``model`` rank's slice of the vocabulary (:class:`_VocabParallelCE`)."""
+    group = model_group()
+    n = logits.shape[-1] * (1 if group is None
+                            else dist.get_world_size(group))
+    idx = torch.where(labels < 0, labels + n, labels)
+    if group is not None:
+        return _VocabParallelCE.apply(logits, idx, group)
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, idx[..., None])[..., 0]
+
+
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig, *,
             q_chunk: int = 512, kv_chunk: int = 1024,
             label_count: torch.Tensor | None = None,
@@ -104,7 +162,10 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig, *,
     is divided by ``label_count``, the global batch's count of labels
     ``>= 0`` (default: this batch's), and ``global_tokens`` (its token
     count) sizes the MoE token groups, so that the ranks' losses add up
-    to the global batch's."""
+    to the global batch's.  Inside a
+    :func:`~repro_torch.models.layers.model_parallel` block the parameters
+    are a ``model`` rank's slices, and the cross-entropy is computed on
+    the rank's slice of the vocabulary (``_VocabParallelCE``)."""
     key = M.input_key(cfg)
     logits, aux = M.forward(params, cfg, mode="train",
                             remat=run.remat != "none", q_chunk=q_chunk,
@@ -113,14 +174,10 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig, *,
     if run.logits_fp32:
         logits = logits.float()
     labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    # a negative label indexes from the end, as the reference's gather
-    # does; its term is masked out
-    idx = torch.where(labels < 0, labels + logits.shape[-1], labels)
-    gold = torch.gather(logits, -1, idx[..., None])[..., 0]
     mask = (labels >= 0).float()
     count = mask.sum() if label_count is None else label_count.to(mask)
-    ce = torch.sum((logz - gold) * mask) / torch.clamp(count, min=1.0)
+    ce = torch.sum(_token_ce(logits, labels) * mask) / torch.clamp(
+        count, min=1.0)
     loss = ce + _MOE_AUX_W * aux["moe_aux"]
     return loss, {"ce": ce, "moe_aux": aux["moe_aux"]}
 
@@ -215,28 +272,54 @@ def _gathered(run: dict, mesh, axis: str = "pod") -> list[dict]:
 
 
 def _mesh_axes(mesh) -> dict[str, int]:
-    """The axis sizes of a data-parallel mesh: ``("data", "model")`` or
-    ``("pod", "data", "model")`` with a ``model`` axis of 1, which (a
-    ``DeviceMesh``) holds every rank of the process group in rank order.
+    """The axis sizes of a train mesh: ``("data", "model")`` or ``("pod",
+    "data", "model")``, which (a ``DeviceMesh``) holds every rank of the
+    process group in rank order.
 
-    :raises ValueError: for other axes; for a ``model`` axis wider than 1
-        (tensor parallelism, ROADMAP item 2.6b-4); for a ``DeviceMesh``
-        that does not hold every rank in rank order.
+    :raises ValueError: for other axes; for a ``DeviceMesh`` that does not
+        hold every rank in rank order.
     """
     sizes = axis_sizes(mesh)
     if tuple(sizes) not in (("data", "model"), ("pod", "data", "model")):
         raise ValueError(f"the step needs a ('data', 'model') or ('pod', "
                          f"'data', 'model') mesh, not {tuple(sizes)}")
-    if sizes["model"] > 1:
-        raise ValueError(f"a model axis of {sizes['model']} (tensor "
-                         f"parallelism) is ROADMAP item 2.6b-4; the step "
-                         f"is data-parallel only")
     if isinstance(mesh, DeviceMesh):
         ranks = mesh.mesh.flatten().tolist()
         if ranks != list(range(dist.get_world_size())):
             raise ValueError(f"the mesh holds ranks {ranks}, not every rank "
                              f"of the process group in rank order")
     return sizes
+
+
+def _check_model_axis(cfg: ModelConfig, run: RunConfig, opt_cfg,
+                      mesh) -> None:
+    """Check that :func:`make_train_step` runs ``cfg``, ``run`` and
+    ``opt_cfg`` on ``mesh``: a ``model`` axis of 1 runs everything the
+    data-parallel step does; a wider one, the dense attention and MLP
+    families (token or embedding input) with AdamW, whose query heads,
+    ffn and vocabulary the axis divides.
+
+    :raises ValueError: as :func:`_mesh_axes` says; above 1, for the MoE,
+        RWKV6 and hybrid families, ``run.seq_shard``, Adafactor, or a
+        split inside a query head, the ffn or the vocabulary (ROADMAP item
+        2.6b-4b).
+    """
+    n = _mesh_axes(mesh)["model"]
+    if n == 1:
+        return
+    why = None
+    if cfg.n_experts or cfg.family in ("ssm", "hybrid"):
+        why = f"the {cfg.family} family"
+    elif run.seq_shard:
+        why = "sequence sharding (seq_shard=True)"
+    elif isinstance(opt_cfg, AdafactorConfig):
+        why = "Adafactor"
+    elif cfg.n_heads % n or cfg.d_ff % n or cfg.vocab_size % n:
+        why = (f"{cfg.n_heads} query heads, an ffn of {cfg.d_ff} and a "
+               f"vocabulary of {cfg.vocab_size} split {n} ways")
+    if why:
+        raise ValueError(f"{cfg.name}: {why} on a model axis of {n} is "
+                         f"ROADMAP item 2.6b-4b")
 
 
 def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
@@ -246,7 +329,8 @@ def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
     size, or 1 without a ``pod`` axis.
 
     :raises ValueError: with ``run.fsdp`` (as the reference: the
-        replicas hold whole state); as :func:`_mesh_axes` says; for an
+        replicas hold whole state); as :func:`_mesh_axes` says; for a
+        ``model`` axis wider than 1 (ROADMAP item 2.6b-4d); for an
         ``n_pods`` the mesh contradicts, or below 1 in one process.
     """
     if run.fsdp:
@@ -255,42 +339,89 @@ def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
         if n_pods is None or n_pods < 1:
             raise ValueError(f"n_pods must be at least 1, got {n_pods}")
         return n_pods
-    pods = _mesh_axes(mesh).get("pod", 1)
+    sizes = _mesh_axes(mesh)
+    if sizes["model"] > 1:
+        raise ValueError(f"the compressed step on a model axis of "
+                         f"{sizes['model']} is ROADMAP item 2.6b-4d")
+    pods = sizes.get("pod", 1)
     if n_pods is not None and n_pods != pods:
         raise ValueError(f"n_pods={n_pods}, but the mesh has {pods} pods")
     return pods
 
 
-def _mesh_group(mesh):
-    """The process group of a data-parallel mesh's batch axes: the whole
-    process group (:func:`_mesh_axes`).
+def _batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh's batch axes: ``("pod", "data")``, or ``("data",)``."""
+    return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)
+
+
+def _mesh_groups(mesh):
+    """``(batch group, model group)`` of this rank on a train mesh: the
+    process group of the ranks at its ``model`` coordinate (the whole
+    process group when the ``model`` axis is 1), and the mesh's ``model``
+    group (``None`` when it is 1).  Each group lists its ranks in the
+    mesh's order.
 
     :raises ValueError: as :func:`_mesh_axes` says.
     """
-    _mesh_axes(mesh)
-    return dist.group.WORLD
+    sizes = _mesh_axes(mesh)
+    if sizes["model"] == 1:
+        return dist.group.WORLD, None
+    wide = [a for a in _batch_axes(mesh) if sizes[a] > 1]
+    if len(wide) < 2:
+        batch = mesh.get_group(wide[0] if wide else "data")
+    else:
+        # pod × data: one new group a model coordinate, made by every rank
+        for m in range(sizes["model"]):
+            ranks = mesh.mesh[..., m].flatten().tolist()
+            g = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                batch = g
+    return batch, mesh.get_group("model")
 
 
-def _gather_params(params: dict, group) -> dict:
-    """Each leaf whole, as a plain tensor (:func:`~..optim.tree.whole`):
-    a sharded leaf all-gathered over ``group``, a replicated one its local
-    tensor, not gathered."""
-    return tree_map(lambda p: whole(p, group), params)
+def _partial_over_model(specs: dict, psh: dict, mesh) -> frozenset:
+    """The paths of the leaves whose gradients are partial on each
+    ``model`` rank: placed whole on the ``model`` axis (the rules'
+    divisibility fallback) but consumed on its split.  A ``kv_heads``
+    leaf is consumed by the query heads, which the axis splits; a leaf of
+    no split axis (a norm's gain) sees the same inputs on every ``model``
+    rank, and its gradient is already whole there."""
+    from torch.distributed.tensor import Shard
+
+    dim = list(axis_sizes(mesh)).index("model")
+    pl = dict(leaves(psh))
+    return frozenset(path for path, spec in leaves(specs)
+                     if "kv_heads" in spec.axes
+                     and not isinstance(pl[path][dim], Shard))
 
 
-def _reduce_grads(grads: dict, params: dict, group, mb: int) -> dict:
-    """The ranks' gradient sums added over ``group`` (one collective a
-    leaf), each into its parameter's placement: reduce-scattered into a
-    sharded leaf's shard, all-reduced for a replicated one; then the mean
+def _gather_params(params: dict, group, axes=None) -> dict:
+    """Each leaf whole over the mesh axes ``axes`` (default all), as a
+    plain tensor (:func:`~..optim.tree.whole`): a leaf split over them
+    all-gathered over ``group``, a replicated one its local tensor, not
+    gathered; a split over other axes (``model``) is kept."""
+    return tree_map(lambda p: whole(p, group, axes), params)
+
+
+def _reduce_grads(grads: dict, params: dict, group, mb: int, axes=None,
+                  model=None, partial=frozenset()) -> dict:
+    """The ranks' gradient sums added over ``group`` (the ranks of the
+    mesh axes ``axes``, default all; one collective a leaf), each into its
+    parameter's placement: reduce-scattered into a leaf's shard where it
+    is split over those axes, all-reduced where it is not; then the mean
     over the ``mb`` microbatches (in the accumulation dtype), or with one
     microbatch the parameter's dtype, as ``_microbatched_grads`` returns
-    them.  DTensors for DTensor parameters."""
+    them.  A leaf in ``partial`` (:func:`_partial_over_model`) is first
+    all-reduced over the ``model`` group.  DTensors for DTensor
+    parameters."""
     n = dist.get_world_size(group)
     p_of = dict(leaves(params))
 
     def one(path, g):
         p = p_of[path]
-        d = shard_dim(p)
+        if path in partial:
+            dist.all_reduce(g, group=model)
+        d = shard_dim(p, axes)
         if d is None:
             dist.all_reduce(g, group=group)
         else:
@@ -350,22 +481,31 @@ def _mesh_grads(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig,
 
 
 def _mesh_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg, mesh, **kw):
-    """:func:`make_train_step`'s step on a data-parallel mesh."""
-    group = _mesh_group(mesh)
+    """:func:`make_train_step`'s step on a mesh: data-parallel over its
+    batch axes, tensor-parallel over its ``model`` axis."""
+    _check_model_axis(cfg, run, opt_cfg, mesh)
+    group, model = _mesh_groups(mesh)
+    axes = None if model is None else _batch_axes(mesh)
     rules = rules_for(mesh, run)
+    partial = frozenset()
+    if model is not None:
+        specs = M.model_specs(cfg)
+        partial = _partial_over_model(specs, param_shardings(
+            specs, mesh, rules), mesh)
     update_ = _UPDATE_[type(opt_cfg)]
     mb = max(run.microbatches, 1)
 
     def step(params, opt_state, batch):
-        with mesh_context(mesh, rules):
-            full = _gather_params(params, group)
+        with mesh_context(mesh, rules), model_parallel(model):
+            full = _gather_params(params, group, axes)
             losses, metrics, grads = _mesh_grads(full, batch, cfg, run, mesh,
                                                  rules, group, **kw)
         del full
-        grads = _reduce_grads(grads, params, group, mb)
-        stats = update_(params, grads, opt_state, opt_cfg, group=group)
-        # the global values, added over the ranks in rank order: the same
-        # bits on every rank
+        grads = _reduce_grads(grads, params, group, mb, axes, model, partial)
+        stats = update_(params, grads, opt_state, opt_cfg,
+                        group=dist.group.WORLD)
+        # the global values, added over the batch ranks in rank order: the
+        # same bits on every rank
         mine = torch.cat([losses.float().cpu(), torch.stack(
             [metrics["ce"], metrics["moe_aux"]]).float().cpu()])
         parts = [torch.empty_like(mine)
@@ -392,22 +532,29 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     ``loss``, ``ce``, ``moe_aux``, ``grad_norm``, ``lr``.
 
     On ``mesh`` (a ``("data", "model")`` or ``("pod", "data", "model")``
-    ``DeviceMesh`` with a ``model`` axis of 1) the step is data-parallel
-    over the batch axes.  It takes :func:`init_train_state`'s ``mesh=``
-    trees (DTensors) and, on every rank, the global batch; it gathers
-    each sharded parameter whole, runs the forward and backward on this
-    rank's rows of each global microbatch inside ``mesh_context`` (the
-    loss over the global count of labels), sums the gradients over the
-    ranks in one collective a leaf (a reduce-scatter into a sharded
-    leaf's shard, an all-reduce of a replicated one), and updates each
-    rank's local shards: AdamW clipped by the whole gradient's norm,
-    Adafactor with its factored means and RMS clip over each whole leaf
-    (sums over a split dim added across the ranks).  The metrics are the
-    global batch's, the same on every rank.
+    ``DeviceMesh``) the step is data-parallel over the batch axes and,
+    with a ``model`` axis wider than 1, tensor-parallel over it.  It takes
+    :func:`init_train_state`'s ``mesh=`` trees (DTensors) and, on every
+    rank, the global batch; it gathers each parameter split over the
+    batch axes (fsdp) whole there, keeping its ``model`` slice, runs the
+    forward and backward on this rank's rows of each global microbatch
+    inside ``mesh_context`` and ``model_parallel`` (the loss over the
+    global count of labels; the ``model`` ranks of a row compute its
+    heads, ffn and vocabulary in slices, with all-reduces over ``model``
+    where a split ends), sums the gradients over the batch ranks in one
+    collective a leaf (a reduce-scatter into a sharded leaf's shard, an
+    all-reduce of a replicated one; a leaf whole on ``model`` whose
+    gradient is partial there, :func:`_partial_over_model`, is first
+    all-reduced over ``model``), and updates each rank's local shards:
+    AdamW clipped by the whole gradient's norm, Adafactor with its
+    factored means and RMS clip over each whole leaf (sums over a split
+    dim added across the ranks).  The metrics are the global batch's, the
+    same on every rank.
 
-    :raises ValueError: as :func:`_mesh_group` says; at the step, for a
-        batch the microbatches and ranks do not divide, and for an MoE
-        token group that would span ranks.
+    :raises ValueError: as :func:`_check_model_axis` says (a ``model``
+        axis wider than 1 runs the dense attention and MLP families with
+        AdamW); at the step, for a batch the microbatches and ranks do not
+        divide, and for an MoE token group that would span ranks.
     """
     opt_cfg, _, _ = make_optimizer(run, opt_cfg)
     update_ = _UPDATE_[type(opt_cfg)]
@@ -674,17 +821,22 @@ def train_loop(cfg: ModelConfig, run: RunConfig, data_iter, *, steps: int,
     together.  When the loop returns on any rank, its last file is
     complete.
 
-    :raises ValueError: as :func:`make_train_step` says, for a mesh the
-        step does not support (a ``model`` axis wider than 1), before any
-        checkpoint is read.
+    :raises ValueError: as :func:`make_train_step` says, and for a
+        ``model`` axis wider than 1 (the loop and its sharded save there
+        are ROADMAP item 2.6b-4c), before any checkpoint is read or any
+        state is made.
     """
     from ..checkpoint.manager import CheckpointManager
     from ..runtime.resilience import PreemptionGuard, StepWatchdog
 
+    n_model = 1 if mesh is None else _mesh_axes(mesh)["model"]
+    if n_model > 1:
+        raise ValueError(f"train_loop on a model axis of {n_model} is "
+                         f"ROADMAP item 2.6b-4c")
     device = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig(moments_dtype=run.optimizer_dtype)
     step_fn, opt_cfg = make_train_step(cfg, run, opt_cfg, mesh=mesh)
-    group = None if mesh is None else _mesh_group(mesh)
+    group = None if mesh is None else _mesh_groups(mesh)[0]
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     params, opt_state = init_train_state(cfg, run, generator, opt_cfg,

@@ -20,14 +20,24 @@ Products whose reference asks for float32 results
 (``preferred_element_type``) multiply float32 copies of their operands:
 bf16 values are exact in float32, and on the card these products must
 not run as TF32 (:func:`repro_torch.models.model.forward` checks).
+
+Under tensor parallelism (:func:`~.layers.model_parallel`) a ``model``
+rank holds its slice of the query heads (``wq``, ``bq``, ``wo``'s rows)
+and computes those heads alone: the head counts come from the local
+widths.  Its key/value heads are its own slice where the ``model`` axis
+divides ``kv_heads``; otherwise the rank takes the key/value heads its
+query heads read, from ``wk``/``wv`` whole (replicated by the rules'
+divisibility fallback: their gradients are partial on each rank, and the
+mesh step sums them over ``model``) or gathered (split inside a head:
+:func:`~.layers.gather_split`).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import ops
-from .layers import (ParamSpec, apply_rope, linear, rmsnorm, rope_freqs,
-                     shard)
+from .layers import (ParamSpec, apply_rope, gather_split, into_split, linear,
+                     model_rank, out_of_split, rmsnorm, rope_freqs, shard)
 
 __all__ = ["attn_specs", "init_kv_cache", "quantize_heads",
            "dequantize_heads", "flash_attention", "decode_attention",
@@ -202,6 +212,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def _kv_for_heads(params: dict, cfg, h: int, rank: int, size: int):
+    """The key/value leaves a ``model`` rank with ``h`` query heads uses,
+    and the kv heads to take from their product (``None``: all, in
+    order).  Query head ``j`` of the model reads kv head ``j // G``."""
+    hd, n_kv = cfg.head_dim, cfg.n_kv_heads
+    group = cfg.n_heads // n_kv
+    wanted = [(rank * h + j) // group for j in range(h)]
+    keys = [k for k in ("wk", "wv", "bk", "bv") if k in params]
+    if params["wk"].shape[-1] == n_kv * hd:     # replicated: whole here
+        leaves = {k: params[k] for k in keys}
+    elif n_kv % size == 0:                      # the rank's own kv heads
+        return {k: params[k] for k in keys}, None
+    else:                                       # split inside a head
+        leaves = {k: gather_split(params[k], -1) for k in keys}
+    uniq = sorted(set(wanted))
+    g = h // len(uniq)
+    if h % len(uniq) == 0 and wanted == [uniq[j // g] for j in range(h)]:
+        return leaves, uniq
+    return leaves, wanted
+
+
 def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
               positions: torch.Tensor, cache: dict | None = None,
               cache_len: int | None = None, q_chunk: int = 512,
@@ -216,11 +247,18 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
     entries.
     """
     B, Sq, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    xn = rmsnorm(x, params["ln"], cfg.norm_eps)
+    hd = cfg.head_dim
+    h = params["wq"].shape[-1] // hd
+    xn = into_split(rmsnorm(x, params["ln"], cfg.norm_eps))
+    kvp, take = params, None
+    tp = model_rank()
+    if tp is not None:
+        kvp, take = _kv_for_heads(params, cfg, h, *tp)
     q = linear(xn, params["wq"], params.get("bq")).reshape(B, Sq, h, hd)
-    k = linear(xn, params["wk"], params.get("bk")).reshape(B, Sq, hkv, hd)
-    v = linear(xn, params["wv"], params.get("bv")).reshape(B, Sq, hkv, hd)
+    k = linear(xn, kvp["wk"], kvp.get("bk")).reshape(B, Sq, -1, hd)
+    v = linear(xn, kvp["wv"], kvp.get("bv")).reshape(B, Sq, -1, hd)
+    if take is not None:
+        k, v = k[:, :, take], v[:, :, take]
     cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -252,5 +290,4 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
                               kv_chunk=kv_chunk)
         if mode == "prefill":
             kv = {"k": k, "v": v}
-    out = out.reshape(B, Sq, h * hd)
-    return linear(out, params["wo"]), kv
+    return out_of_split(linear(out.reshape(B, Sq, h * hd), params["wo"])), kv

@@ -13,9 +13,20 @@ thread-local (mesh, rules) pair that a launcher sets with
 :func:`mesh_context`; outside one, and on a plain (not DTensor) tensor,
 it is the identity.  The port's models call it at the reference's 16
 sites with the same logical axes; their activations are plain tensors
-(the data-parallel step gathers the parameters whole), so the
-constraints change no result until a ``model`` axis wider than 1 makes
-them DTensors.
+(the mesh step gathers the parameters over its batch axes), so the
+constraints change no result.
+
+Tensor parallelism goes through :func:`model_parallel`, a thread-local
+``model`` process group that the mesh step sets around its forward and
+backward.  Each ``model`` rank holds its slice of the heads, the ffn and
+the vocabulary; the residual stream is whole on every rank.  The models
+mark the two sides of each split: :func:`into_split` (the identity, and
+the gradient summed over ``model``), :func:`out_of_split` (the partial
+results summed over ``model``; the gradient as it is), and
+:func:`gather_split` for a leaf a rank needs whole.  The partial sums are
+added in float32 and rounded once to the activation's dtype.  Outside a
+:func:`model_parallel` block, and with a ``model`` group of one rank,
+every one of them is the identity, so serving runs as before.
 
 Rounding follows the reference: :func:`rmsnorm` computes in float32 and
 rounds once; :func:`linear` multiplies in the activation dtype;
@@ -35,6 +46,9 @@ from ..device import resolve_device
 __all__ = ["ParamSpec", "ShapeDtypeStruct", "DTYPES", "init_from_specs",
            "abstract_from_specs", "param_count", "mesh_context",
            "current_mesh_rules", "shard", "activation_shardings",
+           "model_parallel", "model_group", "model_rank", "into_split",
+           "out_of_split",
+           "gather_split",
            "require_exact_f32_products", "rmsnorm", "linear", "rope_freqs",
            "apply_rope"]
 
@@ -208,6 +222,132 @@ def activation_shardings(axes_tree):
         return one(axes_tree)
     return {k: activation_shardings(v) if isinstance(v, dict) else one(v)
             for k, v in axes_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's ``model`` group
+# ---------------------------------------------------------------------------
+
+_TP = threading.local()
+
+
+@contextlib.contextmanager
+def model_parallel(group):
+    """Within the block (on this thread), the split helpers below act over
+    ``group``, the mesh's ``model`` process group (``None``, or a group of
+    one rank: the identity); contexts nest."""
+    import torch.distributed as dist
+
+    prev = getattr(_TP, "group", None)
+    _TP.group = (group if group is not None
+                 and dist.get_world_size(group) > 1 else None)
+    try:
+        yield
+    finally:
+        _TP.group = prev
+
+
+def model_group():
+    """This thread's :func:`model_parallel` group, or ``None`` outside one
+    (or with one rank)."""
+    return getattr(_TP, "group", None)
+
+
+def model_rank() -> tuple[int, int] | None:
+    """``(rank, size)`` of this thread's :func:`model_parallel` group, or
+    ``None`` outside one (or with one rank)."""
+    import torch.distributed as dist
+
+    g = model_group()
+    if g is None:
+        return None
+    return dist.get_rank(g), dist.get_world_size(g)
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``: a float32 copy all-reduced, rounded
+    once to ``x``'s dtype (every rank gets the same bits)."""
+    import torch.distributed as dist
+
+    y = x.to(torch.float32, copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _IntoSplit(torch.autograd.Function):
+    """The identity; the gradient, partial on each rank, summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _OutOfSplit(torch.autograd.Function):
+    """The ranks' partial results summed; the gradient, whole on every
+    rank, as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """A leaf split on ``dim`` gathered whole in rank order; the gradient
+    of the whole, partial on each rank, summed and cut back to the rank's
+    slice (one reduce-scatter, in float32)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        y = x.movedim(dim, 0).contiguous()
+        out = y.new_empty((n * y.shape[0],) + tuple(y.shape[1:]))
+        dist.all_gather_into_tensor(out, y, group=group)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        n = dist.get_world_size(ctx.group)
+        y = g.to(torch.float32).movedim(ctx.dim, 0).contiguous()
+        out = y.new_empty((y.shape[0] // n,) + tuple(y.shape[1:]))
+        dist.reduce_scatter_tensor(out, y, group=ctx.group)
+        return out.movedim(0, ctx.dim).to(g.dtype).contiguous(), None, None
+
+
+def into_split(x: torch.Tensor) -> torch.Tensor:
+    """Mark a tensor, whole on every ``model`` rank, entering a split: the
+    identity forward, the gradient summed over ``model`` in the
+    backward."""
+    g = model_group()
+    return x if g is None else _IntoSplit.apply(x, g)
+
+
+def out_of_split(x: torch.Tensor) -> torch.Tensor:
+    """Leave a split: each ``model`` rank's partial result summed (float32,
+    rounded once); the identity backward."""
+    g = model_group()
+    return x if g is None else _OutOfSplit.apply(x, g)
+
+
+def gather_split(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A leaf split on ``dim`` over ``model``, gathered whole for a rank
+    that needs all of it; its gradient summed and cut back to the rank's
+    slice."""
+    g = model_group()
+    return x if g is None else _GatherSplit.apply(x, dim, g)
 
 
 def require_exact_f32_products(x: torch.Tensor) -> None:

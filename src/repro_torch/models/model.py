@@ -29,8 +29,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import attention, attn_specs, init_kv_cache
-from .layers import (DTYPES, ParamSpec, _leaves, require_exact_f32_products,
-                     rmsnorm, shard)
+from .layers import (DTYPES, ParamSpec, _leaves, into_split, model_group,
+                     model_parallel, model_rank, out_of_split,
+                     require_exact_f32_products, rmsnorm, shard)
 from .moe import mlp_apply, mlp_specs, moe_apply, moe_specs
 from .rwkv import init_rwkv_state, rwkv6_apply, rwkv6_specs
 from .ssm import init_mamba_state, mamba2_apply, mamba2_specs
@@ -156,10 +157,21 @@ def _put(stack: dict, index: tuple, new: dict) -> None:
 
 def _checkpointed(fn, on: bool):
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when
-    ``on``: backward recomputes it instead of keeping its internals."""
+    ``on``: backward recomputes it instead of keeping its internals.  The
+    recomputation runs inside the ``model_parallel`` group of the forward
+    call: on the card autograd recomputes on its own device thread, where
+    the forward's thread-local context is not set."""
     if not on:
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def run(*args):
+        group = model_group()
+
+        def within(*a):
+            with model_parallel(group):
+                return fn(*a)
+        return checkpoint(within, *args, use_reentrant=False)
+    return run
 
 
 def input_key(cfg) -> str:
@@ -168,13 +180,28 @@ def input_key(cfg) -> str:
     return "tokens" if cfg.input_mode == "tokens" else "embeds"
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; under tensor parallelism ``table`` is this
+    ``model`` rank's slice of the vocabulary, the rows of other slices
+    read as zeros, and the ranks' lookups are summed: exact, since only
+    zeros are added."""
+    tp = model_rank()
+    if tp is None:
+        return table[tokens]
+    n = table.shape[0]
+    idx = tokens - tp[0] * n
+    inside = ((idx >= 0) & (idx < n))[..., None]
+    rows = table[idx.clamp(0, n - 1)]
+    return out_of_split(torch.where(inside, rows, torch.zeros_like(rows)))
+
+
 def _inputs(params: dict, cfg, tokens, embeds) -> torch.Tensor:
     """The first block's input: the token embeddings, or the frontend
     embeddings cast to the model's dtype (the reference's cast)."""
     if input_key(cfg) == "tokens":
         if tokens is None or embeds is not None:
             raise ValueError(f"{cfg.name} takes token ids (tokens=)")
-        return params["embed"][tokens]
+        return _lookup(params["embed"], tokens)
     if embeds is None or tokens is not None:
         raise ValueError(f"{cfg.name} takes frontend embeddings (embeds=)")
     if embeds.dim() != 3 or embeds.shape[-1] != cfg.d_model:
@@ -209,8 +236,20 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
 
     The activations pass the reference's ``shard`` constraints, which are
     the identity outside a ``mesh_context`` and on plain tensors.
+
+    Under tensor parallelism (:func:`~.layers.model_parallel`) the
+    parameters are a ``model`` rank's slices: the embedding lookup is
+    vocab-split, the attention and MLP blocks compute the rank's heads and
+    ffn columns, and the logits are the rank's slice of the vocabulary.
+
+    :raises ValueError: under tensor parallelism, for the MoE, RWKV6 and
+        hybrid families (ROADMAP item 2.6b-4b).
     """
     check_ported(cfg)
+    if model_rank() is not None and (cfg.n_experts or cfg.family in (
+            "ssm", "hybrid")):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family on a model "
+                         f"axis wider than 1 is ROADMAP item 2.6b-4b")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = shard(_inputs(params, cfg, tokens, embeds), "batch", "seq", None)
@@ -301,7 +340,7 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     if mode == "prefill":
         # serving needs only the last position's logits
         x = x[:, -1:]
-    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    x = into_split(rmsnorm(x, params["final_ln"], cfg.norm_eps))
     logits = shard(torch.matmul(x, params["lm_head"].to(x.dtype)), "batch",
                    None, "vocab")
     aux = {"moe_aux": moe_aux / max(cfg.n_layers, 1),

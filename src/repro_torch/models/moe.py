@@ -24,8 +24,8 @@ import math
 
 import torch
 
-from .layers import (ParamSpec, linear, require_exact_f32_products, rmsnorm,
-                     shard)
+from .layers import (ParamSpec, into_split, linear, model_rank, out_of_split,
+                     require_exact_f32_products, rmsnorm, shard)
 
 __all__ = ["moe_specs", "moe_apply", "group_tokens", "mlp_specs", "mlp_apply",
            "silu", "gelu_tanh"]
@@ -64,15 +64,18 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Pre-norm MLP body (the caller adds the residual)."""
-    xn = rmsnorm(x, params["ln"], cfg.norm_eps)
+    """Pre-norm MLP body (the caller adds the residual).  Under tensor
+    parallelism a ``model`` rank holds its columns of ``w_up``/``w_gate``
+    and the same rows of ``w_down``; its partial product is summed over
+    ``model`` (:func:`~.layers.out_of_split`)."""
+    xn = into_split(rmsnorm(x, params["ln"], cfg.norm_eps))
     up = linear(xn, params["w_up"])
     if cfg.act == "swiglu":
         up = silu(linear(xn, params["w_gate"])) * up
     else:
         up = gelu_tanh(up)
     up = shard(up, "batch", None, "mlp")
-    return linear(up, params["w_down"])
+    return out_of_split(linear(up, params["w_down"]))
 
 
 def moe_specs(cfg) -> dict:
@@ -209,8 +212,12 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *, group_size: int = 4096,
     terms add up to the global mean.
 
     :raises ValueError: if a global group would span ranks (``B·S`` is
-        not a whole number of groups).
+        not a whole number of groups); under tensor parallelism (experts
+        on a ``model`` axis are ROADMAP item 2.6b-4b).
     """
+    if model_rank() is not None:
+        raise ValueError("MoE on a model axis wider than 1 is ROADMAP item "
+                         "2.6b-4b")
     require_exact_f32_products(x)
     B, S, d = x.shape
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)

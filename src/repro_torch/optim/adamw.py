@@ -11,9 +11,9 @@ numbers stay products; every division divides by a tensor (on the card
 PyTorch turns a division by a Python number into a product with its
 reciprocal).
 
-On a data-parallel mesh the trees' leaves are DTensors and the update
-runs on each rank's local shards; the clipping norm is the whole
-gradient's (:func:`global_norm` with the ranks' ``group``).
+On a mesh the trees' leaves are DTensors and the update runs on each
+rank's local shards; the clipping norm is the whole gradient's
+(:func:`global_norm` with the ranks' ``group``).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.layers import DTYPES
-from .tree import leaves, local, sharded, tree_map
+from .tree import leaves, local, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_update_",
            "lr_schedule", "global_norm"]
@@ -61,15 +61,35 @@ def lr_schedule(cfg, step) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
+def _holders(x, ranks: list) -> list[int]:
+    """The positions in ``ranks`` (a group's global ranks, in its order)
+    of one rank for each distinct piece of leaf ``x``: the ranks at
+    coordinate 0 of every mesh dim that ``x`` is not split on (a plain
+    tensor: the first rank alone)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return [0]
+    grid = x.device_mesh.mesh
+    out = []
+    for i, g in enumerate(ranks):
+        coord = (grid == g).nonzero()[0].tolist()
+        if all(isinstance(q, Shard) or c == 0
+               for q, c in zip(x.placements, coord)):
+            out.append(i)
+    return out
+
+
 def global_norm(tree, *, group=None) -> torch.Tensor:
     """√(Σ x²) over every leaf in float32, the leaves summed in the
     reference's order.
 
-    With a process ``group`` (a data-parallel mesh's ranks) the leaves
-    may be DTensors: the ranks exchange their leaves' local sums of
-    squares in one all-gather; a :func:`~.tree.sharded` leaf's sum is
-    its shards' sums added in rank order, a replicated leaf's is rank
-    0's, counted once.  Every rank gets the same bits."""
+    With a process ``group`` (every rank of a mesh) the leaves may be
+    DTensors: the ranks exchange their leaves' local sums of squares in
+    one all-gather, and a leaf's sum adds, in rank order, the sums of the
+    ranks that hold distinct pieces of it (a piece that several ranks
+    hold, over a mesh axis the leaf is replicated on, is counted once).
+    Every rank gets the same bits."""
     pairs = leaves(tree)
     if group is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
@@ -78,12 +98,18 @@ def global_norm(tree, *, group=None) -> torch.Tensor:
                       for _, x in pairs]).cpu()
     parts = [torch.empty_like(sq) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, sq, group=group)
+    ranks = dist.get_process_group_ranks(group)
+    seen: dict = {}
     total = 0
     for i, (_, x) in enumerate(pairs):
-        s = parts[0][i]
-        if sharded(x):
-            for p in parts[1:]:
-                s = s + p[i]
+        key = (getattr(x, "placements", None), id(getattr(x, "device_mesh",
+                                                          None)))
+        if key not in seen:
+            seen[key] = _holders(x, ranks)
+        first, *rest = seen[key]
+        s = parts[first][i]
+        for r in rest:
+            s = s + parts[r][i]
         total = total + s
     return torch.sqrt(total).to(local(pairs[0][1]).device)
 

@@ -608,16 +608,21 @@ def test_moe_apply_global_groups():
 
 
 def test_mesh_step_raises_where_unsupported():
-    """A model axis wider than 1 (ROADMAP item 2.6b-4) and unknown axes
-    raise before any collective."""
+    """On a ``model`` axis wider than 1, what the tensor-parallel step does
+    not run yet (ROADMAP item 2.6b-4b: the MoE family, Adafactor,
+    ``seq_shard``), and unknown axes, raise before any collective."""
     from repro_torch.launch.mesh import AbstractMesh
 
     cfg = _cfg()
     for mesh in (AbstractMesh((2, 2), ("data", "model")),
                  AbstractMesh((1, 2, 2), ("pod", "data", "model"))):
-        with pytest.raises(ValueError, match="2.6b-4"):
-            ttrain.make_train_step(cfg, _run("adamw", True, 1),
-                                   _opt("adamw"), mesh=mesh)
+        for c, run, opt in (
+                (_cfg(MOE_ARCH), _run("adamw", True, 1), _opt("adamw")),
+                (cfg, _run("adafactor", True, 1), _opt("adafactor")),
+                (cfg, replace(_run("adamw", False, 1), seq_shard=True),
+                 _opt("adamw"))):
+            with pytest.raises(ValueError, match="2.6b-4b"):
+                ttrain.make_train_step(c, run, opt, mesh=mesh)
     with pytest.raises(ValueError, match="mesh"):
         ttrain.make_train_step(cfg, _run("adamw", False, 1), _opt("adamw"),
                                mesh=AbstractMesh((2,), ("data",)))
