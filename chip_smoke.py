@@ -384,7 +384,25 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    gathered whole over both axes, each rank's shards against the
    one-process update of them; the loss and ``grad_norm`` equal on the
    four ranks, every replicated leaf the same bits; every kernel 0
-   launches.
+   launches.  Run (i), in the same four ranks after (h), on a third mesh
+   ``(data=2, model=2)``: granite-moe-1b-a400m at full width
+   (``MESH_EP_ARCH``, ``MESH_EP_LAYERS`` of its 24 layers, float32, the
+   8 × 1,024 batch: one 4,096-token group a batch rank), two steps of
+   ``make_train_step(mesh=)`` with fsdp and its 32 experts split over
+   ``model`` (expert parallelism; its odd vocabulary whole on every
+   ``model`` rank), held to (a″), the one-process step of the same
+   model, init and batch run in the parent after (a′): the four ranks'
+   loss, ``ce``, ``moe_aux`` and ``grad_norm`` the same bits; the two
+   ``model`` ranks of a row pick the same top-k experts for every token;
+   the tokens whose top-k set differs from (a″)'s counted and printed
+   (if any does, step 1 runs again from the init with the routing pinned
+   to (a″)'s, ``PinTopK``, and the gates below read that run); step 1's
+   loss within ``DP_LOSS_REL_MAX`` of (a″)'s, the gradients of
+   ``MESH_EP_LEAVES`` gathered whole within ``DP_GRAD_REL_MAX``, each
+   rank's shards within ``DP_UPDATE_REL_MAX`` of the one-process update
+   of them; every replicated leaf the same bits; a rank's local
+   parameter bytes those its placements give it; a ``model`` collective
+   a step; every kernel 0 launches in (a″) and (i).
    Printed: each rank's synchronized step seconds and the exchange's,
    the gather's and the reduction's shares, the bytes that cross a step
    (int8 codes and float32 scales) beside the float32 gradient bytes,
@@ -402,8 +420,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the float32 scales), each rank's peak device memory, (f)'s wall
    seconds; (h)'s step seconds with the gather's, the reduction's and the
    ``model`` collectives' shares, the bytes a rank sends over each axis
-   (ring volume), peak device memory, local / full parameter bytes.  The
-   ranks share one card: nothing crosses a link;
+   (ring volume), peak device memory, local / full parameter bytes; the
+   same of (i), with its flips against (a″).  The ranks share one card:
+   nothing crosses a link;
 14. the entry point (``entry_point``): ``python -m
    repro_torch.launch.train_lm --preset 20m --steps 20 --ckpt <tmp>``,
    then the same with ``--steps 30``, each a child process (``runpy``, as
@@ -538,6 +557,15 @@ MESH_F_SHAPE = (2, 2, 1)
 # four ranks (a second init_device_mesh), MESH_STEPS steps with a model
 # axis of 2 (tensor parallelism)
 MESH_H_SHAPE = (2, 2)
+# (i): granite-moe-1b-a400m at full width (its 32 experts of ffn 512,
+# top-8, vocabulary 49,155), MESH_EP_LAYERS of its 24 layers, float32,
+# (h)'s run, batch and mesh over (f)'s four ranks (a third
+# init_device_mesh): MESH_STEPS steps with its experts split over the
+# model axis (expert parallelism; the odd vocabulary whole on model),
+# held to (a″), the one-process step of the same model, init and batch,
+# on MESH_EP_LEAVES' step-1 gradients
+MESH_EP_ARCH, MESH_EP_LAYERS = "granite_moe_1b_a400m", 2
+MESH_EP_LEAVES = ("layers/mlp/router", "layers/mlp/w_up", "embed", "lm_head")
 # (g): (d)'s model, batch and mesh with Adafactor under fsdp (lr 1e-3,
 # one warmup step) for MESH_STEPS steps, in (d)'s two ranks; step 1's
 # beta2 is 0, so step 2 is the first to read the carried moments
@@ -4591,10 +4619,12 @@ def composed_exchange(torch, dist, quant, dequant, x, mesh, dtype):
             x - deq[me:me + 1])
 
 
-def pod_data_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
-    """One rank of phase 13 (f) and (h) (spawned): joins its own gloo group
-    at ``root``, runs :func:`pod_data_run` and :func:`tp_run`, and writes
-    its readings to ``root/f_rank<r>.json``."""
+def pod_data_rank(rank: int, n: int, root: str, cfg, ep_cfg,
+                  dev_type: str) -> None:
+    """One rank of phase 13 (f), (h) and (i) (spawned): joins its own gloo
+    group at ``root``, runs :func:`pod_data_run`, :func:`tp_run` and, on
+    ``ep_cfg``, :func:`ep_run`, and writes its readings to
+    ``root/f_rank<r>.json``."""
     import datetime
 
     import torch
@@ -4610,6 +4640,9 @@ def pod_data_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
         if dev_type == "cuda":
             torch.cuda.empty_cache()
         out["tp"] = tp_run(torch, dist, root, cfg, torch.device(dev_type))
+        if dev_type == "cuda":
+            torch.cuda.empty_cache()
+        out["ep"] = ep_run(torch, dist, root, ep_cfg, torch.device(dev_type))
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
         check(not bad, f"rank {rank} imported {sorted(bad)[:5]}")
         with open(os.path.join(root, f"f_rank{rank}.json"), "w") as f:
@@ -4973,12 +5006,342 @@ def tp_checks(out: dict, smi: str) -> None:
         check(not any(got.values()), f"mesh: (h) {key} launched {got}")
 
 
+def ep_config():
+    """(i)'s model: ``MESH_EP_ARCH`` at full width, ``MESH_EP_LAYERS`` of
+    its layers, float32."""
+    from repro_torch.configs import get_config
+
+    return replace(get_config(MESH_EP_ARCH), n_layers=MESH_EP_LAYERS,
+                   dtype="float32")
+
+
+class RecordTopK:
+    """While active, the top-k expert picks of the first ``n`` calls of
+    ``models.moe._route`` (a forward's token groups, layer by layer, in
+    token order), in ``seen``."""
+
+    def __init__(self, n: int):
+        from repro_torch.models import moe
+
+        self.moe, self.n, self.seen = moe, n, []
+
+    def __enter__(self):
+        self.orig = orig = self.moe._route
+
+        def route(probs, k):
+            vals, idx = orig(probs, k)
+            if len(self.seen) < self.n:
+                self.seen.append(idx.clone())
+            return vals, idx
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+class PinTopK:
+    """While active, each MoE layer sends every token to the experts of
+    ``table[layer]`` (``(layers, tokens, k)``: this rank's tokens, one
+    group a layer), with its own probabilities as gates, as
+    :class:`PinRouting` does in phase 8.  The layer is told by its router
+    leaf's address: the forward meets the layers in order, and remat's
+    recomputation meets the same views of the same gathered leaves."""
+
+    def __init__(self, table):
+        from repro_torch.models import moe
+
+        self.moe, self.table = moe, table
+
+    def __enter__(self):
+        moe, layer_of, cur = self.moe, {}, {}
+        self.orig = (moe._routing, moe._route)
+
+        def routing(params, groups, cfg):
+            cur["layer"] = layer_of.setdefault(params["router"].data_ptr(),
+                                               len(layer_of))
+            return self.orig[0](params, groups, cfg)
+
+        def route(probs, k):
+            pinned = self.table[cur["layer"]]
+            check(pinned.shape == (probs.shape[0], k),
+                  f"mesh: (i) pins {tuple(pinned.shape)} for "
+                  f"{tuple(probs.shape)}")
+            return probs.gather(1, pinned), pinned
+        moe._routing, moe._route = routing, route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._routing, self.moe._route = self.orig
+
+
+def ep_plain(torch, np, root: str, cfg, dev) -> dict:
+    """Run (a″) of phase 13: one plain ``make_train_step`` of (i)'s model,
+    init and batch in one process, phase 13's run.  Its step-1
+    gradients of ``MESH_EP_LEAVES`` and each layer's top-k picks of every
+    token (``(layers, tokens, k)``) go to ``root/ep_plain.pt``.  Returns
+    the step's readings."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+
+    run, opt = mesh_run_opt()
+    params, state = train.init_train_state(
+        cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED), opt,
+        device=dev)
+    step, _ = train.make_train_step(cfg, run, opt)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    n = batch["labels"].numel()
+    gs = moe.group_tokens(n)
+    passes = -(-n // (max(4096 // gs, 1) * gs))
+    device_sync(torch, dev)
+    ops.reset_launches()
+    with RecordGrads(MESH_EP_LEAVES) as rec, RecordTopK(
+            passes * cfg.n_layers) as picks:
+        t0 = time.perf_counter()
+        m = step(params, state, batch)[2]
+        device_sync(torch, dev)
+        sec = time.perf_counter() - t0
+    table = torch.stack([torch.cat(picks.seen[i * passes:(i + 1) * passes])
+                         for i in range(cfg.n_layers)])
+    torch.save({"grads": rec.first, "picks": table.cpu()},
+               os.path.join(root, "ep_plain.pt"))
+    return {"s": sec, **{k: float(v) for k, v in m.items()},
+            "launches": {k: ops.launches[k] for k in KERNELS}}
+
+
+def ep_run(torch, dist, root: str, cfg, dev) -> dict:
+    """Run (i) of phase 13 on this rank of ``(data=2, model=2)``, a third
+    mesh over (f)'s four ranks: ``init_train_state(mesh=)`` and
+    ``MESH_STEPS`` steps of ``make_train_step(mesh=)`` with fsdp and the
+    MoE's experts split over ``model``, each step's launch counts reset
+    just before it and read just after, the collectives over each axis
+    timed and their bytes counted.  Step 1's top-k picks: against the
+    other ``model`` rank's of the row, and against (a″)'s for the rank's
+    tokens (the flips counted over the four ranks); if any token flipped,
+    step 1 is run again from the init with every rank's routing pinned to
+    (a″)'s, and the gates read that run.  Its gradients, gathered whole
+    over both axes, held to (a″)'s, and each rank's shards to the
+    one-process update of them on the init gathered whole.  Returns its
+    readings."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.tree import leaves, local, sharded, tree_map
+
+    t_start = time.perf_counter()
+    run, opt = mesh_run_opt()
+    run = replace(run, fsdp=True)
+    mesh = init_device_mesh(dev.type, MESH_H_SHAPE,
+                            mesh_dim_names=("data", "model"))
+    coord = mesh.get_coordinate()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        return train.init_train_state(
+            cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED),
+            opt, mesh=mesh, device=dev)
+
+    params, state = fresh()
+    psh = dict(leaves(sharding.param_shardings(
+        model.model_specs(cfg), mesh, sharding.rules_for(mesh, run))))
+    placed = 0
+    for path, p in leaves(params):
+        b = p.numel() * p.element_size()
+        for q, size in zip(psh[path], mesh.shape):
+            b //= size if isinstance(q, Shard) else 1
+        placed += b
+    step, _ = train.make_train_step(cfg, run, opt, mesh=mesh)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    groups = {"data": mesh.get_group("data"),
+              "model": mesh.get_group("model"), "world": dist.group.WORLD}
+    out = {"coordinate": coord, "bytes": {
+        "local": sum(local(p).numel() * p.element_size()
+                     for _, p in leaves(params)),
+        "placed": placed,
+        "full": sum(p.numel() * p.element_size() for _, p in leaves(params))},
+        "sharded_leaves": sum(sharded(p) for _, p in leaves(params)),
+        "leaves": len(leaves(params))}
+    old = tree_map(lambda p: full_leaf(torch, dist, p, mesh), params)
+    plain = torch.load(os.path.join(root, "ep_plain.pt"), map_location=dev)
+    rows = plain["picks"].shape[1] // mesh.shape[0]
+    mine_plain = plain["picks"][:, coord[0] * rows:(coord[0] + 1) * rows]
+
+    def one_step(pin=None, record=0):
+        dist.barrier()
+        device_sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with CollectiveClock(torch, dev, groups) as coll, TrainClock(
+                torch, dev, "_gather_params", "_reduce_grads",
+                keep=("_reduce_grads",)) as clock, RecordTopK(
+                record) as picks, pin or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            m = step(params, state, batch)[2]
+            device_sync(torch, dev)
+            sec = time.perf_counter() - t0
+        launches = {k: ops.launches[k] for k in KERNELS}
+        identical = True
+        for _, p in leaves(params):
+            if not sharded(p):
+                got = local(p).clone()
+                dist.broadcast(got, src=0)
+                identical = identical and torch.equal(got, local(p))
+        g_s, r_s = clock.s["_gather_params"], clock.s["_reduce_grads"]
+        st = {"s": sec, "gather_s": g_s, "gather_share": g_s / sec,
+              "reduce_s": r_s, "reduce_share": r_s / sec,
+              "model_s": coll.by["model"]["s"],
+              "model_share": coll.by["model"]["s"] / sec,
+              "collectives": coll.by, "launches": launches,
+              **{k: m[k].item() for k in ("loss", "ce", "moe_aux",
+                                          "grad_norm")},
+              "replicated_identical": identical,
+              "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                    if dev.type == "cuda" else None)}
+        return st, clock.last.pop("_reduce_grads"), picks.seen
+
+    steps = []
+    for i in range(MESH_STEPS):
+        st, grads, seen = one_step(record=cfg.n_layers if i == 0 else 0)
+        steps.append(st)
+        if i:
+            continue
+        # step 1's routing: the model ranks of a row alike; the tokens
+        # whose top-k set is not (a″)'s, over the four ranks
+        picks = torch.stack(seen)
+        both = [torch.empty_like(picks) for _ in range(mesh.shape[1])]
+        dist.all_gather(both, picks, group=groups["model"])
+        out["model_ranks_route_alike"] = all(torch.equal(b, picks)
+                                             for b in both)
+        flips = (picks.sort(-1).values != mine_plain.sort(-1).values).any(
+            -1).sum().cpu()
+        out["flips"] = int(flips)
+        dist.all_reduce(flips)
+        out["flips_all_ranks"] = int(flips)
+        del picks, both
+        out["held"], out["unpinned_step1_loss"] = "unpinned", st["loss"]
+        if out["flips_all_ranks"]:
+            # the gates on a step routed as (a″) routed: from the init again
+            del grads
+            params, state = fresh()
+            step, _ = train.make_train_step(cfg, run, opt, mesh=mesh)
+            st, grads, _ = one_step(pin=PinTopK(mine_plain))
+            out["held"], out["pinned_step"] = "pinned to (a″)", st
+        out["step1_loss"] = st["loss"]
+        grads = tree_map(lambda g: full_leaf(torch, dist, g, mesh), grads)
+        out["grads_rel"] = {
+            name: float((leaf_at(grads, name) - g).abs().max()
+                        / g.abs().max()) for name, g in plain["grads"].items()}
+        want = tree_map(torch.clone, old)
+        adamw.adamw_update_(want, grads, adamw.adamw_init(want, opt), opt)
+        del grads
+        w_of, o_of = dict(leaves(want)), dict(leaves(old))
+        worst, exact = 0.0, True
+        for path, p in leaves(params):
+            w = sharding.local_slice(w_of[path], mesh, p.placements, coord)
+            o = sharding.local_slice(o_of[path], mesh, p.placements, coord)
+            worst = max(worst, update_rel(torch, w, local(p), o))
+            exact = exact and torch.equal(w, local(p))
+        out["update_rel"], out["update_bit_exact"] = worst, exact
+        del want, w_of, o_of, old, plain
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["steps"] = steps
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def ep_checks(out: dict, smi: str) -> None:
+    """Phase 13 (i)'s printed readings and gates, against (a″)."""
+    import numpy as np
+
+    es = [r["ep"] for r in out["f_ranks"]]
+    e0 = es[0]
+    want = out["ep_plain_step"]["loss"]
+    out["i_step1_loss_rel"] = abs(e0["step1_loss"] - want) / abs(want)
+    unpinned = abs(e0["unpinned_step1_loss"] - want) / abs(want)
+    print(f"mesh (i), expert parallelism on (data=2, model=2) with fsdp, "
+          f"granite-moe-1b-a400m at full width, {MESH_EP_LAYERS} of 24 "
+          f"layers, four gloo ranks on one card, nothing crosses a link "
+          f"[{smi}]: " + json.dumps({
+              "wall_s": max(e["wall_s"] for e in es),
+              "step_s": {i: [st["s"] for st in e["steps"]]
+                         for i, e in enumerate(es)},
+              "gather_share": [st["gather_share"] for st in e0["steps"]],
+              "reduce_share": [st["reduce_share"] for st in e0["steps"]],
+              "model_collectives_share": [st["model_share"]
+                                          for st in e0["steps"]],
+              "sent_bytes_a_step_a_rank": {
+                  axis: c["sent_bytes"] for axis, c in
+                  e0["steps"][-1]["collectives"].items()},
+              "collectives_a_step": {
+                  axis: c["calls"] for axis, c in
+                  e0["steps"][-1]["collectives"].items()},
+              "peak_device_bytes": {i: [st["peak_device_bytes"]
+                                        for st in e["steps"]]
+                                    for i, e in enumerate(es)},
+              "local_over_full": e0["bytes"]["local"] / e0["bytes"]["full"],
+              "bytes": e0["bytes"],
+              "plain_step_s": out["ep_plain_step"]["s"],
+              "losses": [st["loss"] for st in e0["steps"]],
+              "moe_aux": [st["moe_aux"] for st in e0["steps"]],
+              "flips_against_a2": [e["flips"] for e in es],
+              "held": e0["held"],
+              "pinned_step_s": e0.get("pinned_step", {}).get("s"),
+              "step1_loss_rel": out["i_step1_loss_rel"],
+              "unpinned_step1_loss_rel": unpinned,
+              "grads_rel": e0["grads_rel"],
+              "update_rel": max(e["update_rel"] for e in es),
+              "update_bit_exact": all(e["update_bit_exact"] for e in es)}))
+    check(sorted(tuple(e["coordinate"]) for e in es)
+          == [(d, m) for d in range(2) for m in range(2)],
+          f"mesh: (i) coordinates {[e['coordinate'] for e in es]}")
+    for i in range(MESH_STEPS):
+        check(len({tuple(e["steps"][i][k] for k in (
+            "loss", "ce", "moe_aux", "grad_norm")) for e in es}) == 1,
+              f"mesh: (i) step {i + 1}'s metrics differ between the ranks")
+    check(len({e["held"] for e in es}) == 1
+          and len({e["step1_loss"] for e in es}) == 1,
+          f"mesh: (i) ranks held {[e['held'] for e in es]}")
+    rel = out["i_step1_loss_rel"]
+    check(rel <= DP_LOSS_REL_MAX, f"mesh: (i) step 1's loss {rel} from (a″)")
+    for e in es:
+        check(e["model_ranks_route_alike"],
+              "mesh: (i) the model ranks of a row routed apart")
+        check(all(st["replicated_identical"] for st in e["steps"]),
+              "mesh: (i) replicated leaves differ between the ranks")
+        check(set(e["grads_rel"]) == set(MESH_EP_LEAVES)
+              and max(e["grads_rel"].values()) <= DP_GRAD_REL_MAX,
+              f"mesh: (i) gradients {e['grads_rel']} from (a″)'s")
+        check(e["update_rel"] <= DP_UPDATE_REL_MAX,
+              f"mesh: (i) shards {e['update_rel']} from the update")
+        check(e["sharded_leaves"] > 0
+              and e["bytes"]["local"] == e["bytes"]["placed"],
+              f"mesh: (i) {e['bytes']}")
+        check(all(np.isfinite(st["loss"]) for st in e["steps"]),
+              "mesh: (i) losses")
+        check(all(st["collectives"]["model"]["calls"] > 0
+                  for st in e["steps"]),
+              "mesh: (i) made no collective over the model axis")
+    for key, got in out["i_launches"].items():
+        check(not any(got.values()), f"mesh: (i) {key} launched {got}")
+
+
 def mesh_training(torch, smi: str, dev="cuda") -> dict:
     """Phase 13: run (a), the two-replica step in one process and a
     checkpoint of replica 0; run (a′), the plain step in one process;
-    runs (b)–(e) and (g) in two spawned gloo ranks on the one card
-    (:func:`mesh_rank`), (f) in four.  Returns the printed readings with
-    the ranks' launch counts."""
+    run (a″), (i)'s MoE's plain step in one process; runs (b)–(e) and
+    (g) in two spawned gloo ranks on the one card (:func:`mesh_rank`),
+    (f), (h) and (i) in four (:func:`pod_data_rank`).  Returns the
+    printed readings with the ranks' launch counts."""
     import shutil
 
     import numpy as np
@@ -5090,6 +5453,12 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
+        # ---- (a″) the plain step of (i)'s MoE in one process
+        ep_cfg = ep_config()
+        out["ep_plain_step"] = ep_plain(torch, np, root, ep_cfg, dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
         # ---- (b)–(e): two ranks on the one card
         t0 = time.perf_counter()
         ranks = spawn_ranks(torch, mesh_rank, MESH_PODS, root, "rank",
@@ -5114,11 +5483,11 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
                                 r["loop"][tag]["launches"]
                                 for r in ranks for tag in ("e1", "e2", "e3")}
 
-        # ---- (f), then (h): four ranks on (pod=2, data=2, model=1), then
-        # on (data=2, model=2)
+        # ---- (f), then (h) and (i): four ranks on (pod=2, data=2,
+        # model=1), then on (data=2, model=2)
         t0 = time.perf_counter()
         f_ranks = spawn_ranks(torch, pod_data_rank, math.prod(MESH_F_SHAPE),
-                              root, "f_rank", (cfg, dev.type))
+                              root, "f_rank", (cfg, ep_cfg, dev.type))
         out["f_s"] = time.perf_counter() - t0
         out["f_ranks"] = f_ranks
         out["f_launches"] = {f"f_rank{r['rank']}_step{i}": st["launches"]
@@ -5128,6 +5497,11 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         out["h_launches"] = {f"h_rank{r['rank']}_step{i}": st["launches"]
                              for r in f_ranks
                              for i, st in enumerate(r["tp"]["steps"])}
+        # (a″) and (i): none on the expert-parallel plain step's path
+        out["i_launches"] = {f"i_rank{r['rank']}_step{i}": st["launches"]
+                             for r in f_ranks
+                             for i, st in enumerate(r["ep"]["steps"])}
+        out["i_launches"]["plain_ep_step"] = out["ep_plain_step"]["launches"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5226,6 +5600,7 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
         check(not any(got.values()), f"mesh: {key} launched {got}")
     pod_data_checks(out, n_leaves, smi)
     tp_checks(out, smi)
+    ep_checks(out, smi)
     return out
 
 
@@ -6218,12 +6593,13 @@ def main() -> int:
                 "exact": trn["pods"]["k7_k8_exact_at_group_256"]}
         # phase 13's plain step: (d)'s ranks and (a′); (g)'s Adafactor
         # steps; (e)'s loop runs; (f)'s compressed steps on (pod=2, data=2);
-        # (h)'s tensor-parallel steps on (data=2, model=2)
+        # (h)'s tensor-parallel steps on (data=2, model=2); (a″) and (i)'s
+        # expert-parallel steps there
         r.setdefault("mesh_launches", {}).update({
             run: counts[r["name"]]
             for runs in (mesh["dp_launches"], mesh["af_launches"],
                          mesh["loop_launches"], mesh["f_launches"],
-                         mesh["h_launches"])
+                         mesh["h_launches"], mesh["i_launches"])
             for run, counts in runs.items()})
         # phase 14: each entry-point run
         r["entry_launches"] = [run["launches"][r["name"]]

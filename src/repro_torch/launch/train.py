@@ -14,11 +14,12 @@ Two step builders, as in the reference:
   state are sharded ZeRO-3 style on the ``embed`` axis (gathered whole
   for the forward, the gradients reduce-scattered into the shards); and
   tensor-parallel over a ``model`` axis wider than 1 for the dense
-  attention and MLP families with AdamW: each ``model`` rank holds and
-  computes its slice of the heads, the ffn and the vocabulary, with
-  explicit collectives over the ``model`` group
-  (:func:`~repro_torch.models.layers.model_parallel`) and a
-  vocab-parallel cross-entropy;
+  attention and MLP families and the MoE family with AdamW: each
+  ``model`` rank holds and computes its slice of the heads, the ffn or
+  the experts (expert parallelism) and of a vocabulary the axis divides
+  (one it does not divide stays whole), with explicit collectives over
+  the ``model`` group (:func:`~repro_torch.models.layers.model_parallel`)
+  and a vocab-parallel cross-entropy on a split vocabulary;
 * :func:`make_train_step_compressed` — data-parallel replicas: params,
   optimizer state and error feedback carry a leading replica axis; each
   replica computes gradients on its own slice of the batch, the
@@ -134,17 +135,18 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad.to(logits.dtype), None, None
 
 
-def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """``logsumexp − gold logit`` at each position; a negative label
-    indexes from the end, as the reference's gather does (its term is
-    masked out by the caller).  Under tensor parallelism ``logits`` is a
-    ``model`` rank's slice of the vocabulary (:class:`_VocabParallelCE`)."""
-    group = model_group()
-    n = logits.shape[-1] * (1 if group is None
-                            else dist.get_world_size(group))
-    idx = torch.where(labels < 0, labels + n, labels)
-    if group is not None:
-        return _VocabParallelCE.apply(logits, idx, group)
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_size: int) -> torch.Tensor:
+    """``logsumexp − gold logit`` at each position, over a vocabulary of
+    ``vocab_size``; a negative label indexes from the end, as the
+    reference's gather does (its term is masked out by the caller).
+    Where ``logits`` is a ``model`` rank's slice of the vocabulary
+    (:func:`~repro_torch.models.model.vocab_split`) the cross-entropy is
+    vocab-parallel (:class:`_VocabParallelCE`); whole logits, inside a
+    ``model`` group too, take the plain path."""
+    idx = torch.where(labels < 0, labels + vocab_size, labels)
+    if M.vocab_split(logits.shape[-1], vocab_size):
+        return _VocabParallelCE.apply(logits, idx, model_group())
     logz = torch.logsumexp(logits, dim=-1)
     return logz - torch.gather(logits, -1, idx[..., None])[..., 0]
 
@@ -165,7 +167,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig, *,
     to the global batch's.  Inside a
     :func:`~repro_torch.models.layers.model_parallel` block the parameters
     are a ``model`` rank's slices, and the cross-entropy is computed on
-    the rank's slice of the vocabulary (``_VocabParallelCE``)."""
+    the rank's slice of the vocabulary (``_VocabParallelCE``) where the
+    axis divides it, on the whole logits where it does not."""
     key = M.input_key(cfg)
     logits, aux = M.forward(params, cfg, mode="train",
                             remat=run.remat != "none", q_chunk=q_chunk,
@@ -176,8 +179,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig, *,
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     count = mask.sum() if label_count is None else label_count.to(mask)
-    ce = torch.sum(_token_ce(logits, labels) * mask) / torch.clamp(
-        count, min=1.0)
+    ce = torch.sum(_token_ce(logits, labels, cfg.vocab_size) * mask) \
+        / torch.clamp(count, min=1.0)
     loss = ce + _MOE_AUX_W * aux["moe_aux"]
     return loss, {"ce": ce, "moe_aux": aux["moe_aux"]}
 
@@ -295,31 +298,38 @@ def _check_model_axis(cfg: ModelConfig, run: RunConfig, opt_cfg,
                       mesh) -> None:
     """Check that :func:`make_train_step` runs ``cfg``, ``run`` and
     ``opt_cfg`` on ``mesh``: a ``model`` axis of 1 runs everything the
-    data-parallel step does; a wider one, the dense attention and MLP
-    families (token or embedding input) with AdamW, whose query heads,
-    ffn and vocabulary the axis divides.
+    data-parallel step does; a wider one, with AdamW, the dense attention
+    and MLP families (token or embedding input) whose query heads and ffn
+    the axis divides, and the MoE family whose query heads and experts it
+    divides (expert parallelism).  A vocabulary the axis does not divide
+    stays whole on every ``model`` rank.
 
-    :raises ValueError: as :func:`_mesh_axes` says; above 1, for the MoE,
-        RWKV6 and hybrid families, ``run.seq_shard``, Adafactor, or a
-        split inside a query head, the ffn or the vocabulary (ROADMAP item
-        2.6b-4b).
+    :raises ValueError: as :func:`_mesh_axes` says; above 1, for the
+        RWKV6 and hybrid families (ROADMAP item 2.6b-4b-2), a split inside
+        a query head, the ffn or the experts (2.6b-4b-3),
+        ``run.seq_shard`` (2.6b-4b-4) and Adafactor (2.6b-4b-5).
     """
     n = _mesh_axes(mesh)["model"]
     if n == 1:
         return
     why = None
-    if cfg.n_experts or cfg.family in ("ssm", "hybrid"):
-        why = f"the {cfg.family} family"
+    if cfg.family in ("ssm", "hybrid"):
+        why, item = f"the {cfg.family} family", "2.6b-4b-2"
     elif run.seq_shard:
-        why = "sequence sharding (seq_shard=True)"
+        why, item = "sequence sharding (seq_shard=True)", "2.6b-4b-4"
     elif isinstance(opt_cfg, AdafactorConfig):
-        why = "Adafactor"
-    elif cfg.n_heads % n or cfg.d_ff % n or cfg.vocab_size % n:
-        why = (f"{cfg.n_heads} query heads, an ffn of {cfg.d_ff} and a "
-               f"vocabulary of {cfg.vocab_size} split {n} ways")
+        why, item = "Adafactor", "2.6b-4b-5"
+    elif cfg.n_experts and (cfg.n_heads % n or cfg.n_experts % n):
+        why = (f"{cfg.n_heads} query heads and {cfg.n_experts} experts "
+               f"split {n} ways")
+        item = "2.6b-4b-3"
+    elif not cfg.n_experts and (cfg.n_heads % n or cfg.d_ff % n):
+        why = (f"{cfg.n_heads} query heads and an ffn of {cfg.d_ff} split "
+               f"{n} ways")
+        item = "2.6b-4b-3"
     if why:
         raise ValueError(f"{cfg.name}: {why} on a model axis of {n} is "
-                         f"ROADMAP item 2.6b-4b")
+                         f"ROADMAP item {item}")
 
 
 def _mesh_pods(run: RunConfig, n_pods: int | None, mesh) -> int:
@@ -383,9 +393,12 @@ def _partial_over_model(specs: dict, psh: dict, mesh) -> frozenset:
     """The paths of the leaves whose gradients are partial on each
     ``model`` rank: placed whole on the ``model`` axis (the rules'
     divisibility fallback) but consumed on its split.  A ``kv_heads``
-    leaf is consumed by the query heads, which the axis splits; a leaf of
-    no split axis (a norm's gain) sees the same inputs on every ``model``
-    rank, and its gradient is already whole there."""
+    leaf is consumed by the query heads, which the axis splits.  A leaf
+    of no split axis (a norm's gain), an MoE router (the routing reads
+    its input outside the split; only the gates enter it, and their
+    partial gradients are summed there) and a vocabulary leaf the axis
+    does not divide (consumed whole) see the same inputs and gradients on
+    every ``model`` rank: their gradients are already whole there."""
     from torch.distributed.tensor import Shard
 
     dim = list(axis_sizes(mesh)).index("model")
@@ -482,7 +495,9 @@ def _mesh_grads(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig,
 
 def _mesh_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg, mesh, **kw):
     """:func:`make_train_step`'s step on a mesh: data-parallel over its
-    batch axes, tensor-parallel over its ``model`` axis."""
+    batch axes, tensor-parallel over its ``model`` axis (the heads, the
+    ffn and a vocabulary the axis divides split over it; the experts of
+    an MoE layer too: expert parallelism)."""
     _check_model_axis(cfg, run, opt_cfg, mesh)
     group, model = _mesh_groups(mesh)
     axes = None if model is None else _batch_axes(mesh)
@@ -540,8 +555,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     forward and backward on this rank's rows of each global microbatch
     inside ``mesh_context`` and ``model_parallel`` (the loss over the
     global count of labels; the ``model`` ranks of a row compute its
-    heads, ffn and vocabulary in slices, with all-reduces over ``model``
-    where a split ends), sums the gradients over the batch ranks in one
+    heads, ffn or experts, and a vocabulary the axis divides, in slices,
+    with all-reduces over ``model`` where a split ends; each rank routes
+    every MoE token of its row, and runs a vocabulary the axis does not
+    divide whole), sums the gradients over the batch ranks in one
     collective a leaf (a reduce-scatter into a sharded leaf's shard, an
     all-reduce of a replicated one; a leaf whole on ``model`` whose
     gradient is partial there, :func:`_partial_over_model`, is first
@@ -552,9 +569,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     same on every rank.
 
     :raises ValueError: as :func:`_check_model_axis` says (a ``model``
-        axis wider than 1 runs the dense attention and MLP families with
-        AdamW); at the step, for a batch the microbatches and ranks do not
-        divide, and for an MoE token group that would span ranks.
+        axis wider than 1 runs the dense attention and MLP families and
+        the MoE family with AdamW); at the step, for a batch the
+        microbatches and ranks do not divide, and for an MoE token group
+        that would span ranks.
     """
     opt_cfg, _, _ = make_optimizer(run, opt_cfg)
     update_ = _UPDATE_[type(opt_cfg)]

@@ -37,7 +37,7 @@ from .rwkv import init_rwkv_state, rwkv6_apply, rwkv6_specs
 from .ssm import init_mamba_state, mamba2_apply, mamba2_specs
 
 __all__ = ["model_specs", "init_decode_state", "forward", "param_counts",
-           "check_ported", "input_key"]
+           "check_ported", "input_key", "vocab_split"]
 
 
 #: The reference's families: the dense stack (dense, moe, and the
@@ -180,16 +180,26 @@ def input_key(cfg) -> str:
     return "tokens" if cfg.input_mode == "tokens" else "embeds"
 
 
-def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``; under tensor parallelism ``table`` is this
-    ``model`` rank's slice of the vocabulary, the rows of other slices
-    read as zeros, and the ranks' lookups are summed: exact, since only
-    zeros are added."""
-    tp = model_rank()
-    if tp is None:
-        return table[tokens]
+def vocab_split(width: int, vocab_size: int) -> bool:
+    """Whether a vocabulary leaf (``embed``, ``lm_head``) or the logits,
+    ``width`` wide on their vocabulary dim, hold this ``model`` rank's
+    slice of a vocabulary of ``vocab_size``: inside a
+    :func:`~.layers.model_parallel` group, narrower than the whole.  A
+    vocabulary the ``model`` axis does not divide stays whole on every
+    rank (the rules' divisibility fallback)."""
+    return model_rank() is not None and width < vocab_size
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor,
+            vocab_size: int) -> torch.Tensor:
+    """``table[tokens]``; where ``table`` is this ``model`` rank's slice of
+    the vocabulary (:func:`vocab_split`) the rows of other slices read as
+    zeros, and the ranks' lookups are summed: exact, since only zeros are
+    added."""
     n = table.shape[0]
-    idx = tokens - tp[0] * n
+    if not vocab_split(n, vocab_size):
+        return table[tokens]
+    idx = tokens - model_rank()[0] * n
     inside = ((idx >= 0) & (idx < n))[..., None]
     rows = table[idx.clamp(0, n - 1)]
     return out_of_split(torch.where(inside, rows, torch.zeros_like(rows)))
@@ -201,7 +211,7 @@ def _inputs(params: dict, cfg, tokens, embeds) -> torch.Tensor:
     if input_key(cfg) == "tokens":
         if tokens is None or embeds is not None:
             raise ValueError(f"{cfg.name} takes token ids (tokens=)")
-        return _lookup(params["embed"], tokens)
+        return _lookup(params["embed"], tokens, cfg.vocab_size)
     if embeds is None or tokens is not None:
         raise ValueError(f"{cfg.name} takes frontend embeddings (embeds=)")
     if embeds.dim() != 3 or embeds.shape[-1] != cfg.d_model:
@@ -238,18 +248,20 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     the identity outside a ``mesh_context`` and on plain tensors.
 
     Under tensor parallelism (:func:`~.layers.model_parallel`) the
-    parameters are a ``model`` rank's slices: the embedding lookup is
-    vocab-split, the attention and MLP blocks compute the rank's heads and
-    ffn columns, and the logits are the rank's slice of the vocabulary.
+    parameters are a ``model`` rank's slices: the attention and MLP blocks
+    compute the rank's heads and ffn columns, an MoE layer the rank's
+    experts (expert parallelism), and a vocabulary the axis divides is
+    split: the embedding lookup is summed over the ranks, and the logits
+    are the rank's slice.  A vocabulary it does not divide is whole on
+    every rank, and so are the logits (:func:`vocab_split`).
 
-    :raises ValueError: under tensor parallelism, for the MoE, RWKV6 and
-        hybrid families (ROADMAP item 2.6b-4b).
+    :raises ValueError: under tensor parallelism, for the RWKV6 and hybrid
+        families (ROADMAP item 2.6b-4b-2).
     """
     check_ported(cfg)
-    if model_rank() is not None and (cfg.n_experts or cfg.family in (
-            "ssm", "hybrid")):
+    if model_rank() is not None and cfg.family in ("ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: the {cfg.family} family on a model "
-                         f"axis wider than 1 is ROADMAP item 2.6b-4b")
+                         f"axis wider than 1 is ROADMAP item 2.6b-4b-2")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     x = shard(_inputs(params, cfg, tokens, embeds), "batch", "seq", None)
@@ -340,7 +352,9 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     if mode == "prefill":
         # serving needs only the last position's logits
         x = x[:, -1:]
-    x = into_split(rmsnorm(x, params["final_ln"], cfg.norm_eps))
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    if vocab_split(params["lm_head"].shape[-1], cfg.vocab_size):
+        x = into_split(x)
     logits = shard(torch.matmul(x, params["lm_head"].to(x.dtype)), "batch",
                    None, "vocab")
     aux = {"moe_aux": moe_aux / max(cfg.n_layers, 1),

@@ -11,12 +11,23 @@ batched matrix products over the experts.  The reference's expert
 products and dispatch run outside any Pallas kernel, and so do the
 port's: no kernel of ``kernels/`` is on this layer's path.
 
-The port has no expert sharding yet (the ``shard`` constraints on the
-expert buffers are wired, and are the identity on plain tensors), and
-its group loop is a Python loop (the reference's ``lax.scan``), so it
-needs no ``unroll`` switch either.  On a data-parallel mesh a rank routes
-its own rows, in groups sized by the global batch's token count
+Its group loop is a Python loop (the reference's ``lax.scan``), so it
+needs no ``unroll`` switch.  On a data-parallel mesh a rank routes its
+own rows, in groups sized by the global batch's token count
 (``moe_apply(global_tokens=)``), each group whole within the rank.
+
+Under tensor parallelism (:func:`~.layers.model_parallel`) the experts
+are split over the ``model`` axis (expert parallelism): a rank holds a
+contiguous block of ``n_experts / n`` experts.  Every ``model`` rank of
+a row sees the same tokens, so each routes every token itself, with its
+whole router, and no all-to-all is needed: the rank dispatches only
+into its own experts' slots, computes them, combines them weighted by
+their gates, and the ranks' partial combines are summed over ``model``.
+The routing reads the normed input outside the split, so the
+load-balancing loss and its gradient are whole on every rank; only the
+dispatched tokens and the gates enter the split, whose gradients are
+partial on each rank and summed.  The ``shard`` constraints on the
+expert buffers are the identity on the step's plain tensors.
 """
 from __future__ import annotations
 
@@ -144,24 +155,42 @@ def _routing(params: dict, groups: torch.Tensor, cfg):
             aux)
 
 
-def _moe_groups(params: dict, groups: torch.Tensor, cfg
+def _moe_groups(params: dict, groups: torch.Tensor, cfg, rank: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Route, dispatch, expert products and combine for ``G`` token groups
     ``(G, g, d)`` at once, each group with its own capacity.  Returns
-    ``(out (G, g, d), aux (G,))``."""
+    ``(out (G, g, d), aux (G,))``.
+
+    Under tensor parallelism the expert leaves hold ``model`` rank
+    ``rank``'s block of ``e_l`` experts, ``[rank·e_l, (rank+1)·e_l)``:
+    the routing is whole, but only the rank's experts' slots are
+    dispatched, computed and combined (the other ranks' kept assignments
+    go to the trash row, as dropped ones do), so ``out`` is the rank's
+    partial sum; the tokens and the gates enter the split here."""
     G, g_tokens, d = groups.shape
     e, k = cfg.n_experts, cfg.experts_per_token
+    e_l = params["w_up"].shape[0]
     _, keep, dest, gate_keep, capacity, aux = _routing(params, groups, cfg)
+    if e_l < e:
+        # dest = (group · e + expert) · capacity + position; the rank's
+        # slots renumbered (group · e_l + expert − rank · e_l) · capacity
+        # + position
+        slot, pos = dest // capacity, dest % capacity
+        ex = slot % e - rank * e_l
+        keep = keep & (ex >= 0) & (ex < e_l)
+        dest = torch.where(keep, ((slot // e) * e_l + ex) * capacity + pos,
+                           G * e_l * capacity)
+    gate_keep = into_split(gate_keep)
 
     # each kept slot takes exactly one token, so the sum is that token;
     # only the trash row (dropped assignments, zeroed) takes collisions
-    tokens = groups.reshape(G * g_tokens, d)
+    tokens = into_split(groups).reshape(G * g_tokens, d)
     tok_rep = torch.repeat_interleave(tokens, k, dim=0)          # (G·g·k, d)
-    buf = tokens.new_zeros((G * e * capacity + 1, d))
+    buf = tokens.new_zeros((G * e_l * capacity + 1, d))
     buf.index_add_(0, dest, tok_rep * keep[:, None].to(tokens.dtype))
     # (G, e, c, d) → (e, G·c, d): one batched product an expert
-    expert_in = buf[:-1].reshape(G, e, capacity, d).transpose(0, 1) \
-        .reshape(e, G * capacity, d)
+    expert_in = buf[:-1].reshape(G, e_l, capacity, d).transpose(0, 1) \
+        .reshape(e_l, G * capacity, d)
     expert_in = shard(expert_in, "experts", None, None)
 
     h = torch.bmm(expert_in, params["w_up"].to(expert_in.dtype))
@@ -169,8 +198,8 @@ def _moe_groups(params: dict, groups: torch.Tensor, cfg
     h = silu(gt) * h
     expert_out = torch.bmm(h, params["w_down"].to(h.dtype))
     expert_out = shard(expert_out, "experts", None, None)
-    expert_out = expert_out.reshape(e, G, capacity, d).transpose(0, 1) \
-        .reshape(G * e * capacity, d)
+    expert_out = expert_out.reshape(e_l, G, capacity, d).transpose(0, 1) \
+        .reshape(G * e_l * capacity, d)
 
     out_flat = torch.cat([expert_out, expert_out.new_zeros((1, d))])[dest]
     out = (out_flat * gate_keep[:, None]).reshape(G, g_tokens, k, d).sum(2)
@@ -211,13 +240,22 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *, group_size: int = 4096,
     rank's groups' sum over the global group count, so that the ranks'
     terms add up to the global mean.
 
+    Under tensor parallelism the expert leaves are this ``model`` rank's
+    block of experts (:func:`_moe_groups`); ``out`` is the ranks' partial
+    outs summed over ``model`` (float32, rounded once), and ``aux`` is
+    whole, the same bits on every rank.
+
     :raises ValueError: if a global group would span ranks (``B·S`` is
-        not a whole number of groups); under tensor parallelism (experts
-        on a ``model`` axis are ROADMAP item 2.6b-4b).
+        not a whole number of groups); under tensor parallelism, if the
+        rank does not hold ``n_experts`` over the group's size experts
+        (a split inside the experts is ROADMAP item 2.6b-4b-3).
     """
-    if model_rank() is not None:
-        raise ValueError("MoE on a model axis wider than 1 is ROADMAP item "
-                         "2.6b-4b")
+    tp = model_rank()
+    if tp is not None and params["w_up"].shape[0] * tp[1] != cfg.n_experts:
+        raise ValueError(f"{params['w_up'].shape[0]} experts a rank on a "
+                         f"model axis of {tp[1]}, of {cfg.n_experts}: a "
+                         f"split inside the experts is ROADMAP item "
+                         f"2.6b-4b-3")
     require_exact_f32_products(x)
     B, S, d = x.shape
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
@@ -232,7 +270,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *, group_size: int = 4096,
     outs = []
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for chunk in tokens.split(per_pass):
-        out, aux = _moe_groups(params, chunk.reshape(-1, gs, d), cfg)
+        out, aux = _moe_groups(params, chunk.reshape(-1, gs, d), cfg,
+                               0 if tp is None else tp[0])
         outs.append(out.reshape(-1, d))
         aux_sum = aux_sum + aux.sum()
-    return torch.cat(outs).reshape(B, S, d), aux_sum / (n_global // gs)
+    out = torch.cat(outs).reshape(B, S, d)
+    if tp is not None:
+        out = out_of_split(out)
+    return out, aux_sum / (n_global // gs)

@@ -609,15 +609,17 @@ def test_moe_apply_global_groups():
 
 def test_mesh_step_raises_where_unsupported():
     """On a ``model`` axis wider than 1, what the tensor-parallel step does
-    not run yet (ROADMAP item 2.6b-4b: the MoE family, Adafactor,
-    ``seq_shard``), and unknown axes, raise before any collective."""
+    not run yet (ROADMAP item 2.6b-4b: an MoE whose experts the axis does
+    not divide, Adafactor, ``seq_shard``), and unknown axes, raise before
+    any collective."""
     from repro_torch.launch.mesh import AbstractMesh
 
     cfg = _cfg()
     for mesh in (AbstractMesh((2, 2), ("data", "model")),
                  AbstractMesh((1, 2, 2), ("pod", "data", "model"))):
         for c, run, opt in (
-                (_cfg(MOE_ARCH), _run("adamw", True, 1), _opt("adamw")),
+                (replace(_cfg(MOE_ARCH), n_experts=3), _run("adamw", True, 1),
+                 _opt("adamw")),
                 (cfg, _run("adafactor", True, 1), _opt("adafactor")),
                 (cfg, replace(_run("adamw", False, 1), seq_shard=True),
                  _opt("adamw"))):

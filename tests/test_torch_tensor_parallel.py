@@ -37,8 +37,8 @@ gradient against ``torch.logsumexp`` with negative labels;
 ``global_norm(group=)`` on leaves split over each axis and both; a leaf
 whole on ``model`` whose gradient is partial there, summed over ``model``
 by ``_reduce_grads``; and the ``ValueError``s of what a ``model`` axis
-does not run yet (ROADMAP items 2.6b-4b, 4c and 4d), raised before any
-collective.
+does not run yet (ROADMAP items 2.6b-4b-2 to 4b-5, 4c and 4d), raised
+before any collective.
 """
 from dataclasses import replace
 
@@ -199,7 +199,7 @@ def _lookup_check(mesh) -> dict:
         (want.float() * w).sum().backward()
         mine = _model_slice(table, mesh, 0).clone().requires_grad_()
         with model_parallel(mesh.get_group("model")):
-            got = tmodel._lookup(mine, tokens)
+            got = tmodel._lookup(mine, tokens, 512)
         (got.float() * w).sum().backward()
         out[str(dt)] = [torch.equal(got, want.detach()),
                         torch.equal(mine.grad,
@@ -224,7 +224,7 @@ def _ce_check(mesh) -> dict:
     (want * mask).sum().backward()
     mine = _model_slice(logits, mesh, -1).clone().requires_grad_()
     with model_parallel(mesh.get_group("model")):
-        got = ttrain._token_ce(mine, labels)
+        got = ttrain._token_ce(mine, labels, V)
     (got * mask).sum().backward()
     g_want = _model_slice(whole.grad, mesh, -1)
     return {"values": got.detach().clone(),
@@ -585,9 +585,10 @@ def test_init_train_state_places_as_the_restore(ranks, mesh_name):
 def test_unsupported_model_axis_raises_before_any_collective(tmp_path,
                                                              monkeypatch):
     """On a ``model`` axis of 2 (an ``AbstractMesh``: no process group,
-    so any collective would fail otherwise) the MoE, RWKV6 and hybrid
-    families, ``seq_shard``, Adafactor and a split inside a query head
-    raise naming 2.6b-4b; the compressed step and its state 2.6b-4d;
+    so any collective would fail otherwise) an MoE whose experts the axis
+    does not divide, the RWKV6 and hybrid families, ``seq_shard``,
+    Adafactor and a split inside a query head raise naming 2.6b-4b (its
+    sub-items 2.6b-4b-2 to 4b-5); the compressed step and its state 2.6b-4d;
     ``train_loop`` 2.6b-4c before any checkpoint is read or any state is
     made."""
     from repro_torch.checkpoint import CheckpointManager
@@ -598,7 +599,8 @@ def test_unsupported_model_axis_raises_before_any_collective(tmp_path,
         mesh = AbstractMesh(shape, names)
         dense, run = _cfg("deepseek_7b"), _run(False, 1)
         for cfg, r, opt in (
-                (_cfg("granite_moe_1b_a400m"), run, _opt()),
+                (replace(_cfg("granite_moe_1b_a400m"), n_experts=3), run,
+                 _opt()),
                 (_cfg("rwkv6_7b"), run, _opt()),
                 (_cfg("zamba2_2_7b"), run, _opt()),
                 (dense, replace(run, seq_shard=True), _opt()),
