@@ -14,9 +14,9 @@ Two step builders, as in the reference:
   state are sharded ZeRO-3 style on the ``embed`` axis (gathered whole
   for the forward, the gradients reduce-scattered into the shards); and
   tensor-parallel over a ``model`` axis wider than 1 for the dense
-  attention and MLP families and the MoE family with AdamW: each
-  ``model`` rank holds and computes its slice of the heads, the ffn or
-  the experts (expert parallelism) and of a vocabulary the axis divides
+  attention and MLP, MoE, RWKV6 and Mamba2-hybrid families with AdamW:
+  each ``model`` rank holds and computes its slice of the heads, the ffn
+  or the experts (expert parallelism) and of a vocabulary the axis divides
   (one it does not divide stays whole), with explicit collectives over
   the ``model`` group (:func:`~repro_torch.models.layers.model_parallel`)
   and a vocab-parallel cross-entropy on a split vocabulary;
@@ -300,33 +300,47 @@ def _check_model_axis(cfg: ModelConfig, run: RunConfig, opt_cfg,
     ``opt_cfg`` on ``mesh``: a ``model`` axis of 1 runs everything the
     data-parallel step does; a wider one, with AdamW, the dense attention
     and MLP families (token or embedding input) whose query heads and ffn
-    the axis divides, and the MoE family whose query heads and experts it
-    divides (expert parallelism).  A vocabulary the axis does not divide
+    the axis divides, the MoE family whose query heads and experts it
+    divides (expert parallelism), the RWKV6 family whose heads and ffn it
+    divides, and the hybrid family whose Mamba2 heads, query heads and
+    ffn it divides, and the widths of the fused ``w_in`` and ``conv_w``
+    (which the rules would otherwise leave whole on ``model``, their
+    gradients partial there).  A vocabulary the axis does not divide
     stays whole on every ``model`` rank.
 
-    :raises ValueError: as :func:`_mesh_axes` says; above 1, for the
-        RWKV6 and hybrid families (ROADMAP item 2.6b-4b-2), a split inside
-        a query head, the ffn or the experts (2.6b-4b-3),
-        ``run.seq_shard`` (2.6b-4b-4) and Adafactor (2.6b-4b-5).
+    :raises ValueError: as :func:`_mesh_axes` says; above 1, for a split
+        inside a head, the ffn, the experts or the fused Mamba2 leaves
+        (ROADMAP item 2.6b-4b-3), ``run.seq_shard`` (2.6b-4b-4) and
+        Adafactor (2.6b-4b-5).
     """
     n = _mesh_axes(mesh)["model"]
     if n == 1:
         return
-    why = None
-    if cfg.family in ("ssm", "hybrid"):
-        why, item = f"the {cfg.family} family", "2.6b-4b-2"
-    elif run.seq_shard:
+    why, item = None, "2.6b-4b-3"
+    if run.seq_shard:
         why, item = "sequence sharding (seq_shard=True)", "2.6b-4b-4"
     elif isinstance(opt_cfg, AdafactorConfig):
         why, item = "Adafactor", "2.6b-4b-5"
+    elif cfg.family == "ssm":
+        heads = cfg.d_model // cfg.rwkv_head
+        if heads % n or cfg.d_ff % n:
+            why = (f"{heads} RWKV6 heads and an ffn of {cfg.d_ff} split {n} "
+                   f"ways")
+    elif cfg.family == "hybrid":
+        din, ns = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+        heads = din // cfg.ssm_head
+        widths = (heads, cfg.n_heads, cfg.d_ff, 2 * din + 2 * ns + heads,
+                  din + 2 * ns)
+        if any(w % n for w in widths):
+            why = (f"{heads} Mamba2 heads, {cfg.n_heads} query heads, an "
+                   f"ffn of {cfg.d_ff} and w_in/conv_w widths of "
+                   f"{widths[3]}/{widths[4]} split {n} ways")
     elif cfg.n_experts and (cfg.n_heads % n or cfg.n_experts % n):
         why = (f"{cfg.n_heads} query heads and {cfg.n_experts} experts "
                f"split {n} ways")
-        item = "2.6b-4b-3"
     elif not cfg.n_experts and (cfg.n_heads % n or cfg.d_ff % n):
         why = (f"{cfg.n_heads} query heads and an ffn of {cfg.d_ff} split "
                f"{n} ways")
-        item = "2.6b-4b-3"
     if why:
         raise ValueError(f"{cfg.name}: {why} on a model axis of {n} is "
                          f"ROADMAP item {item}")
@@ -398,7 +412,11 @@ def _partial_over_model(specs: dict, psh: dict, mesh) -> frozenset:
     its input outside the split; only the gates enter it, and their
     partial gradients are summed there) and a vocabulary leaf the axis
     does not divide (consumed whole) see the same inputs and gradients on
-    every ``model`` rank: their gradients are already whole there."""
+    every ``model`` rank: their gradients are already whole there.  So do
+    RWKV6's mixes, LoRA ``wA`` and gate ``cr`` (applied before the split
+    is entered); Mamba2's fused ``w_in`` and ``conv_w`` are split on
+    ``model`` and gathered in the forward, whose reduce-scatter sums
+    their gradients."""
     from torch.distributed.tensor import Shard
 
     dim = list(axis_sizes(mesh)).index("model")
@@ -497,7 +515,8 @@ def _mesh_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg, mesh, **kw):
     """:func:`make_train_step`'s step on a mesh: data-parallel over its
     batch axes, tensor-parallel over its ``model`` axis (the heads, the
     ffn and a vocabulary the axis divides split over it; the experts of
-    an MoE layer too: expert parallelism)."""
+    an MoE layer too: expert parallelism; RWKV6's and Mamba2's heads,
+    their norms over the heads summed over ``model``)."""
     _check_model_axis(cfg, run, opt_cfg, mesh)
     group, model = _mesh_groups(mesh)
     axes = None if model is None else _batch_axes(mesh)
@@ -555,8 +574,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     forward and backward on this rank's rows of each global microbatch
     inside ``mesh_context`` and ``model_parallel`` (the loss over the
     global count of labels; the ``model`` ranks of a row compute its
-    heads, ffn or experts, and a vocabulary the axis divides, in slices,
-    with all-reduces over ``model`` where a split ends; each rank routes
+    heads (attention, RWKV6 or Mamba2), ffn or experts, and a vocabulary
+    the axis divides, in slices, with all-reduces over ``model`` where a
+    split ends or a norm spans the heads; each rank routes
     every MoE token of its row, and runs a vocabulary the axis does not
     divide whole), sums the gradients over the batch ranks in one
     collective a leaf (a reduce-scatter into a sharded leaf's shard, an
@@ -569,8 +589,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     same on every rank.
 
     :raises ValueError: as :func:`_check_model_axis` says (a ``model``
-        axis wider than 1 runs the dense attention and MLP families and
-        the MoE family with AdamW); at the step, for a batch the
+        axis wider than 1 runs the dense attention and MLP, MoE, RWKV6 and
+        hybrid families with AdamW); at the step, for a batch the
         microbatches and ranks do not divide, and for an MoE token group
         that would span ranks.
     """

@@ -26,7 +26,9 @@ results summed over ``model``; the gradient as it is), and
 :func:`gather_split` for a leaf a rank needs whole.  The partial sums are
 added in float32 and rounded once to the activation's dtype.  Outside a
 :func:`model_parallel` block, and with a ``model`` group of one rank,
-every one of them is the identity, so serving runs as before.
+every one of them is the identity, so serving runs as before.  A norm
+over split heads (RWKV6's group norm, Mamba2's ``out_ln``) is
+:func:`split_rmsnorm`.
 
 Rounding follows the reference: :func:`rmsnorm` computes in float32 and
 rounds once; :func:`linear` multiplies in the activation dtype;
@@ -49,7 +51,8 @@ __all__ = ["ParamSpec", "ShapeDtypeStruct", "DTYPES", "init_from_specs",
            "model_parallel", "model_group", "model_rank", "into_split",
            "out_of_split",
            "gather_split",
-           "require_exact_f32_products", "rmsnorm", "linear", "rope_freqs",
+           "require_exact_f32_products", "rmsnorm", "split_rmsnorm", "linear",
+           "rope_freqs",
            "apply_rope"]
 
 #: The reference's dtype names.
@@ -364,6 +367,24 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+def split_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, width: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rmsnorm` over a vector ``width`` wide of which ``x`` holds
+    this ``model`` rank's slice (its heads) and ``gamma`` the same slice
+    of the gain: the float32 sum of squares is summed over ``model`` in
+    both directions (``into_split(out_of_split(·))``: the ranks' partial
+    sums added, and the gradient of the whole sum, partial on each rank,
+    added too) and divided by the whole ``width``.  Outside a
+    :func:`model_parallel` group it is :func:`rmsnorm`, bit for bit."""
+    if model_group() is None:
+        return rmsnorm(x, gamma, eps)
+    dt = x.dtype
+    x = x.float()
+    ss = into_split(out_of_split(torch.sum(x * x, dim=-1, keepdim=True)))
+    x = x * torch.rsqrt(ss / width + eps)
     return (x * gamma.float()).to(dt)
 
 

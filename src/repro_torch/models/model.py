@@ -253,17 +253,24 @@ def forward(params: dict, cfg, *, tokens: torch.Tensor | None = None,
     experts (expert parallelism), and a vocabulary the axis divides is
     split: the embedding lookup is summed over the ranks, and the logits
     are the rank's slice.  A vocabulary it does not divide is whole on
-    every rank, and so are the logits (:func:`vocab_split`).
+    every rank, and so are the logits (:func:`vocab_split`).  The RWKV6
+    and hybrid families run there in train mode: RWKV6's time mix and
+    the Mamba2 layers compute the rank's heads, the channel mix its ffn
+    columns, and the hybrid's shared attention and MLP as the dense
+    blocks do.
 
-    :raises ValueError: under tensor parallelism, for the RWKV6 and hybrid
-        families (ROADMAP item 2.6b-4b-2).
+    :raises ValueError: under tensor parallelism, for prefill and decode
+        of the RWKV6 and hybrid families, whose serve-time states are
+        built at the whole width.
     """
     check_ported(cfg)
-    if model_rank() is not None and cfg.family in ("ssm", "hybrid"):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family on a model "
-                         f"axis wider than 1 is ROADMAP item 2.6b-4b-2")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if (model_rank() is not None and cfg.family in ("ssm", "hybrid")
+            and mode != "train"):
+        raise ValueError(f"{cfg.name}: {mode} of the {cfg.family} family "
+                         f"on a model axis wider than 1 is not ported: its "
+                         f"serve-time state is built at the whole width")
     x = shard(_inputs(params, cfg, tokens, embeds), "batch", "seq", None)
     require_exact_f32_products(x)
     B, S = x.shape[:2]

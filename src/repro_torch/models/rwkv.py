@@ -18,12 +18,27 @@ The state is float32: ``wkv (B, nh, hd, hd)``, ``shift_t (B, d)`` and
 ``shift_c (B, d)``, the last normalised inputs of the two token shifts.
 The reference computes the block outside any Pallas kernel, and so does
 the port: its products are ``torch.matmul``/``einsum`` in float32.
+
+Under tensor parallelism (:func:`~.layers.model_parallel`) a ``model``
+rank holds its heads' columns of ``wr``/``wk``/``wv``/``wg``/``wB``, their
+slices of ``w0``/``u_bonus``/``gn`` and rows of ``wo``, and its columns of
+the channel mix's ``ck`` and rows of ``cv``; the norms' gains, the mixes
+``mu_*``, the LoRA's ``wA`` and the gate ``cr`` are whole on every rank.
+The split is entered *after* each whole leaf has been applied (the four
+mixed inputs of ``wr``/``wk``/``wv``/``wg``, the LoRA's hidden, the
+channel mix's ``ck`` input), so that a whole leaf's gradient is whole on
+every rank; the group norm is
+:func:`~.layers.split_rmsnorm` over the whole width; ``wo``'s and
+``cv``'s partial products are summed over ``model`` before the residual
+and before ``cr``'s gate multiplies them.  Only train mode runs there
+(``forward`` raises for the serve-time states).
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import ParamSpec, linear, rmsnorm, shard
+from .layers import (ParamSpec, into_split, linear, model_group,
+                     out_of_split, rmsnorm, shard, split_rmsnorm)
 from .moe import silu
 
 __all__ = ["rwkv6_specs", "rwkv6_apply", "init_rwkv_state"]
@@ -61,11 +76,14 @@ def rwkv6_specs(cfg) -> dict:
     }
 
 
-def init_rwkv_state(cfg, batch: int, *, device: torch.device) -> dict:
+def init_rwkv_state(cfg, batch: int, *, device: torch.device,
+                    heads: int | None = None) -> dict:
     """Zeroed float32 state of one block: a bf16 hand-off would make the
-    decode step see a rounded ``x_{t-1}`` the train path never saw."""
+    decode step see a rounded ``x_{t-1}`` the train path never saw.
+    ``heads``: the WKV state's head count (default all of them; a
+    ``model`` rank's own under tensor parallelism)."""
     d = cfg.d_model
-    nh, hd = d // cfg.rwkv_head, cfg.rwkv_head
+    nh, hd = heads or d // cfg.rwkv_head, cfg.rwkv_head
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     return {"wkv": z(batch, nh, hd, hd), "shift_t": z(batch, d),
             "shift_c": z(batch, d)}
@@ -123,8 +141,11 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
     on ``x (B, S, d)``.  Returns ``(out, new state)``; ``out`` has
     ``x``'s dtype.  ``state`` (zeros when None) is read, never written."""
     B, S, d = x.shape
-    nh, hd = d // cfg.rwkv_head, cfg.rwkv_head
-    st = state if state else init_rwkv_state(cfg, B, device=x.device)
+    hd = cfg.rwkv_head
+    dl = params["wr"].shape[-1]              # this rank's heads' width
+    nh = dl // hd
+    st = state if state else init_rwkv_state(cfg, B, device=x.device,
+                                             heads=nh)
     out_dtype = x.dtype
     x = x.float()
     p = {k: v.float() if v.is_floating_point() else v
@@ -133,12 +154,14 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
     # ---------------- time mix ----------------
     xn = rmsnorm(x, p["ln_t"], cfg.norm_eps)
     xprev = _token_shift(xn, st["shift_t"].to(xn.dtype))
-    r = linear(_mix(xn, xprev, p["mu_r"]), p["wr"])
-    k = linear(_mix(xn, xprev, p["mu_k"]), p["wk"])
-    v = linear(_mix(xn, xprev, p["mu_v"]), p["wv"])
-    g = linear(_mix(xn, xprev, p["mu_g"]), p["wg"])
+    mixed = [_mix(xn, xprev, p[f"mu_{c}"]) for c in "rkvg"]
+    if model_group() is not None:
+        # one entry for the four mixed inputs: one gradient sum
+        mixed = into_split(torch.stack(mixed)).unbind(0)
+    r, k, v, g = (linear(a, p[f"w{c}"]) for a, c in zip(mixed, "rkvg"))
     xw = _mix(xn, xprev, p["mu_w"])
-    logw = p["w0"] + linear(torch.tanh(linear(xw, p["wA"])), p["wB"])
+    logw = p["w0"] + linear(into_split(torch.tanh(linear(xw, p["wA"]))),
+                            p["wB"])
     # -log w_t, clipped to [1e-4, 2.5] so that the chunked form's
     # exp(±Σ) factors stay finite in float32
     neg_decay = torch.clamp(torch.exp(logw), 1e-4, 2.5)
@@ -155,18 +178,20 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
     else:
         y, new_wkv = _wkv_chunked(rh, kh, vh, lw, u, st["wkv"], chunk)
 
-    y = y.reshape(B, S, d)
-    y = rmsnorm(y, p["gn"], cfg.norm_eps)         # the group-norm stand-in
+    y = y.reshape(B, S, dl)
+    # the group-norm stand-in, over the whole width
+    y = split_rmsnorm(y, p["gn"], d, cfg.norm_eps)
     y = y * silu(g)
     y = shard(y, "batch", None, "heads")
-    x = x + linear(y, p["wo"])
+    x = x + out_of_split(linear(y, p["wo"]))
 
     # ---------------- channel mix ----------------
     xc = rmsnorm(x, p["ln_c"], cfg.norm_eps)
     xm = _mix(xc, _token_shift(xc, st["shift_c"].to(xc.dtype)), p["mu_c"])
-    kk = torch.square(torch.relu(linear(xm, p["ck"])))
+    kk = torch.square(torch.relu(linear(into_split(xm), p["ck"])))
     kk = shard(kk, "batch", None, "mlp")
-    cm = linear(kk, p["cv"]) * torch.sigmoid(linear(xm, p["cr"]))
+    cm = (out_of_split(linear(kk, p["cv"]))
+          * torch.sigmoid(linear(xm, p["cr"])))
     out = (x + cm).to(out_dtype)
     return out, {"wkv": new_wkv, "shift_t": xn[:, -1].float(),
                  "shift_c": xc[:, -1].float()}

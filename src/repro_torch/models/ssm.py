@@ -15,12 +15,27 @@ model's dtype**, as the reference keeps it (ROADMAP.md, queue 3: in a
 float32 model the decode step reads a rounded ``x_{t-1..t-3}``).  The
 block runs outside any Pallas kernel in the reference and outside any
 kernel of ``kernels/`` here.
+
+Under tensor parallelism (:func:`~.layers.model_parallel`) a ``model``
+rank computes its block of the heads: its slices of ``a_log``,
+``dt_bias``, ``d_skip`` and ``out_ln`` and its rows of ``w_out``.  The
+fused leaves ``w_in`` (columns ``[x_in, z, B, C, dt]``) and ``conv_w``
+(channels ``[x_in, B, C]``) are split by the rules into contiguous
+blocks that do not fall on head boundaries, so each rank gathers them
+whole over ``model`` and takes its heads' ``x_in``, ``z`` and ``dt``
+columns and all of ``B`` and ``C`` (one group of ``ns``, shared by
+every head); the gather's reduce-scatter sums the ranks' partial
+gradients of the shared columns.  ``out_ln`` is
+:func:`~.layers.split_rmsnorm` over the whole ``d_inner``, and
+``w_out``'s partial products are summed over ``model``.  Only train
+mode runs there (``forward`` raises for the serve-time states).
 """
 from __future__ import annotations
 
 import torch
 
-from .layers import ParamSpec, linear, rmsnorm, shard
+from .layers import (ParamSpec, gather_split, into_split, linear,
+                     model_rank, out_of_split, rmsnorm, shard, split_rmsnorm)
 from .moe import silu
 
 __all__ = ["mamba2_specs", "mamba2_apply", "init_mamba_state"]
@@ -66,6 +81,24 @@ def _split_proj(proj: torch.Tensor, din: int, ns: int, nh: int):
             proj[..., 2 * din:2 * din + ns],
             proj[..., 2 * din + ns:2 * din + 2 * ns],
             proj[..., 2 * din + 2 * ns:])
+
+
+def _heads_leaves(params: dict, cfg, rank: int, size: int):
+    """``(w_in, conv_w)`` of ``model`` rank ``rank`` of ``size``: the
+    fused leaves gathered whole over ``model`` (each rank holds a
+    contiguous block of their columns), then its heads' ``x_in``, ``z``
+    and ``dt`` columns beside all of ``B`` and ``C``, in the fused
+    order."""
+    din = cfg.ssm_expand * cfg.d_model
+    nh, ns = din // cfg.ssm_head, cfg.ssm_state
+    dl, hl = din // size, nh // size
+    w = gather_split(params["w_in"], -1)
+    c = gather_split(params["conv_w"], -1)
+    x0, t0 = rank * dl, 2 * din + 2 * ns + rank * hl
+    w_in = torch.cat([w[:, x0:x0 + dl], w[:, din + x0:din + x0 + dl],
+                      w[:, 2 * din:2 * din + 2 * ns], w[:, t0:t0 + hl]], -1)
+    conv_w = torch.cat([c[:, x0:x0 + dl], c[:, din:]], -1)
+    return w_in, conv_w
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor,
@@ -135,16 +168,21 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
     needs ``state``; train and prefill start from zeros without one.
     ``state`` is read, never written."""
     B_, S, d = x.shape
-    din = cfg.ssm_expand * d
-    nh = din // cfg.ssm_head
     hd = cfg.ssm_head
     ns = cfg.ssm_state
+    nh = params["a_log"].shape[-1]           # this rank's heads
+    din = nh * hd
 
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)
-    proj = linear(xn, params["w_in"])
+    w_in, conv_w = params["w_in"], params["conv_w"]
+    tp = model_rank()
+    if tp is not None:
+        xn = into_split(xn)
+        w_in, conv_w = _heads_leaves(params, cfg, *tp)
+    proj = linear(xn, w_in)
     xin, z, Bm, Cm, dt = _split_proj(proj, din, ns, nh)
     conv_out, conv_state = _causal_conv(
-        torch.cat([xin, Bm, Cm], dim=-1), params["conv_w"],
+        torch.cat([xin, Bm, Cm], dim=-1), conv_w,
         None if state is None else state["conv"])
     xin, Bm, Cm = (conv_out[..., :din], conv_out[..., din:din + ns],
                    conv_out[..., din + ns:])
@@ -169,8 +207,9 @@ def mamba2_apply(params: dict, x: torch.Tensor, cfg, *, mode: str,
         y, h = _ssd_chunked(xdt, la, Bf, Cf, h0, chunk)
 
     y = y + params["d_skip"][:, None] * xh.float()
-    y = rmsnorm(y.reshape(B_, S, din).to(x.dtype), params["out_ln"],
-                cfg.norm_eps)
+    y = split_rmsnorm(y.reshape(B_, S, din).to(x.dtype), params["out_ln"],
+                      cfg.ssm_expand * d, cfg.norm_eps)
     y = y * silu(z)
     y = shard(y, "batch", None, "heads")
-    return linear(y, params["w_out"]), {"ssm": h, "conv": conv_state}
+    return (out_of_split(linear(y, params["w_out"])),
+            {"ssm": h, "conv": conv_state})

@@ -37,7 +37,7 @@ gradient against ``torch.logsumexp`` with negative labels;
 ``global_norm(group=)`` on leaves split over each axis and both; a leaf
 whole on ``model`` whose gradient is partial there, summed over ``model``
 by ``_reduce_grads``; and the ``ValueError``s of what a ``model`` axis
-does not run yet (ROADMAP items 2.6b-4b-2 to 4b-5, 4c and 4d), raised
+does not run yet (ROADMAP items 2.6b-4b-3 to 4b-5, 4c and 4d), raised
 before any collective.
 """
 from dataclasses import replace
@@ -586,9 +586,9 @@ def test_unsupported_model_axis_raises_before_any_collective(tmp_path,
                                                              monkeypatch):
     """On a ``model`` axis of 2 (an ``AbstractMesh``: no process group,
     so any collective would fail otherwise) an MoE whose experts the axis
-    does not divide, the RWKV6 and hybrid families, ``seq_shard``,
-    Adafactor and a split inside a query head raise naming 2.6b-4b (its
-    sub-items 2.6b-4b-2 to 4b-5); the compressed step and its state 2.6b-4d;
+    does not divide, RWKV6 with 3 heads and the hybrid with 3 Mamba2
+    heads, ``seq_shard``, Adafactor and a split inside a query head raise
+    naming 2.6b-4b (its sub-items 2.6b-4b-3 to 4b-5); the compressed step and its state 2.6b-4d;
     ``train_loop`` 2.6b-4c before any checkpoint is read or any state is
     made."""
     from repro_torch.checkpoint import CheckpointManager
@@ -601,8 +601,9 @@ def test_unsupported_model_axis_raises_before_any_collective(tmp_path,
         for cfg, r, opt in (
                 (replace(_cfg("granite_moe_1b_a400m"), n_experts=3), run,
                  _opt()),
-                (_cfg("rwkv6_7b"), run, _opt()),
-                (_cfg("zamba2_2_7b"), run, _opt()),
+                (replace(_cfg("rwkv6_7b"), d_model=96), run, _opt()),
+                (replace(_cfg("zamba2_2_7b"), d_model=96, ssm_head=64), run,
+                 _opt()),
                 (dense, replace(run, seq_shard=True), _opt()),
                 (dense, replace(run, optimizer="adafactor"),
                  AdafactorConfig()),
