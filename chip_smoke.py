@@ -174,9 +174,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    first two layers (the reference test's depth and tolerance); at full
    depth the int8 cache's error at most 1e-2 above the bf16 cache's;
    and, with the same weights in float32 at full depth, ≤ 1e-2 with the
-   int8 cache (the bf16 cache's reading is printed beside it).  Prefill
-   and decode step times and a ``torch.profiler`` breakdown of both are
-   printed.  Kernels 7 and 8 are held against their plain versions
+   int8 cache (the bf16 cache's reading is printed beside it).  The int8
+   cache's prefill and decode step times and a ``torch.profiler``
+   breakdown of three decode steps are printed.  Kernels 7 and 8 are held against their plain versions
    (exactly) and timed at the path's two shapes: the stacked prefill
    cache (kernel 7 in turns with its warp route, the kernel 7 of earlier
    builds) and a decode step's K (one position of one layer, 256 × 128;
@@ -205,9 +205,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    router near-tie that the cache's rounding flips moves a token by a
    whole expert's share; the flipped tokens are counted), and, unpinned,
    the float32 int8 cache at most 1e-2 above the bf16 cache.  Printed
-   for both: init s, prefill s, decode ms a step, peak device bytes, and
-   a ``torch.profiler`` breakdown of one decode step with the MoE
-   layer's routing, dispatch and expert operators named;
+   for both: init s, the int8 cache's prefill s and decode ms a step,
+   peak device bytes;
 9. recurrent-state serving, through the user entry points, with phase 7's
    traffic: rwkv6-7b (32 layers, d_model 4096, 64 heads of 64, d_ff
    14,336, vocab 65,536) and zamba2-2.7b (54 Mamba2 layers in 9 groups of
@@ -236,10 +235,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    and tolerance for this arch), the int8 cache at most 1e-2 above the
    bf16 cache's reading at full depth, and so in float32 too (its decode
    reads the conv state rounded to bf16, as the reference keeps it).
-   Printed for both: init s, prefill s, decode ms a step, peak device
-   bytes, and a ``torch.profiler`` breakdown of one decode step with the
-   blocks (``rwkv6_apply``, ``mamba2_apply``,
-   ``attention``, ``mlp_apply``) and the WKV / SSD operators named.
+   Printed for both: init s, the int8 cache's prefill s and decode ms a
+   step, peak device bytes.
 
 10. embedding-input serving, through the user entry points, with phase
    7's traffic fed as frontend embeddings (N(0, 1) · 0.02 from a numpy
@@ -262,17 +259,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (``roundtrip_rms``, printed: the int8 round trip's RMS error over
    the bf16 one's on Gaussian head vectors, 3.57 at head_dim 64 and 3.89
    at 128).
-   Printed: init, prefill s, decode ms a step, a profiled decode step's
-   launches and busy share, peak bytes;
+   Printed: init, prefill s, decode ms a step, peak bytes;
 11. training on one card, through ``repro_torch.launch.train``, one fixed
    batch of 8 × 1,024 positions with labels (the last position masked)
    from numpy seeds: five AdamW steps of musicgen-medium at full size
    (``remat="layer"``, lr 1e-3, one warmup step; the loss falls,
    ``lm_head`` changes, every loss and norm finite, no kernel launched);
-   three steps of its two-replica form (``make_train_step_compressed``,
-   state and error feedback replicated, ~41 GB; one under the profiler,
-   then two counted): kernels 7 and 8 exactly once a leaf and step (10
-   each), the replicas bit-identical after the
+   two steps of its two-replica form (``make_train_step_compressed``,
+   state and error feedback replicated, ~41 GB): kernels 7 and 8 exactly
+   once a leaf and step (10 each), the replicas bit-identical after the
    step, and on the last step's ``lm_head`` and ``w_up`` leaves kernels 7
    and 8 equal to their plain versions at group 256 (on the exchange's
    matrix and an odd-length cut of ``lm_head``), the kept residual the
@@ -282,9 +277,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    token embedding's gradient) with two microbatches, whose gradients
    are first held within 2.5e-2 of the one-batch gradients (the CPU
    tests' bf16 gradient tolerance); the loss falls.  Printed: step s,
-   tokens/s, peak bytes, the two-replica step's profile (launches, busy
-   share),
-   ``float32_matmul_precision`` (``"highest"``);
+   tokens/s, peak bytes, ``float32_matmul_precision`` (``"highest"``);
 12. the resilient loop on one card, through
    ``repro_torch.launch.train.train_loop`` with a ``checkpoint_dir``:
    musicgen-medium at full width cut to 2 of its 48 layers (59,776,512
@@ -416,7 +409,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    each leaf's gradient within ``DP_GRAD_REL_MAX`` or within
    ``FLOOR_X`` times its float32 floor (two more evaluations of (j0)'s
    or (k0)'s gradient in the same run), whichever is larger; every
-   kernel 0 launches in (j0), (j), (k0) and (k).
+   kernel 0 launches in (j0), (j), (k0) and (k).  Run (l), after them:
+   sixteen ranks spawned on the one card (one intra-op thread each) on
+   ``(data=1, model=16)``, the production meshes' ``model`` axis:
+   starcoder2-3b at full width (``MESH_TP16_ARCH``, ``MESH_TP16_LAYERS``
+   of its 30 layers; 24 query heads of 128, 2 kv heads, qkv biases, GELU
+   ffn 12,288, vocabulary 49,152), float32, phase 13's run without fsdp
+   (its train preset), a 4 × 1,024 batch (``MESH_TP16_BATCH``), two
+   steps of
+   ``make_train_step(mesh=)``: each rank computes its 1 or 2 query heads
+   (``layers.unit_range``), their columns cut from ``wq``/``bq``/``wo``
+   gathered whole (the axis splits them inside a head) and from
+   ``wk``/``wv`` gathered inside the kv heads, and its 768 ffn columns;
+   held to (l0), the one-process step of the same model, init and batch
+   run in the parent after (f)'s spawn, as (j) is without floors: step
+   1's loss within ``DP_LOSS_REL_MAX``, the gradients of
+   ``MESH_TP16_LEAVES`` within ``DP_GRAD_REL_MAX``, each rank's shards
+   within ``DP_UPDATE_REL_MAX`` of the one-process update of them; the
+   same metrics' bits on the sixteen ranks; a ``model`` collective a
+   step; a rank's local / full parameter bytes below 1.05 / 16; every
+   kernel 0 launches in (l0) and (l).
    Printed: each rank's synchronized step seconds and the exchange's,
    the gather's and the reduction's shares, the bytes that cross a step
    (int8 codes and float32 scales) beside the float32 gradient bytes,
@@ -435,8 +447,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    seconds; (h)'s step seconds with the gather's, the reduction's and the
    ``model`` collectives' shares, the bytes a rank sends over each axis
    (ring volume), peak device memory, local / full parameter bytes; the
-   same of (i), with its flips against (a″), and of (j) and (k), with
-   the floors and bars.  The ranks share one card:
+   same of (i), with its flips against (a″), of (j) and (k), with
+   the floors and bars, and of (l).  The ranks share one card:
    nothing crosses a link;
 14. the entry point (``entry_point``): ``python -m
    repro_torch.launch.train_lm --preset 20m --steps 20 --ckpt <tmp>``,
@@ -497,10 +509,6 @@ RECURRENT_FIELDS = {
                "vocab_size")}
 RECURRENT_SEED = 19
 RWKV_F32_LAYERS = 8              # the float32 witness's depth (of 32)
-# the WKV / SSD operators (the blocks are NamedBlocks' ranges)
-RECURRENT_ATEN_OPS = (
-    "aten::einsum", "aten::bmm", "aten::mm", "aten::cumsum", "aten::exp",
-    "aten::mul", "aten::_to_copy", "aten::cat")
 # phase 10: (arch, layers kept (None: all), parameters by the reference's
 # param_counts at that depth and at full depth, layers of the float32
 # witness); the embeddings' seed
@@ -596,6 +604,25 @@ MESH_RECURRENT = (
     ("k", "zamba2_2_7b", 6, ("layers/w_in", "layers/conv_w",
                              "layers/out_ln", "layers/ln", "shared_attn/wq",
                              "embed")))
+# (l): starcoder2-3b at full width (24 query heads of 128, 2 kv heads,
+# qkv biases, GELU ffn 12,288, vocabulary 49,152), MESH_TP16_LAYERS of
+# its 30 layers, float32, phase 13's run without fsdp (its train preset)
+# and seed, MESH_TP16_BATCH, on (data=1, model=16), the production
+# meshes' model axis:
+# sixteen gloo ranks on the one card, one intra-op thread each.  The axis
+# splits wq, bq and wo inside a query head (192 columns, 1.5 heads, a
+# rank; 1 or 2 heads computed) and wk, wv inside the kv heads (16
+# columns a rank).  MESH_STEPS steps held to (l0), the one-process step
+# of the same model, init and batch, on the named leaves' step-1
+# gradients; the ranks must end within MESH_TP16_JOIN_S
+MESH_TP16_ARCH, MESH_TP16_LAYERS = "starcoder2_3b", 2
+MESH_TP16_SHAPE = (1, 16)
+# 4, not 8, rows of 1,024: at phase 13's 8 × 1,024 the sixteen ranks took
+# 114.3 s of wall inside the whole script, over 90 s
+MESH_TP16_BATCH = (4, 1024)
+MESH_TP16_LEAVES = ("layers/attn/wq", "layers/attn/bq", "layers/attn/wk",
+                    "layers/attn/wo", "layers/attn/ln", "layers/mlp/w_up")
+MESH_TP16_JOIN_S = 900
 # (g): (d)'s model, batch and mesh with Adafactor under fsdp (lr 1e-3,
 # one warmup step) for MESH_STEPS steps, in (d)'s two ranks; step 1's
 # beta2 is 0, so step 2 is the first to read the carried moments
@@ -618,11 +645,6 @@ DP_LOSS_REL_MAX, DP_GRAD_REL_MAX, DP_UPDATE_REL_MAX = 1e-6, 1e-5, 1e-6
 # read 1.2e-4 to 1.6e-3 and zamba2-2.7b's 0.9e-5 to 1.4e-5 on an H100:
 # the chunked recurrences' float32 gradients are that ill-conditioned
 FLOOR_X = 2.0
-# the MoE layer's routing, dispatch and expert operators
-MOE_ATEN_OPS = ("aten::softmax", "aten::sort", "aten::scatter_add_",
-                "aten::searchsorted", "aten::index_copy_",
-                "aten::repeat_interleave", "aten::index_add_", "aten::bmm",
-                "aten::index", "aten::cat")
 # phase 2d: the variant set and the reference bench's --quick rungs
 VARIANT_TARGETS = {"hi": "psnr>=70", "lo": "psnr>=50",
                    "ps": "ps_error<=0.01"}
@@ -988,15 +1010,12 @@ def read_turns(torch, ops, fn) -> dict:
 
 
 def device_profile(torch, fn, count: str | None = None,
-                   warm_up: bool = True, aten_ops: tuple = (),
-                   ranges: tuple = ()) -> dict:
+                   warm_up: bool = True) -> dict:
     """One ``fn()`` under ``torch.profiler`` (after a warm-up, unless the
     caller has just run it): wall ms, summed kernel ms (its share of the
     wall is the device's busy share), the kernel launches and the kernels
     that take most of the time; with ``count``, also the launches of
-    kernels whose name holds it; with ``aten_ops``, each named operator's
-    calls and the device ms of the kernels it launched; with ``ranges``,
-    the same for each ``record_function`` range of that name."""
+    kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1010,11 +1029,9 @@ def device_profile(torch, fn, count: str | None = None,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only: an operator's own entry also carries the
-    # time of the kernels it launched, and a named range's device-side
-    # entry spans the kernels inside it, so it is left out of the sums
+    # time of the kernels it launched
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-          and e.key not in ranges]
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     ev.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in ev) / 1e3
     out = {"wall_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
@@ -1023,12 +1040,6 @@ def device_profile(torch, fn, count: str | None = None,
                    for e in ev[:8]]}
     if count is not None:
         out[f"{count}_launches"] = sum(e.count for e in ev if count in e.key)
-    for key, names in (("aten_ops", aten_ops), ("ranges", ranges)):
-        if names:
-            by = {e.key: e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU and e.key in names}
-            out[key] = {k: (by[k].count, by[k].device_time_total / 1e3)
-                        for k in names if k in by}
     return out
 
 
@@ -2140,8 +2151,8 @@ def lm_consistency(torch, cfg, params, prompts, run,
 
 
 def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
-    """``torch.profiler`` over one prefill and over three decode steps
-    (see :func:`device_profile`)."""
+    """``torch.profiler`` over three decode steps (see
+    :func:`device_profile`)."""
     logits, state = eng.prefill(params, prompts, LM_PROMPT + 3)
     tok = torch.argmax(logits, dim=-1)
 
@@ -2150,9 +2161,6 @@ def lm_profile(torch, eng, params, prompts, smi: str) -> dict:
         for i in range(3):
             _, st = eng.decode(params, st, tok, LM_PROMPT + i)
     return {"card": smi,
-            "prefill": device_profile(
-                torch, lambda: eng.prefill(params, prompts, LM_PROMPT),
-                warm_up=False),
             "decode_3_steps": device_profile(torch, decode_3_steps)}
 
 
@@ -2386,9 +2394,11 @@ def lm_serving(torch, smi: str) -> list[dict]:
     expect(rel_q <= rel_b + 1e-2,
            f"int8 consistency {rel_q} > bf16's {rel_b} + 1e-2")
 
-    # ---- step times: prefill, and each decode step, synchronised
-    for tag, eng in (("int8", eng_q), ("bf16", eng_b)):
-        step_times(torch, eng, params, prompts, st, tag)
+    # ---- step times of the int8 cache: prefill, and each decode step,
+    # synchronised (the bf16 cache's repeat and the prefill's profile
+    # gated nothing and were cut to keep the script within its wall-time
+    # bar; PERF.md §4)
+    step_times(torch, eng_q, params, prompts, st, "int8")
     print("LM serving: " + json.dumps(st))
     print("LM serving, device time by kernel: " + json.dumps(
         lm_profile(torch, eng_q, params, prompts, smi)))
@@ -2583,17 +2593,10 @@ def moe_serving(torch, smi: str) -> dict:
             expect(st["greedy_agreement"] >= 0.5,
                    f"{arch}: int8 and bf16 caches agree on "
                    f"{st['greedy_agreement']} < 0.5")
-        for ctag, eng in engines.items():
-            step_times(torch, eng, params, prompts, st, ctag)
-
-        # ---- one decode step under the profiler (int8 cache)
-        eng = engines["int8"]
-        logits, state = eng.prefill(params, prompts, LM_PROMPT + 1)
-        tok = torch.argmax(logits, dim=-1)
-        st["decode_step_profile"] = device_profile(
-            torch, lambda: eng.decode(params, state, tok, LM_PROMPT),
-            aten_ops=MOE_ATEN_OPS)
-        del logits, state
+        # the int8 cache's step times (the bf16 cache's repeat and the
+        # decode step's profile gated nothing and were cut to keep the
+        # script within its wall-time bar; PERF.md §4)
+        step_times(torch, engines["int8"], params, prompts, st, "int8")
 
         if depth is None:
             # ---- the cache's conversion and read-back: K8
@@ -2675,35 +2678,6 @@ def moe_consistency(torch, cfg, params, prompts) -> dict:
             torch, cfg32, params, prompts, run, pin=pin)
         st[f"float32_routing_flips_{tag}_cache"] = int(pin.flips)
     return st
-
-
-class NamedBlocks:
-    """While active, the stack's blocks run inside
-    ``torch.profiler.record_function`` ranges named after them
-    (``rwkv6_apply``: the time mix with the WKV6 recurrence and the
-    channel mix; ``mamba2_apply``: the Mamba2 block with the SSD;
-    ``attention``; ``mlp_apply``), so that a profile attributes device
-    time to them.  ``repro_torch.models.model``'s names are wrapped; the
-    wrappers return what the blocks return."""
-
-    NAMES = ("rwkv6_apply", "mamba2_apply", "attention", "mlp_apply")
-
-    def __init__(self, torch):
-        from repro_torch.models import model
-        self.torch, self.model = torch, model
-
-    def __enter__(self):
-        self.orig = {n: getattr(self.model, n) for n in self.NAMES}
-        for name, fn in self.orig.items():
-            def named(*a, _fn=fn, _name=name, **kw):
-                with self.torch.profiler.record_function(_name):
-                    return _fn(*a, **kw)
-            setattr(self.model, name, named)
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.model, name, fn)
 
 
 def seed_recurrence_leaves(torch, params: dict, seed: int) -> list[str]:
@@ -2823,21 +2797,10 @@ def recurrent_serving(torch, smi: str) -> dict:
         # weights its logits are flat enough that bf16 rounding alone
         # reorders them, so the cache is held by the consistency gates
         # below and by K7/K8 equal to their plain versions at its shapes
-        for ctag, eng in engines.items():
-            if cfg.family != "ssm" or ctag == "int8":
-                step_times(torch, eng, params, prompts, st, ctag)
-
-        # ---- one decode step under the profiler, the blocks named (the
-        # prefill's profile gated nothing and was cut to keep the script
-        # within its wall-time bar; PERF.md §4)
-        eng = engines["int8"]
-        with NamedBlocks(torch):
-            logits, state = eng.prefill(params, prompts, LM_PROMPT + 1)
-            tok = torch.argmax(logits, dim=-1)
-            st["decode_step_profile"] = device_profile(
-                torch, lambda: eng.decode(params, state, tok, LM_PROMPT),
-                aten_ops=RECURRENT_ATEN_OPS, ranges=NamedBlocks.NAMES)
-        del logits, state
+        # the int8 cache's step times (the bf16 cache's repeat and the
+        # profiles gated nothing and were cut to keep the script within
+        # its wall-time bar; PERF.md §4)
+        step_times(torch, engines["int8"], params, prompts, st, "int8")
 
         if cfg.family == "hybrid":
             # ---- the cache's conversion and read-back: K8
@@ -3044,15 +3007,6 @@ def embedding_serving(torch, smi: str) -> dict:
             (last["int8"] - last["bf16"]).abs().max()
             / last["bf16"].abs().max())
 
-        # ---- one decode step under the profiler (int8 cache)
-        eng = engines["int8"]
-        _, state = eng.prefill(params, embeds=prompts,
-                               capacity=LM_PROMPT + 1)
-        st["decode_step_profile"] = device_profile(
-            torch, lambda: eng.decode(params, state, embeds=steps[0],
-                                      cache_len=LM_PROMPT))
-        del state
-
         # ---- the cache's conversion and read-back: K8; then K7 and K8
         # and the fused decode write against their plain versions at this
         # arch's head_dim, after the counts were read
@@ -3143,12 +3097,13 @@ def leaf_at(tree: dict, path: str):
     return tree
 
 
-def train_batch(torch, np, cfg, seed: int, dev) -> dict:
-    """One fixed train batch of ``TRAIN_BATCH`` from a numpy seed: token
-    ids or frontend embeddings, and labels in ``[0, vocab)`` whose last
-    position is -1 (masked), as the reference's pipelines make them."""
+def train_batch(torch, np, cfg, seed: int, dev, shape=None) -> dict:
+    """One fixed train batch of ``shape`` (default ``TRAIN_BATCH``) from a
+    numpy seed: token ids or frontend embeddings, and labels in ``[0,
+    vocab)`` whose last position is -1 (masked), as the reference's
+    pipelines make them."""
     rng = np.random.default_rng(seed)
-    B, S = TRAIN_BATCH
+    B, S = shape or TRAIN_BATCH
     out = {}
     from repro_torch.models.model import input_key
     if input_key(cfg) == "tokens":
@@ -3263,10 +3218,9 @@ def training(torch, smi: str) -> dict:
     check(len(want) == len(TRAIN_EXCHANGE_LEAVES)
           and sum(tuple(a.shape) in want for _, a in leaves(params_r))
           == len(want), f"pods: recorded shapes {want}")
-    # one step under the profiler first (not counted), then the counted
-    # steps, the last of which the checks below read
-    st["step_profile"] = device_profile(
-        torch, lambda: step_r(params_r, opt_r, ef_r, batch), warm_up=False)
+    # the counted steps, the last of which the checks below read (a first
+    # step under the profiler gated nothing and was cut to keep the
+    # script within its wall-time bar; PERF.md §4)
     per_step, losses = [], []
     with RecordExchange(want) as rec:
         for i in range(TRAIN_PODS_STEPS):
@@ -4688,6 +4642,34 @@ def pod_data_rank(rank: int, n: int, root: str, cfg, ep_cfg, rec_cfgs,
         dist.destroy_process_group()
 
 
+def tp16_rank(rank: int, n: int, root: str, cfg, dev_type: str) -> None:
+    """One rank of phase 13 (l) (spawned, one intra-op thread): joins its
+    own gloo group at ``root``, runs :func:`rec_run` of ``cfg`` on
+    ``MESH_TP16_SHAPE`` without fsdp, and writes its readings to
+    ``root/l_rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(root, "rdzv_l"),
+        rank=rank, world_size=n,
+        timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    try:
+        out = {"rank": rank,
+               "l": rec_run(torch, dist, root, "l", cfg,
+                            torch.device(dev_type), shape=MESH_TP16_SHAPE,
+                            fsdp=False, batch_shape=MESH_TP16_BATCH)}
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+        check(not bad, f"rank {rank} imported {sorted(bad)[:5]}")
+        with open(os.path.join(root, f"l_rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        dist.destroy_process_group()
+
+
 def pod_data_run(torch, dist, rank: int, root: str, cfg, dev) -> dict:
     """Run (f) of phase 13 on this rank of ``(pod=2, data=2, model=1)``:
     ``init_replica_state(mesh=)`` and ``MESH_STEPS`` steps of
@@ -5361,8 +5343,8 @@ def ep_checks(out: dict, smi: str) -> None:
 
 
 def rec_config(arch: str, layers: int):
-    """(j)'s or (k)'s model: ``arch`` at full width, its first ``layers``
-    layers (a hybrid: whole groups), float32."""
+    """(j)'s, (k)'s or (l)'s model: ``arch`` at full width, its first
+    ``layers`` layers (a hybrid: whole groups), float32."""
     from repro_torch.configs import get_config
 
     return replace(get_config(arch), n_layers=layers, dtype="float32")
@@ -5396,13 +5378,15 @@ def rec_floor_grads(torch, train, params, batch, cfg, run, names,
     return out
 
 
-def rec_plain(torch, np, root: str, tag: str, cfg, names, dev) -> dict:
-    """Run (j0) or (k0) of phase 13: one plain ``make_train_step`` of
-    (j)'s or (k)'s model, init and batch in one process, phase 13's run.
-    Its step-1 gradients of ``names`` go to ``root/<tag>_plain.pt``; each
-    leaf's float32 floor (the larger relative difference of the two
-    evaluations of :func:`rec_floor_grads` from the step's) is returned
-    with the step's readings."""
+def rec_plain(torch, np, root: str, tag: str, cfg, names, dev,
+              floor: bool = True, batch_shape=None) -> dict:
+    """Run (j0), (k0) or (l0) of phase 13: one plain ``make_train_step``
+    of (j)'s, (k)'s or (l)'s model, init and batch (of ``batch_shape``,
+    default ``TRAIN_BATCH``) in one process, phase 13's run.  Its step-1
+    gradients of ``names`` go to ``root/<tag>_plain.pt``; with
+    ``floor``, each leaf's float32 floor (the larger relative difference
+    of the two evaluations of :func:`rec_floor_grads` from the step's;
+    else 0) is returned with the step's readings."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -5411,10 +5395,10 @@ def rec_plain(torch, np, root: str, tag: str, cfg, names, dev) -> dict:
         cfg, run, torch.Generator(device=dev).manual_seed(MESH_SEED), opt,
         device=dev)
     step, _ = train.make_train_step(cfg, run, opt)
-    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev, batch_shape)
     t0 = time.perf_counter()
-    others = rec_floor_grads(torch, train, params, batch, cfg, run, names,
-                             dev)
+    others = (rec_floor_grads(torch, train, params, batch, cfg, run, names,
+                              dev) if floor else [])
     device_sync(torch, dev)
     floor_s = time.perf_counter() - t0
     if dev.type == "cuda":
@@ -5429,21 +5413,25 @@ def rec_plain(torch, np, root: str, tag: str, cfg, names, dev) -> dict:
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
     torch.save(rec.first, os.path.join(root, f"{tag}_plain.pt"))
-    floor = {n: max(float((o[n].cpu() - g).abs().max() / g.abs().max())
-                    for o in others) for n, g in rec.first.items()}
+    floor = {n: max((float((o[n].cpu() - g).abs().max() / g.abs().max())
+                     for o in others), default=0.0)
+             for n, g in rec.first.items()}
     return {"s": sec, **{k: float(v) for k, v in m.items()},
             "peak_device_bytes": peak, "floor": floor, "floor_s": floor_s,
             "launches": launches}
 
 
-def rec_run(torch, dist, root: str, tag: str, cfg, dev) -> dict:
-    """Run (j) or (k) of phase 13 on this rank of ``(data=2, model=2)``, a
-    mesh of its own over (f)'s four ranks: ``init_train_state(mesh=)`` and
-    ``MESH_STEPS`` steps of ``make_train_step(mesh=)`` with fsdp and the
-    RWKV6 or Mamba2 heads split over ``model``, each step's launch counts
-    reset just before it and read just after, the collectives over each
-    axis timed and their bytes counted.  Step 1's gradients of (j0)'s or
-    (k0)'s leaves, gathered whole over both axes, held to theirs; each
+def rec_run(torch, dist, root: str, tag: str, cfg, dev,
+            shape=MESH_H_SHAPE, fsdp: bool = True, batch_shape=None) -> dict:
+    """Run (j), (k) or (l) of phase 13 on this rank of ``(data, model) =
+    shape`` (``(2, 2)``: a mesh of its own over (f)'s four ranks), on the
+    batch of ``batch_shape`` (default ``TRAIN_BATCH``):
+    ``init_train_state(mesh=)`` and ``MESH_STEPS`` steps of
+    ``make_train_step(mesh=)`` (with ``fsdp``) with the RWKV6, Mamba2 or
+    attention heads split over ``model``, each step's launch counts reset
+    just before it and read just after, the collectives over each axis
+    timed and their bytes counted.  Step 1's gradients of (j0)'s, (k0)'s
+    or (l0)'s leaves, gathered whole over both axes, held to theirs; each
     rank's shards to the one-process update of the step's gradients on
     the rank's slices of the init: AdamW leaf by leaf on the slice,
     clipped by the norm of the whole gradient (so no rank holds a whole
@@ -5458,8 +5446,8 @@ def rec_run(torch, dist, root: str, tag: str, cfg, dev) -> dict:
 
     t_start = time.perf_counter()
     run, opt = mesh_run_opt()
-    run = replace(run, fsdp=True)
-    mesh = init_device_mesh(dev.type, MESH_H_SHAPE,
+    run = replace(run, fsdp=fsdp)
+    mesh = init_device_mesh(dev.type, shape,
                             mesh_dim_names=("data", "model"))
     coord = mesh.get_coordinate()
     if dev.type == "cuda":
@@ -5471,7 +5459,7 @@ def rec_run(torch, dist, root: str, tag: str, cfg, dev) -> dict:
     psh = dict(leaves(sharding.param_shardings(
         model.model_specs(cfg), mesh, sharding.rules_for(mesh, run))))
     step, _ = train.make_train_step(cfg, run, opt, mesh=mesh)
-    batch = train_batch(torch, np, cfg, MESH_SEED, dev)
+    batch = train_batch(torch, np, cfg, MESH_SEED, dev, batch_shape)
     groups = {"data": mesh.get_group("data"),
               "model": mesh.get_group("model"), "world": dist.group.WORLD}
     out = {"coordinate": coord, **mesh_param_bytes(params, psh, mesh)}
@@ -5520,21 +5508,26 @@ def rec_run(torch, dist, root: str, tag: str, cfg, dev) -> dict:
     return out
 
 
-def rec_checks(out: dict, tag: str, label: str, names, smi: str) -> None:
-    """Phase 13 (j)'s or (k)'s printed readings and gates, against its
-    one-process step (``<tag>0``)."""
+def rec_checks(out: dict, tag: str, label: str, names, smi: str,
+               ranks: str = "f_ranks", shape=MESH_H_SHAPE, fsdp: bool = True,
+               share_max: float | None = None) -> None:
+    """Phase 13 (j)'s, (k)'s or (l)'s printed readings and gates, against
+    its one-process step (``<tag>0``), from ``out[ranks]``' readings on
+    ``(data, model) = shape``; with ``share_max``, a rank's local / full
+    parameter bytes must lie below it."""
     import numpy as np
 
-    rs = [r[tag] for r in out["f_ranks"]]
+    rs = [r[tag] for r in out[ranks]]
     r0 = rs[0]
     plain = out[f"{tag}0_plain_step"]
     rel = abs(r0["steps"][0]["loss"] - plain["loss"]) / abs(plain["loss"])
     out[f"{tag}_step1_loss_rel"] = rel
     bars = {n: max(DP_GRAD_REL_MAX, FLOOR_X * f)
             for n, f in plain["floor"].items()}
-    print(f"mesh ({tag}), tensor parallelism on (data=2, model=2) with "
-          f"fsdp, {label}, four gloo ranks on one card, nothing crosses a "
-          f"link [{smi}]: " + json.dumps({
+    print(f"mesh ({tag}), tensor parallelism on (data={shape[0]}, "
+          f"model={shape[1]}) {'with' if fsdp else 'without'} fsdp, "
+          f"{label}, {math.prod(shape)} gloo ranks on one card, nothing "
+          f"crosses a link [{smi}]: " + json.dumps({
               **mesh_step_summary(rs),
               "plain_step_s": plain["s"],
               "plain_peak_device_bytes": plain["peak_device_bytes"],
@@ -5545,7 +5538,7 @@ def rec_checks(out: dict, tag: str, label: str, names, smi: str) -> None:
               "update_rel": max(r["update_rel"] for r in rs),
               "update_bit_exact": all(r["update_bit_exact"] for r in rs)}))
     check(sorted(tuple(r["coordinate"]) for r in rs)
-          == [(d, m) for d in range(2) for m in range(2)],
+          == [(d, m) for d in range(shape[0]) for m in range(shape[1])],
           f"mesh: ({tag}) coordinates {[r['coordinate'] for r in rs]}")
     for i in range(MESH_STEPS):
         check(len({tuple(r["steps"][i][k] for k in (
@@ -5564,7 +5557,9 @@ def rec_checks(out: dict, tag: str, label: str, names, smi: str) -> None:
         check(r["update_rel"] <= DP_UPDATE_REL_MAX,
               f"mesh: ({tag}) shards {r['update_rel']} from the update")
         check(r["sharded_leaves"] > 0
-              and r["bytes"]["local"] == r["bytes"]["placed"],
+              and r["bytes"]["local"] == r["bytes"]["placed"]
+              and (share_max is None
+                   or r["bytes"]["local"] < share_max * r["bytes"]["full"]),
               f"mesh: ({tag}) {r['bytes']}")
         check(all(np.isfinite(st["loss"]) for st in r["steps"]),
               f"mesh: ({tag}) losses")
@@ -5581,7 +5576,8 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
     run (a″), (i)'s MoE's plain step in one process, and (j0) and (k0),
     (j)'s and (k)'s; runs (b)–(e) and (g) in two spawned gloo ranks on
     the one card (:func:`mesh_rank`), (f), (h), (i), (j) and (k) in four
-    (:func:`pod_data_rank`).  Returns the printed readings with the
+    (:func:`pod_data_rank`); then (l0), (l)'s plain step, and (l) in
+    sixteen (:func:`tp16_rank`).  Returns the printed readings with the
     ranks' launch counts."""
     import shutil
 
@@ -5760,6 +5756,25 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
                 for r in f_ranks for i, st in enumerate(r[tag]["steps"])}
             out[f"{tag}_launches"][f"plain_{tag}0_step"] = out[
                 f"{tag}0_plain_step"]["launches"]
+
+        # ---- (l0), then (l): starcoder2-3b on (data=1, model=16)
+        l_cfg = rec_config(MESH_TP16_ARCH, MESH_TP16_LAYERS)
+        out["l0_plain_step"] = rec_plain(torch, np, root, "l", l_cfg,
+                                         MESH_TP16_LEAVES, dev, floor=False,
+                                         batch_shape=MESH_TP16_BATCH)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        l_ranks = spawn_ranks(torch, tp16_rank, math.prod(MESH_TP16_SHAPE),
+                              root, "l_rank", (l_cfg, dev.type),
+                              join_s=MESH_TP16_JOIN_S)
+        out["l_s"] = time.perf_counter() - t0
+        out["l_ranks"] = l_ranks
+        # (l0) and (l): none on the dense step's path
+        out["l_launches"] = {f"l_rank{r['rank']}_step{i}": st["launches"]
+                             for r in l_ranks
+                             for i, st in enumerate(r["l"]["steps"])}
+        out["l_launches"]["plain_l0_step"] = out["l0_plain_step"]["launches"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5862,6 +5877,14 @@ def mesh_training(torch, smi: str, dev="cuda") -> dict:
     for tag, arch, layers, names in MESH_RECURRENT:
         rec_checks(out, tag, f"{arch} at full width, {layers} of "
                    f"{get_config(arch).n_layers} layers", names, smi)
+    rec_checks(out, "l", f"{MESH_TP16_ARCH} at full width, "
+               f"{MESH_TP16_LAYERS} of "
+               f"{get_config(MESH_TP16_ARCH).n_layers} layers, query heads "
+               f"split inside a head", MESH_TP16_LEAVES, smi,
+               ranks="l_ranks", shape=MESH_TP16_SHAPE, fsdp=False,
+               share_max=1.05 / math.prod(MESH_TP16_SHAPE))
+    print(f"mesh (l): (l0) {out['l0_plain_step']['s']:.3f} s, the spawn of "
+          f"{math.prod(MESH_TP16_SHAPE)} ranks {out['l_s']:.1f} s")
     return out
 
 
@@ -6014,10 +6037,10 @@ def pod_data_checks(out: dict, n_leaves: int, smi: str) -> None:
               f"mesh: (f) {key} launched {got}")
 
 
-def spawn_ranks(torch, fn, n: int, root: str, prefix: str,
-                args: tuple) -> list:
+def spawn_ranks(torch, fn, n: int, root: str, prefix: str, args: tuple,
+                join_s: float = MESH_JOIN_S) -> list:
     """``fn(rank, n, root, *args)`` in ``n`` spawned processes, which must
-    end within ``MESH_JOIN_S`` (any left are killed); each rank's
+    end within ``join_s`` (any left are killed); each rank's
     ``root/<prefix><rank>.json``, in rank order."""
     t0 = time.perf_counter()
     ctx = torch.multiprocessing.start_processes(
@@ -6025,8 +6048,8 @@ def spawn_ranks(torch, fn, n: int, root: str, prefix: str,
         start_method="spawn")
     try:
         while not ctx.join(timeout=2):
-            check(time.perf_counter() - t0 < MESH_JOIN_S,
-                  f"mesh: the ranks did not end in {MESH_JOIN_S} s")
+            check(time.perf_counter() - t0 < join_s,
+                  f"mesh: the ranks did not end in {join_s} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -6855,12 +6878,15 @@ def main() -> int:
         # phase 13's plain step: (d)'s ranks and (a′); (g)'s Adafactor
         # steps; (e)'s loop runs; (f)'s compressed steps on (pod=2, data=2);
         # (h)'s tensor-parallel steps on (data=2, model=2); (a″) and (i)'s
-        # expert-parallel steps there
+        # expert-parallel steps there; (j0)–(k)'s; (l0) and (l)'s on
+        # (data=1, model=16)
         r.setdefault("mesh_launches", {}).update({
             run: counts[r["name"]]
             for runs in (mesh["dp_launches"], mesh["af_launches"],
                          mesh["loop_launches"], mesh["f_launches"],
-                         mesh["h_launches"], mesh["i_launches"])
+                         mesh["h_launches"], mesh["i_launches"],
+                         mesh["j_launches"], mesh["k_launches"],
+                         mesh["l_launches"])
             for run, counts in runs.items()})
         # phase 14: each entry-point run
         r["entry_launches"] = [run["launches"][r["name"]]

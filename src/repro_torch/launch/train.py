@@ -15,11 +15,13 @@ Two step builders, as in the reference:
   for the forward, the gradients reduce-scattered into the shards); and
   tensor-parallel over a ``model`` axis wider than 1 for the dense
   attention and MLP, MoE, RWKV6 and Mamba2-hybrid families with AdamW:
-  each ``model`` rank holds and computes its slice of the heads, the ffn
-  or the experts (expert parallelism) and of a vocabulary the axis divides
-  (one it does not divide stays whole), with explicit collectives over
-  the ``model`` group (:func:`~repro_torch.models.layers.model_parallel`)
-  and a vocab-parallel cross-entropy on a split vocabulary;
+  each ``model`` rank computes its slice of the heads, the ffn (query
+  heads and ffn columns in balanced ranges where the axis does not
+  divide them) or the experts (expert parallelism) and of a vocabulary
+  the axis divides (one it does not divide stays whole), with explicit
+  collectives over the ``model`` group
+  (:func:`~repro_torch.models.layers.model_parallel`) and a
+  vocab-parallel cross-entropy on a split vocabulary;
 * :func:`make_train_step_compressed` — data-parallel replicas: params,
   optimizer state and error feedback carry a leading replica axis; each
   replica computes gradients on its own slice of the batch, the
@@ -299,24 +301,28 @@ def _check_model_axis(cfg: ModelConfig, run: RunConfig, opt_cfg,
     """Check that :func:`make_train_step` runs ``cfg``, ``run`` and
     ``opt_cfg`` on ``mesh``: a ``model`` axis of 1 runs everything the
     data-parallel step does; a wider one, with AdamW, the dense attention
-    and MLP families (token or embedding input) whose query heads and ffn
-    the axis divides, the MoE family whose query heads and experts it
-    divides (expert parallelism), the RWKV6 family whose heads and ffn it
-    divides, and the hybrid family whose Mamba2 heads, query heads and
-    ffn it divides, and the widths of the fused ``w_in`` and ``conv_w``
-    (which the rules would otherwise leave whole on ``model``, their
-    gradients partial there).  A vocabulary the axis does not divide
-    stays whole on every ``model`` rank.
+    and MLP families (token or embedding input), the MoE family whose
+    experts it divides (expert parallelism), the RWKV6 family whose heads
+    and ffn it divides, and the hybrid family whose Mamba2 heads and
+    fused ``w_in`` and ``conv_w`` widths it divides (which the rules would
+    otherwise leave whole on ``model``, their gradients partial there).
+    The attention and dense MLP blocks (and the MoE family's attention,
+    the hybrid's shared block) take a balanced range of the query heads
+    and ffn columns where the axis does not divide them
+    (:func:`~repro_torch.models.layers.rank_units`), as long as every rank
+    holds at least one.  A vocabulary the axis does not divide stays whole
+    on every ``model`` rank.
 
-    :raises ValueError: as :func:`_mesh_axes` says; above 1, for a split
-        inside a head, the ffn, the experts or the fused Mamba2 leaves
-        (ROADMAP item 2.6b-4b-3), ``run.seq_shard`` (2.6b-4b-4) and
-        Adafactor (2.6b-4b-5).
+    :raises ValueError: as :func:`_mesh_axes` says; above 1, for an axis
+        wider than the query heads or the ffn, a split inside the experts,
+        or RWKV6's heads or ffn, Mamba2's heads or fused widths that the
+        axis does not divide (ROADMAP item 2.6b-4b-3b), ``run.seq_shard``
+        (2.6b-4b-4) and Adafactor (2.6b-4b-5).
     """
     n = _mesh_axes(mesh)["model"]
     if n == 1:
         return
-    why, item = None, "2.6b-4b-3"
+    why, item = None, "2.6b-4b-3b"
     if run.seq_shard:
         why, item = "sequence sharding (seq_shard=True)", "2.6b-4b-4"
     elif isinstance(opt_cfg, AdafactorConfig):
@@ -326,21 +332,21 @@ def _check_model_axis(cfg: ModelConfig, run: RunConfig, opt_cfg,
         if heads % n or cfg.d_ff % n:
             why = (f"{heads} RWKV6 heads and an ffn of {cfg.d_ff} split {n} "
                    f"ways")
-    elif cfg.family == "hybrid":
-        din, ns = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
-        heads = din // cfg.ssm_head
-        widths = (heads, cfg.n_heads, cfg.d_ff, 2 * din + 2 * ns + heads,
-                  din + 2 * ns)
-        if any(w % n for w in widths):
-            why = (f"{heads} Mamba2 heads, {cfg.n_heads} query heads, an "
-                   f"ffn of {cfg.d_ff} and w_in/conv_w widths of "
-                   f"{widths[3]}/{widths[4]} split {n} ways")
-    elif cfg.n_experts and (cfg.n_heads % n or cfg.n_experts % n):
-        why = (f"{cfg.n_heads} query heads and {cfg.n_experts} experts "
-               f"split {n} ways")
-    elif not cfg.n_experts and (cfg.n_heads % n or cfg.d_ff % n):
-        why = (f"{cfg.n_heads} query heads and an ffn of {cfg.d_ff} split "
-               f"{n} ways")
+    else:
+        if cfg.family == "hybrid":
+            din, ns = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+            heads = din // cfg.ssm_head
+            widths = (heads, 2 * din + 2 * ns + heads, din + 2 * ns)
+            if any(w % n for w in widths):
+                why = (f"{heads} Mamba2 heads and w_in/conv_w widths of "
+                       f"{widths[1]}/{widths[2]} split {n} ways")
+        elif cfg.n_experts and cfg.n_experts % n:
+            why = f"{cfg.n_experts} experts split {n} ways"
+        ffn = 0 if cfg.n_experts else cfg.d_ff
+        if why is None and (cfg.n_heads < n or ffn and ffn < n):
+            why = (f"{cfg.n_heads} query heads"
+                   + (f" and an ffn of {ffn}" if ffn else "")
+                   + " (a rank would hold none)")
     if why:
         raise ValueError(f"{cfg.name}: {why} on a model axis of {n} is "
                          f"ROADMAP item {item}")
@@ -405,24 +411,32 @@ def _mesh_groups(mesh):
 
 def _partial_over_model(specs: dict, psh: dict, mesh) -> frozenset:
     """The paths of the leaves whose gradients are partial on each
-    ``model`` rank: placed whole on the ``model`` axis (the rules'
-    divisibility fallback) but consumed on its split.  A ``kv_heads``
-    leaf is consumed by the query heads, which the axis splits.  A leaf
-    of no split axis (a norm's gain), an MoE router (the routing reads
-    its input outside the split; only the gates enter it, and their
-    partial gradients are summed there) and a vocabulary leaf the axis
-    does not divide (consumed whole) see the same inputs and gradients on
-    every ``model`` rank: their gradients are already whole there.  So do
-    RWKV6's mixes, LoRA ``wA`` and gate ``cr`` (applied before the split
-    is entered); Mamba2's fused ``w_in`` and ``conv_w`` are split on
-    ``model`` and gathered in the forward, whose reduce-scatter sums
-    their gradients."""
+    ``model`` rank: a leaf with a ``heads``, ``kv_heads`` or ``mlp`` dim
+    placed whole on the ``model`` axis (the rules' divisibility fallback)
+    of which each rank consumes a slice: the attention's query heads and
+    the dense MLP's ffn columns that the rank takes
+    (:func:`~repro_torch.models.layers.rank_units`), and the kv heads its
+    query heads read.  Not partial: a leaf split on ``model`` and gathered
+    whole (the gather's reduce-scatter sums its gradient); a leaf of no
+    split axis (a norm's gain), an MoE router (the routing reads its input
+    outside the split; only the gates enter it, and their partial
+    gradients are summed there) and a vocabulary leaf the axis does not
+    divide (consumed whole), which see the same inputs and gradients on
+    every ``model`` rank; an expert leaf, which the check keeps split
+    (:func:`_check_model_axis`); and RWKV6's and Mamba2's own leaves (the
+    stacked layers' leaves, ``layers/<name>``), which the check keeps
+    split where they have a ``heads`` or ``mlp`` dim: RWKV6's mixes, LoRA
+    ``wA`` and gate ``cr`` are applied before the split is entered, and
+    Mamba2's fused ``w_in`` and ``conv_w`` are split on ``model`` and
+    gathered in the forward."""
     from torch.distributed.tensor import Shard
 
     dim = list(axis_sizes(mesh)).index("model")
     pl = dict(leaves(psh))
+    split = {"heads", "kv_heads", "mlp"}
     return frozenset(path for path, spec in leaves(specs)
-                     if "kv_heads" in spec.axes
+                     if split & set(spec.axes) and "experts" not in spec.axes
+                     and not (len(path) == 2 and path[0] == "layers")
                      and not isinstance(pl[path][dim], Shard))
 
 
@@ -513,10 +527,11 @@ def _mesh_grads(params: dict, batch: dict, cfg: ModelConfig, run: RunConfig,
 
 def _mesh_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg, mesh, **kw):
     """:func:`make_train_step`'s step on a mesh: data-parallel over its
-    batch axes, tensor-parallel over its ``model`` axis (the heads, the
-    ffn and a vocabulary the axis divides split over it; the experts of
-    an MoE layer too: expert parallelism; RWKV6's and Mamba2's heads,
-    their norms over the heads summed over ``model``)."""
+    batch axes, tensor-parallel over its ``model`` axis (the query heads
+    and the ffn in balanced ranges, whether or not the axis divides them,
+    and a vocabulary the axis divides split over it; the experts of an MoE
+    layer too: expert parallelism; RWKV6's and Mamba2's heads, their norms
+    over the heads summed over ``model``)."""
     _check_model_axis(cfg, run, opt_cfg, mesh)
     group, model = _mesh_groups(mesh)
     axes = None if model is None else _batch_axes(mesh)
@@ -575,8 +590,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
     inside ``mesh_context`` and ``model_parallel`` (the loss over the
     global count of labels; the ``model`` ranks of a row compute its
     heads (attention, RWKV6 or Mamba2), ffn or experts, and a vocabulary
-    the axis divides, in slices, with all-reduces over ``model`` where a
-    split ends or a norm spans the heads; each rank routes
+    the axis divides, in slices (query heads and ffn columns in balanced
+    ranges that the axis need not divide: each rank's columns of a leaf
+    split inside a head gathered, or cut from a leaf whole on ``model``),
+    with all-reduces over ``model`` where a split ends or a norm spans the
+    heads; each rank routes
     every MoE token of its row, and runs a vocabulary the axis does not
     divide whole), sums the gradients over the batch ranks in one
     collective a leaf (a reduce-scatter into a sharded leaf's shard, an
@@ -590,7 +608,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt_cfg=None, *,
 
     :raises ValueError: as :func:`_check_model_axis` says (a ``model``
         axis wider than 1 runs the dense attention and MLP, MoE, RWKV6 and
-        hybrid families with AdamW); at the step, for a batch the
+        hybrid families with AdamW, query heads and an ffn that the axis
+        does not divide included); at the step, for a batch the
         microbatches and ranks do not divide, and for an MoE token group
         that would span ranks.
     """

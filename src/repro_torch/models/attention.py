@@ -22,14 +22,19 @@ bf16 values are exact in float32, and on the card these products must
 not run as TF32 (:func:`repro_torch.models.model.forward` checks).
 
 Under tensor parallelism (:func:`~.layers.model_parallel`) a ``model``
-rank holds its slice of the query heads (``wq``, ``bq``, ``wo``'s rows)
-and computes those heads alone: the head counts come from the local
-widths.  Its key/value heads are its own slice where the ``model`` axis
-divides ``kv_heads``; otherwise the rank takes the key/value heads its
-query heads read, from ``wk``/``wv`` whole (replicated by the rules'
-divisibility fallback: their gradients are partial on each rank, and the
-mesh step sums them over ``model``) or gathered (split inside a head:
-:func:`~.layers.gather_split`).
+rank computes its range of the query heads (:func:`~.layers.unit_range`:
+a balanced range where the ``model`` axis does not divide them) and
+takes their columns of ``wq``, ``bq`` and rows of ``wo`` by
+:func:`~.layers.rank_units`: its own slice where the axis divides the
+heads, cut from the leaf gathered whole where the rules split it inside
+a head, or cut from the leaf whole on ``model`` (the rules' divisibility
+fallback).  Its key/value heads are its own slice where the ``model``
+axis divides ``kv_heads``; otherwise the rank takes the key/value heads
+its query heads read, from ``wk``/``wv`` whole (replicated by the rules'
+divisibility fallback) or gathered (split inside a head:
+:func:`~.layers.gather_split`).  The gradient of a leaf whole on
+``model`` is partial on each rank, and the mesh step sums it over
+``model``.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ import torch
 
 from ..kernels import ops
 from .layers import (ParamSpec, apply_rope, gather_split, into_split, linear,
-                     model_rank, out_of_split, rmsnorm, rope_freqs, shard)
+                     model_rank, out_of_split, rank_units, rmsnorm,
+                     rope_freqs, shard, unit_range)
 
 __all__ = ["attn_specs", "init_kv_cache", "quantize_heads",
            "dequantize_heads", "flash_attention", "decode_attention",
@@ -212,13 +218,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def _kv_for_heads(params: dict, cfg, h: int, rank: int, size: int):
-    """The key/value leaves a ``model`` rank with ``h`` query heads uses,
-    and the kv heads to take from their product (``None``: all, in
-    order).  Query head ``j`` of the model reads kv head ``j // G``."""
+def _kv_for_heads(params: dict, cfg, lo: int, hi: int, size: int):
+    """The key/value leaves a ``model`` rank of ``size`` with query heads
+    ``[lo, hi)`` uses, and the kv heads to take from their product
+    (``None``: all, in order).  Query head ``j`` of the model reads kv
+    head ``j // G``."""
     hd, n_kv = cfg.head_dim, cfg.n_kv_heads
     group = cfg.n_heads // n_kv
-    wanted = [(rank * h + j) // group for j in range(h)]
+    h = hi - lo
+    wanted = [(lo + j) // group for j in range(h)]
     keys = [k for k in ("wk", "wv", "bk", "bv") if k in params]
     if params["wk"].shape[-1] == n_kv * hd:     # replicated: whole here
         leaves = {k: params[k] for k in keys}
@@ -247,14 +255,19 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
     entries.
     """
     B, Sq, _ = x.shape
-    hd = cfg.head_dim
-    h = params["wq"].shape[-1] // hd
+    hd, n_heads = cfg.head_dim, cfg.n_heads
+    lo, hi = unit_range(n_heads)
+    h = hi - lo
     xn = into_split(rmsnorm(x, params["ln"], cfg.norm_eps))
     kvp, take = params, None
     tp = model_rank()
     if tp is not None:
-        kvp, take = _kv_for_heads(params, cfg, h, *tp)
-    q = linear(xn, params["wq"], params.get("bq")).reshape(B, Sq, h, hd)
+        kvp, take = _kv_for_heads(params, cfg, lo, hi, tp[1])
+    bq = params.get("bq")
+    if bq is not None:
+        bq = rank_units(bq, -1, n_heads, hd)
+    q = linear(xn, rank_units(params["wq"], -1, n_heads, hd), bq).reshape(
+        B, Sq, h, hd)
     k = linear(xn, kvp["wk"], kvp.get("bk")).reshape(B, Sq, -1, hd)
     v = linear(xn, kvp["wv"], kvp.get("bv")).reshape(B, Sq, -1, hd)
     if take is not None:
@@ -290,4 +303,5 @@ def attention(params: dict, x: torch.Tensor, cfg, *, mode: str,
                               kv_chunk=kv_chunk)
         if mode == "prefill":
             kv = {"k": k, "v": v}
-    return out_of_split(linear(out.reshape(B, Sq, h * hd), params["wo"])), kv
+    wo = rank_units(params["wo"], -2, n_heads, hd)
+    return out_of_split(linear(out.reshape(B, Sq, h * hd), wo)), kv

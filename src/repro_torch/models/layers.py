@@ -19,7 +19,10 @@ constraints change no result.
 Tensor parallelism goes through :func:`model_parallel`, a thread-local
 ``model`` process group that the mesh step sets around its forward and
 backward.  Each ``model`` rank holds its slice of the heads, the ffn and
-the vocabulary; the residual stream is whole on every rank.  The models
+the vocabulary; the residual stream is whole on every rank.  A rank's
+query heads or ffn columns are :func:`unit_range`'s balanced range, and
+:func:`rank_units` takes their columns from a leaf however the sharding
+rules placed it (the axis need not divide the units).  The models
 mark the two sides of each split: :func:`into_split` (the identity, and
 the gradient summed over ``model``), :func:`out_of_split` (the partial
 results summed over ``model``; the gradient as it is), and
@@ -48,9 +51,8 @@ from ..device import resolve_device
 __all__ = ["ParamSpec", "ShapeDtypeStruct", "DTYPES", "init_from_specs",
            "abstract_from_specs", "param_count", "mesh_context",
            "current_mesh_rules", "shard", "activation_shardings",
-           "model_parallel", "model_group", "model_rank", "into_split",
-           "out_of_split",
-           "gather_split",
+           "model_parallel", "model_group", "model_rank", "unit_range",
+           "rank_units", "into_split", "out_of_split", "gather_split",
            "require_exact_f32_products", "rmsnorm", "split_rmsnorm", "linear",
            "rope_freqs",
            "apply_rope"]
@@ -351,6 +353,44 @@ def gather_split(x: torch.Tensor, dim: int) -> torch.Tensor:
     slice."""
     g = model_group()
     return x if g is None else _GatherSplit.apply(x, dim, g)
+
+
+def unit_range(units: int) -> tuple[int, int]:
+    """This ``model`` rank's range ``[lo, hi)`` of ``units`` (query heads,
+    ffn columns) over its :func:`model_parallel` group of ``n`` ranks:
+    ``[⌊r·units/n⌋, ⌊(r+1)·units/n⌋)``, which is the rank's even slice
+    where ``n`` divides ``units``; ``[0, units)`` outside a group."""
+    tp = model_rank()
+    if tp is None:
+        return 0, units
+    r, n = tp
+    return r * units // n, (r + 1) * units // n
+
+
+def rank_units(leaf: torch.Tensor, dim: int, units: int,
+               width: int = 1) -> torch.Tensor:
+    """The part of ``leaf`` along ``dim`` (``units`` units of ``width``
+    columns or rows, whole) that holds this ``model`` rank's units
+    (:func:`unit_range`), from the placement the sharding rules gave it:
+
+    * the rank's own even slice, where the axis divides ``units``: the
+      leaf as it is;
+    * split on ``dim`` inside a unit (the axis divides ``units · width``
+      but not ``units``): gathered whole (:func:`gather_split`) and cut;
+      only the rank's units get a gradient, so the gather's float32
+      reduce-scatter adds zeros to each column's one owner, exactly;
+    * whole on ``model`` (the rules' divisibility fallback): cut; its
+      gradient is partial on each rank, and the mesh step sums it over
+      ``model``.
+
+    The identity outside a :func:`model_parallel` group."""
+    tp = model_rank()
+    if tp is None or units % tp[1] == 0:
+        return leaf
+    if leaf.shape[dim] != units * width:
+        leaf = gather_split(leaf, dim)
+    lo, hi = unit_range(units)
+    return leaf.narrow(dim, lo * width, (hi - lo) * width)
 
 
 def require_exact_f32_products(x: torch.Tensor) -> None:

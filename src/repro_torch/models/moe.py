@@ -36,7 +36,7 @@ import math
 import torch
 
 from .layers import (ParamSpec, into_split, linear, model_rank, out_of_split,
-                     require_exact_f32_products, rmsnorm, shard)
+                     rank_units, require_exact_f32_products, rmsnorm, shard)
 
 __all__ = ["moe_specs", "moe_apply", "group_tokens", "mlp_specs", "mlp_apply",
            "silu", "gelu_tanh"]
@@ -76,17 +76,21 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Pre-norm MLP body (the caller adds the residual).  Under tensor
-    parallelism a ``model`` rank holds its columns of ``w_up``/``w_gate``
-    and the same rows of ``w_down``; its partial product is summed over
+    parallelism a ``model`` rank computes its range of the ffn columns
+    (:func:`~.layers.unit_range`, balanced where the axis does not divide
+    ``d_ff``): those columns of ``w_up``/``w_gate`` and rows of
+    ``w_down``, its own slice or cut from the leaf whole on ``model``
+    (:func:`~.layers.rank_units`); its partial product is summed over
     ``model`` (:func:`~.layers.out_of_split`)."""
+    f = cfg.d_ff
     xn = into_split(rmsnorm(x, params["ln"], cfg.norm_eps))
-    up = linear(xn, params["w_up"])
+    up = linear(xn, rank_units(params["w_up"], -1, f))
     if cfg.act == "swiglu":
-        up = silu(linear(xn, params["w_gate"])) * up
+        up = silu(linear(xn, rank_units(params["w_gate"], -1, f))) * up
     else:
         up = gelu_tanh(up)
     up = shard(up, "batch", None, "mlp")
-    return out_of_split(linear(up, params["w_down"]))
+    return out_of_split(linear(up, rank_units(params["w_down"], -2, f)))
 
 
 def moe_specs(cfg) -> dict:
@@ -248,14 +252,14 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, *, group_size: int = 4096,
     :raises ValueError: if a global group would span ranks (``B·S`` is
         not a whole number of groups); under tensor parallelism, if the
         rank does not hold ``n_experts`` over the group's size experts
-        (a split inside the experts is ROADMAP item 2.6b-4b-3).
+        (a split inside the experts is ROADMAP item 2.6b-4b-3b).
     """
     tp = model_rank()
     if tp is not None and params["w_up"].shape[0] * tp[1] != cfg.n_experts:
         raise ValueError(f"{params['w_up'].shape[0]} experts a rank on a "
                          f"model axis of {tp[1]}, of {cfg.n_experts}: a "
                          f"split inside the experts is ROADMAP item "
-                         f"2.6b-4b-3")
+                         f"2.6b-4b-3b")
     require_exact_f32_products(x)
     B, S, d = x.shape
     xn = rmsnorm(x, params["ln"], cfg.norm_eps)

@@ -14,10 +14,12 @@ partial on each ``model`` rank); and a granite variant with an odd
 vocabulary of 509, which the axis does not divide, so ``embed`` and
 ``lm_head`` stay whole on every ``model`` rank.  The four-rank spawn
 also runs the odd-vocabulary case on ``(pod=1, data=2, model=2)`` with
-``remat="layer"``.  The global batch of 8 × 1,024 gives each batch rank
-whole token groups of 4,096.  The reference's meshed step is red on this
-tree (ROADMAP.md, queue 3), so each step is held, from the init, to the
-port's one-process step and to the reference's unsharded
+``remat="layer"``; the two-rank spawn also runs granite-moe with 3 query
+heads and one kv head, whose attention the axis splits inside a head
+(ROADMAP item 2.6b-4b-3a).  The global batch of 8 × 1,024 gives each
+batch rank whole token groups of 4,096.  The reference's meshed step is
+red on this tree (ROADMAP.md, queue 3), so each step is held, from the
+init, to the port's one-process step and to the reference's unsharded
 ``_microbatched_grads`` composed with its ``adamw_update``
 (``test_torch_tensor_parallel.py``'s bars):
 
@@ -42,7 +44,7 @@ summing its gradient over ``model`` would fail; the whole-vocabulary
 lookup and cross-entropy inside a ``model`` group; the placements of
 ``init_train_state(mesh=)`` against the elastic restore's; and the
 ``ValueError`` of an expert count the axis does not divide (ROADMAP item
-2.6b-4b-3), raised before any collective.
+2.6b-4b-3b), raised before any collective.
 """
 from dataclasses import replace
 
@@ -61,17 +63,23 @@ from repro_torch.optim.tree import leaves, local, sharded, tree_map
 from test_torch_data_parallel import (_flat, _flat_np, _moments, _rel,
                                       _update_err)
 from test_torch_mesh_ranks import _mesh, _spawn
-from test_torch_tensor_parallel import _as_r, _full, _same_on_ranks
+from test_torch_tensor_parallel import (_as_r, _full, _local_bytes,
+                                        _same_on_ranks)
 
 MESHES = {"model2": ((1, 2), ("data", "model")),
           "data2_model2": ((2, 2), ("data", "model"))}
 POD_MESH = ((1, 2, 2), ("pod", "data", "model"))
 GRANITE, QWEN3 = "granite_moe_1b_a400m", "qwen3_moe_30b_a3b"
 ODD = "granite_odd"
+#: granite with 3 query heads and one kv head: on model=2 its wq, bq and
+#: wo split inside a head, wk and wv inside the kv head
+GRANITE_H3 = "granite_h3"
 ODD_VOCAB = 509
 NAMES = [GRANITE, QWEN3, ODD]
 #: (name, fsdp) of each mesh's cases
 CASES = [(a, f) for a in NAMES for f in (False, True)]
+#: model2's alone
+H3_CASE = (GRANITE_H3, True)
 #: (name, fsdp, remat) of the (pod=1, data=2, model=2) case
 POD_CASE = (ODD, True, "layer")
 SEED = 53
@@ -84,10 +92,12 @@ AUX_W = 100.0
 
 
 def _cfg(name: str):
-    arch = GRANITE if name == ODD else name
+    arch = GRANITE if name in (ODD, GRANITE_H3) else name
     cfg = replace(smoke_config(arch), dtype="float32")
     if name == QWEN3:
         return replace(cfg, n_kv_heads=1)
+    if name == GRANITE_H3:
+        return replace(cfg, n_heads=3, n_kv_heads=1)
     return replace(cfg, vocab_size=ODD_VOCAB) if name == ODD else cfg
 
 
@@ -137,21 +147,6 @@ class _Picks:
 
 
 # ------------------------------------------------------------ the ranks
-
-def _local_bytes(params, psh: dict, mesh) -> int:
-    """The local parameter bytes ``psh``'s placements give a rank: each
-    leaf's bytes over the sizes of the mesh dims it is split on."""
-    from torch.distributed.tensor import Shard
-
-    total = 0
-    for path, p in leaves(params):
-        n = p.numel() * p.element_size()
-        for q, size in zip(psh[path], mesh.shape):
-            if isinstance(q, Shard):
-                n //= size
-        total += n
-    return total
-
 
 def _ep_step(mesh, name: str, fsdp: bool, remat: str = "none") -> dict:
     """One step of ``make_train_step(mesh=)`` from ``init_train_state(
@@ -310,7 +305,8 @@ def _restored_placements(mesh, ckpt: str) -> bool:
 def _ep_rank(rank, n, device, mesh_name, ckpt):
     shape, names = MESHES[mesh_name]
     mesh = _mesh(device, shape, names)
-    out = {"cases": {case: _ep_step(mesh, *case) for case in CASES},
+    cases = CASES + ([H3_CASE] if mesh_name == "model2" else [])
+    out = {"cases": {case: _ep_step(mesh, *case) for case in cases},
            "moe": _moe_check(mesh), "vocab": _whole_vocab_check(mesh),
            "restore": _restored_placements(mesh, ckpt),
            "coordinate": mesh.get_coordinate()}
@@ -370,10 +366,12 @@ def _one_process(name: str) -> dict:
 def _ref_cfg(name: str):
     from repro.configs import smoke_config as r_smoke
 
-    arch = GRANITE if name == ODD else name
+    arch = GRANITE if name in (ODD, GRANITE_H3) else name
     cfg = replace(r_smoke(arch), dtype="float32")
     if name == QWEN3:
         return replace(cfg, n_kv_heads=1)
+    if name == GRANITE_H3:
+        return replace(cfg, n_heads=3, n_kv_heads=1)
     return replace(cfg, vocab_size=ODD_VOCAB) if name == ODD else cfg
 
 
@@ -497,6 +495,17 @@ def test_ep_step_matches_one_process_and_reference(ranks, mesh_name, name,
     _check_bytes(outs, name)
 
 
+def test_ep_step_with_query_heads_the_axis_does_not_divide(ranks):
+    """granite-moe with 3 query heads and one kv head on ``(data=1,
+    model=2)``: its experts split over ``model`` as before, its attention
+    heads ``[0, 1)`` and ``[1, 3)`` cut from ``wq``/``bq``/``wo`` gathered
+    whole, ``wk``/``wv`` gathered inside their one head; held as the
+    divisible cases."""
+    outs = [o["cases"][H3_CASE] for o in ranks("model2")]
+    _check_step(outs, *H3_CASE)
+    _check_bytes(outs, H3_CASE[0])
+
+
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_model_ranks_route_alike(ranks, mesh_name, name):
@@ -562,17 +571,18 @@ def test_init_train_state_places_as_the_restore(ranks, mesh_name):
                                           MESHES["data2_model2"], POD_MESH])
 def test_undivided_experts_raise_before_any_collective(shape, names):
     """On a ``model`` axis of 2 (an ``AbstractMesh``: no process group, so
-    any collective would fail otherwise) an expert count or query heads
-    the axis does not divide raise naming 2.6b-4b-3; the MoE
-    configurations the axis divides pass the check."""
+    any collective would fail otherwise) an expert count the axis does not
+    divide, or fewer query heads than the axis (a rank would hold none),
+    raise naming 2.6b-4b-3b; the MoE configurations it runs pass the
+    check, 3 query heads included."""
     from repro_torch.launch.mesh import AbstractMesh
 
     mesh = AbstractMesh(shape, names)
     run = _run(True)
     for cfg in (replace(_cfg(GRANITE), n_experts=3),
                 replace(_cfg(QWEN3), n_experts=5),
-                replace(_cfg(ODD), n_heads=3, n_kv_heads=1)):
-        with pytest.raises(ValueError, match="2.6b-4b-3"):
+                replace(_cfg(ODD), n_heads=1, n_kv_heads=1)):
+        with pytest.raises(ValueError, match="2.6b-4b-3b"):
             ttrain.make_train_step(cfg, run, _opt(), mesh=mesh)
-    for name in NAMES:
+    for name in NAMES + [GRANITE_H3]:
         ttrain._check_model_axis(_cfg(name), run, _opt(), mesh)

@@ -12,15 +12,18 @@ and ``(data=2, model=2)`` (four ranks), one spawn a mesh shape shared by
 every case: fsdp off with ``remat="none"``, and fsdp on with
 ``remat="layer"`` (the hybrid checkpoints each group and each Mamba2
 layer in it, and the recomputation runs every ``model`` collective
-again).  The four-rank spawn also runs the hybrid with fsdp and remat
-on ``(pod=1, data=2, model=2)``.  The global batch is 4 × 272 tokens:
-several 32-token RWKV chunks and two 256-token Mamba2 chunks, both
-padded.  The leaves that the reference initialises to zeros or ones and
-the recurrences read (``mu_*``, ``w0``, ``u_bonus``, ``a_log``,
-``dt_bias``, ``d_skip``, ``gn``, ``out_ln``) are redrawn from a seed
-(:func:`_perturb`), alike in every rank's slices, the one-process step
-and the reference: at ``mu = 0`` the token shift would not reach step
-1's gradients.
+again).  The four-rank spawn also runs the hybrid with fsdp and remat on
+``(pod=1, data=2, model=2)``; the two-rank spawn also runs the two-group
+hybrid with 3 shared-attention heads (``zamba2_2_7b@2h3``), which the
+axis splits inside a head (ROADMAP item 2.6b-4b-3a) while it divides the
+Mamba2 widths (8 heads, ``w_in`` 552, ``conv_w`` 288).  The global batch
+is 4 × 272 tokens: several 32-token RWKV chunks and two 256-token Mamba2
+chunks, both padded.  The leaves that the reference initialises to zeros
+or ones and the recurrences read (``mu_*``, ``w0``, ``u_bonus``,
+``a_log``, ``dt_bias``, ``d_skip``, ``gn``, ``out_ln``) are redrawn from
+a seed (:func:`_perturb`), alike in every rank's slices, the one-process
+step and the reference: at ``mu = 0`` the token shift would not reach
+step 1's gradients.
 
 The reference's meshed step is red on this tree (ROADMAP.md, queue 3),
 so each step is held, from the init, to the port's one-process step and
@@ -69,7 +72,7 @@ every leaf's gradient held (a whole leaf whose gradient were summed over
 over); ``forward``'s prefill raising inside a ``model`` group; the
 placements of ``init_train_state(mesh=)`` against the elastic
 restore's, ``w_in`` and ``conv_w`` included; and the ``ValueError`` of a
-head count the axis does not divide (ROADMAP item 2.6b-4b-3), raised
+head count the axis does not divide (ROADMAP item 2.6b-4b-3b), raised
 before any collective.
 """
 import importlib.util
@@ -91,9 +94,9 @@ from repro_torch.optim import adamw as tadam
 from repro_torch.optim.tree import leaves, local, sharded, tree_map
 from test_torch_data_parallel import (_flat, _flat_np, _moments, _rel,
                                       _update_err)
-from test_torch_expert_parallel import _local_bytes
 from test_torch_mesh_ranks import _mesh, _spawn
-from test_torch_tensor_parallel import _as_r, _full, _same_on_ranks
+from test_torch_tensor_parallel import (_as_r, _full, _local_bytes,
+                                        _same_on_ranks)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 _spec = importlib.util.spec_from_file_location(
@@ -105,12 +108,16 @@ _spec.loader.exec_module(fixture)
 MESHES = {"model2": ((1, 2), ("data", "model")),
           "data2_model2": ((2, 2), ("data", "model"))}
 POD_MESH = ((1, 2, 2), ("pod", "data", "model"))
-#: ``arch@g``: the hybrid cut to its first g groups
+#: ``arch@g``: the hybrid cut to its first g groups; ``arch@ghk``: with k
+#: shared-attention heads (k kv heads)
 RWKV, ZAMBA, ZAMBA1 = "rwkv6_7b", "zamba2_2_7b@2", "zamba2_2_7b@1"
+ZAMBA_H3 = "zamba2_2_7b@2h3"
 #: (name, fsdp, remat) of each mesh's cases
 CASES = [(RWKV, False, "none"), (RWKV, True, "layer"),
          (ZAMBA, False, "none"), (ZAMBA, True, "layer"),
          (ZAMBA1, False, "none")]
+#: model2's alone
+H3_CASE = (ZAMBA_H3, True, "layer")
 #: the (pod=1, data=2, model=2) case
 POD_CASE = (ZAMBA, True, "layer")
 #: the names held to the reference (at test_torch_train.py's depth)
@@ -130,9 +137,11 @@ def _arch(name: str) -> str:
 
 
 def _cut(cfg, name: str):
-    groups = name.partition("@")[2]
+    groups, _, heads = name.partition("@")[2].partition("h")
     if groups:
         cfg = replace(cfg, n_layers=int(groups) * cfg.shared_attn_every)
+    if heads:
+        cfg = replace(cfg, n_heads=int(heads), n_kv_heads=int(heads))
     return cfg
 
 
@@ -399,8 +408,9 @@ def _restored_placements(mesh, ckpt: str) -> bool:
 def _rec_rank(rank, n, device, mesh_name, ckpt):
     shape, names = MESHES[mesh_name]
     mesh = _mesh(device, shape, names)
+    cases = CASES + ([H3_CASE] if mesh_name == "model2" else [])
     with _FloatMode(ftz=True):
-        out = {"cases": {case: _tp_step(mesh, *case) for case in CASES}}
+        out = {"cases": {case: _tp_step(mesh, *case) for case in cases}}
     out.update({"blocks": {name: _block_check(mesh, name)
                            for name in (RWKV, ZAMBA)},
                 "norm": _norm_check(mesh), "serve": _serve_raises(mesh),
@@ -589,6 +599,17 @@ def test_recurrent_tp_step_matches_one_process_and_reference(
     _check_bytes(outs, name)
 
 
+def test_hybrid_shared_heads_the_axis_does_not_divide(ranks):
+    """The two-group hybrid with 3 shared-attention heads on ``(data=1,
+    model=2)``, fsdp and remat: the Mamba2 heads split as before, the
+    shared attention's heads ``[0, 1)`` and ``[1, 3)`` cut from its
+    leaves gathered whole; held to the one-process step as the other
+    two-group cases."""
+    outs = [o["cases"][H3_CASE] for o in ranks("model2")]
+    _check_step(outs, *H3_CASE)
+    _check_bytes(outs, H3_CASE[0])
+
+
 def test_recurrent_tp_step_on_pod_data_model_mesh(ranks):
     """The four ranks as ``(pod=1, data=2, model=2)`` with fsdp and remat
     (the recomputation re-enters the ``model`` group), subnormals kept:
@@ -655,15 +676,15 @@ def test_init_train_state_places_as_the_restore(ranks, mesh_name):
 def test_undivided_heads_raise_before_any_collective(shape, names):
     """On a ``model`` axis of 2 (an ``AbstractMesh``: no process group, so
     any collective would fail otherwise) RWKV6 with 3 heads and the hybrid
-    with 3 Mamba2 heads raise naming 2.6b-4b-3; the smoke configurations
-    pass the check."""
+    with 3 Mamba2 heads raise naming 2.6b-4b-3b; the smoke configurations
+    pass the check, 3 shared-attention heads included."""
     from repro_torch.launch.mesh import AbstractMesh
 
     mesh = AbstractMesh(shape, names)
     run = _run(True)
     for cfg in (replace(_cfg(RWKV), d_model=96),
                 replace(_cfg(ZAMBA), d_model=96, ssm_head=64)):
-        with pytest.raises(ValueError, match="2.6b-4b-3"):
+        with pytest.raises(ValueError, match="2.6b-4b-3b"):
             ttrain.make_train_step(cfg, run, _opt(), mesh=mesh)
-    for name in (RWKV, ZAMBA, ZAMBA1):
+    for name in (RWKV, ZAMBA, ZAMBA1, ZAMBA_H3):
         ttrain._check_model_axis(_cfg(name), run, _opt(), mesh)

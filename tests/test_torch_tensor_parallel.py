@@ -10,14 +10,24 @@ musicgen-medium: GELU, embedding input; starcoder2-3b: GQA, qkv biases)
 as float32 smoke models with AdamW, fsdp on and off, one and two
 microbatches, on a global batch whose rows hold unequal shares of masked
 (``-1``) labels.  An MQA variant of starcoder2-3b (one kv head) has
-``wk``/``wv`` split inside its one head on ``model=2``: each rank gathers
-them whole for its query heads, so a missing sum of their partial
-gradients, or a norm gain's gradient summed twice, shows in its
-gradients.  The four-rank spawn also runs one case on ``(pod=1, data=2,
-model=2)``.  The reference's meshed step is red on this tree (ROADMAP.md,
-queue 3), so each step is held, from the init, to the port's one-process
-step and to the reference's unsharded ``_microbatched_grads`` composed
-with its ``adamw_update`` (``test_torch_data_parallel.py``'s bars):
+``wk``/``wv`` split inside its one head on ``model=2``: each rank
+gathers them whole for its query heads, so a missing sum of their
+partial gradients, or a norm gain's gradient summed twice, shows in its
+gradients.  The two-rank spawn also runs query heads that the axis does
+not divide (ROADMAP item 2.6b-4b-3a): deepseek-7b and the MQA
+starcoder2-3b with 3 query heads, ``wq``/``bq``/``wo`` split inside the
+second head, each rank's heads (1 and 2) cut from the leaves gathered
+whole.  The four-rank spawn also runs one case on ``(pod=1, data=2,
+model=2)``.  A third spawn of three ranks on ``(data=1, model=3)`` runs
+deepseek-7b, whose 4 query heads, ffn of 256 and vocabulary of 512 the
+axis does not divide: the rules leave ``wq``–``wo`` and the MLP whole on
+``model``, each rank takes its balanced range (1, 1 and 2 heads; 85, 85
+and 86 ffn columns) from them, and the mesh step sums their partial
+gradients over ``model``.  The reference's meshed step is red on this
+tree (ROADMAP.md, queue 3), so each step is held, from the init, to the
+port's one-process step and to the reference's unsharded
+``_microbatched_grads`` composed with its ``adamw_update``
+(``test_torch_data_parallel.py``'s bars):
 
 * the loss, ``ce`` and ``grad_norm`` within 1e-6 (relative), and the same
   bits on every rank;
@@ -36,9 +46,11 @@ process, forward and gradient; the vocab-parallel cross-entropy and its
 gradient against ``torch.logsumexp`` with negative labels;
 ``global_norm(group=)`` on leaves split over each axis and both; a leaf
 whole on ``model`` whose gradient is partial there, summed over ``model``
-by ``_reduce_grads``; and the ``ValueError``s of what a ``model`` axis
-does not run yet (ROADMAP items 2.6b-4b-3 to 4b-5, 4c and 4d), raised
-before any collective.
+by ``_reduce_grads`` (on ``model=3`` a whole ``wq`` and ``w_up``);
+``_partial_over_model`` on the smoke and production configurations;
+:func:`~repro_torch.models.layers.unit_range`'s ranges; and the
+``ValueError``s of what a ``model`` axis does not run yet (ROADMAP items
+2.6b-4b-3b to 4b-5, 4c and 4d), raised before any collective.
 """
 from dataclasses import replace
 
@@ -50,6 +62,7 @@ import torch.distributed as dist
 from repro_torch.configs import RunConfig, smoke_config
 from repro_torch.launch import sharding as tsh
 from repro_torch.launch import train as ttrain
+from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models.layers import ParamSpec, model_parallel
 from repro_torch.optim import adamw as tadam
@@ -61,12 +74,25 @@ from test_torch_mesh_ranks import _mesh, _spawn
 MESHES = {"model2": ((1, 2), ("data", "model")),
           "data2_model2": ((2, 2), ("data", "model"))}
 POD_MESH = ((1, 2, 2), ("pod", "data", "model"))
+#: a model axis that divides neither smoke deepseek-7b's 4 heads nor its
+#: ffn of 256 nor its vocabulary of 512: all whole on model
+MODEL3 = ((1, 3), ("data", "model"))
 ARCHS = ["deepseek_7b", "musicgen_medium", "starcoder2_3b"]
 #: starcoder2-3b with one kv head: on model=2, wk/wv split inside it
 MQA = "starcoder2_3b_mqa"
+#: 3 query heads on model=2: wq, bq and wo split inside the second head
+H3, MQA_H3 = "deepseek_7b_h3", "starcoder2_3b_mqa_h3"
+#: name: (arch, the smoke config's fields replaced)
+VARIANTS = {MQA: ("starcoder2_3b", {"n_kv_heads": 1}),
+            H3: ("deepseek_7b", {"n_heads": 3, "n_kv_heads": 3}),
+            MQA_H3: ("starcoder2_3b", {"n_heads": 3, "n_kv_heads": 1})}
 #: (arch, fsdp, microbatches) of each mesh's cases
 CASES = [(a, f, mb) for a in ARCHS for f in (False, True) for mb in (1, 2)]
 MQA_CASES = [(MQA, f, 2) for f in (False, True)]
+#: model2's alone
+UNEVEN_CASES = [(a, f, 1) for a in (H3, MQA_H3) for f in (False, True)]
+#: model3's
+MODEL3_CASES = [("deepseek_7b", False, 1), ("deepseek_7b", True, 2)]
 POD_CASE = ("deepseek_7b", True, 2)
 SEED = 47
 BATCH = (8, 16)
@@ -77,9 +103,8 @@ TOL_CE, TOL_NORM = 1e-6, 1e-6
 
 
 def _cfg(name: str):
-    arch = "starcoder2_3b" if name == MQA else name
-    cfg = replace(smoke_config(arch), dtype="float32")
-    return replace(cfg, n_kv_heads=1) if name == MQA else cfg
+    arch, fields = VARIANTS.get(name, (name, {}))
+    return replace(smoke_config(arch), dtype="float32", **fields)
 
 
 def _run(fsdp: bool, mb: int) -> RunConfig:
@@ -138,6 +163,21 @@ def _full(t, mesh) -> torch.Tensor:
     return x
 
 
+def _local_bytes(params, psh: dict, mesh) -> int:
+    """The local parameter bytes ``psh``'s placements give a rank: each
+    leaf's bytes over the sizes of the mesh dims it is split on."""
+    from torch.distributed.tensor import Shard
+
+    total = 0
+    for path, p in leaves(params):
+        n = p.numel() * p.element_size()
+        for q, size in zip(psh[path], mesh.shape):
+            if isinstance(q, Shard):
+                n //= size
+        total += n
+    return total
+
+
 def _tp_step(mesh, name: str, fsdp: bool, mb: int) -> dict:
     """One step of ``make_train_step(mesh=)`` from ``init_train_state(
     mesh=)``: the metrics, the reduced gradients, new parameters and
@@ -156,6 +196,7 @@ def _tp_step(mesh, name: str, fsdp: bool, mb: int) -> dict:
                       for path, t in leaves(_moments(state))))
     loc = sum(local(p).numel() * p.element_size() for _, p in leaves(params))
     full = sum(p.numel() * p.element_size() for _, p in leaves(params))
+    want_loc = _local_bytes(params, dict(leaves(psh)), mesh)
     step, _ = ttrain.make_train_step(cfg, run, opt, mesh=mesh)
     seen, reduce = {}, ttrain._reduce_grads
 
@@ -175,7 +216,8 @@ def _tp_step(mesh, name: str, fsdp: bool, mb: int) -> dict:
             "moments": tree_map(lambda t: _full(t, mesh), _moments(state)),
             "replicated": {path: local(t).clone() for path, t in leaves(
                 {"p": params, "o": _moments(state)}) if not sharded(t)},
-            "placed": placed, "bytes": (loc, full)}
+            "placed": placed, "bytes": (loc, full),
+            "placed_bytes": want_loc}
 
 
 def _model_slice(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
@@ -240,21 +282,27 @@ HAND = {"both": (("vocab", "embed"), (8, 6)),
         "model": ((None, "mlp"), (3, 4)),
         "ln": ((None,), (6,)),
         "k": (("embed", "kv_heads"), (6, 3))}
+#: model=3's: smoke deepseek-7b's query heads and ffn, and a vocabulary,
+#: none of which the axis divides
+HAND3 = {"wq": (("embed", "heads"), (6, 128)),
+         "w_up": (("embed", "mlp"), (6, 256)),
+         "ln": ((None,), (6,)),
+         "vocab": (("vocab", "embed"), (512, 6))}
 
 
-def _hand_specs() -> dict:
+def _hand_specs(hand: dict) -> dict:
     return {k: ParamSpec(shape, axes, "float32")
-            for k, (axes, shape) in HAND.items()}
+            for k, (axes, shape) in hand.items()}
 
 
-def _hand_check(mesh) -> dict:
+def _hand_check(mesh, hand: dict = HAND, same=("ln",)) -> dict:
     """``global_norm(group=)`` of hand-built leaves placed by fsdp's
     rules (split over the batch axes, over ``model``, over both, or
     whole), and ``_reduce_grads`` of rank-dependent gradients: ``k``'s
-    (whole on ``model``, consumed on its split: partial) summed over every
-    rank, ``ln``'s (whole, the same on the ``model`` ranks) over the batch
-    ranks alone."""
-    specs = _hand_specs()
+    (``HAND3``: ``wq``'s and ``w_up``'s) (whole on ``model``, consumed on
+    its split: partial) summed over every rank; those of ``same`` (whole,
+    the same on the ``model`` ranks) over the batch ranks alone."""
+    specs = _hand_specs(hand)
     run = RunConfig(fsdp=True)
     rules = tsh.rules_for(mesh, run)
     psh = tsh.param_shardings(specs, mesh, rules)
@@ -274,7 +322,7 @@ def _hand_check(mesh) -> dict:
         params, group, axes).items()}
     batch_rank = mesh.get_local_rank("data")
     mine = {k: torch.randn(shapes[k], generator=torch.Generator().manual_seed(
-        100 * (1 + batch_rank) + (0 if k == "ln" else dist.get_rank())))
+        100 * (1 + batch_rank) + (0 if k in same else dist.get_rank())))
         for k in specs}
     partial = ttrain._partial_over_model(specs, psh, mesh)
     red = ttrain._reduce_grads({k: v.clone() for k, v in mine.items()},
@@ -331,11 +379,23 @@ def _remat_check(mesh) -> bool:
     return all(torch.equal(a, c) for a, c in zip(*out))
 
 
+def _model3_rank(device) -> dict:
+    """``(data=1, model=3)``: the steps of ``MODEL3_CASES`` and the
+    whole-on-``model`` reduction of ``HAND3``."""
+    mesh = _mesh(device, *MODEL3)
+    return {"cases": {case: _tp_step(mesh, *case) for case in MODEL3_CASES},
+            "hand": _hand_check(mesh, HAND3, same=("ln", "vocab")),
+            "coordinate": mesh.get_coordinate()}
+
+
 def _tp_rank(rank, n, device, mesh_name, ckpt):
+    if mesh_name == "model3":
+        return _model3_rank(device)
     shape, names = MESHES[mesh_name]
     mesh = _mesh(device, shape, names)
-    out = {"cases": {case: _tp_step(mesh, *case)
-                     for case in CASES + MQA_CASES},
+    cases = CASES + MQA_CASES + (UNEVEN_CASES if mesh_name == "model2"
+                                 else [])
+    out = {"cases": {case: _tp_step(mesh, *case) for case in cases},
            "lookup": _lookup_check(mesh), "ce": _ce_check(mesh),
            "hand": _hand_check(mesh),
            "restore": _restored_placements(mesh, ckpt),
@@ -363,8 +423,10 @@ def ranks(tmp_path_factory):
             ckpt = str(tmp / "ckpt")
             CheckpointManager(ckpt, device="cpu").save(0, params, state,
                                                        blocking=True)
-            n = int(np.prod(MESHES[mesh_name][0]))
-            results[mesh_name] = _spawn(_tp_rank, n, tmp, mesh_name, ckpt)
+            shape = MODEL3[0] if mesh_name == "model3" else MESHES[
+                mesh_name][0]
+            results[mesh_name] = _spawn(_tp_rank, int(np.prod(shape)), tmp,
+                                        mesh_name, ckpt)
         return results[mesh_name]
     return get
 
@@ -377,9 +439,8 @@ _REF_GRADS: dict = {}
 def _ref_cfg(name: str):
     from repro.configs import smoke_config as r_smoke
 
-    arch = "starcoder2_3b" if name == MQA else name
-    cfg = replace(r_smoke(arch), dtype="float32")
-    return replace(cfg, n_kv_heads=1) if name == MQA else cfg
+    arch, fields = VARIANTS.get(name, (name, {}))
+    return replace(r_smoke(arch), dtype="float32", **fields)
 
 
 def _as_r(tree):
@@ -508,6 +569,118 @@ def test_tp_step_on_pod_data_model_mesh(ranks):
     _check_bytes(outs, POD_CASE[1], 2, 2)
 
 
+@pytest.mark.parametrize("name, fsdp, mb", UNEVEN_CASES)
+def test_tp_step_splits_inside_a_query_head(ranks, name, fsdp, mb):
+    """3 query heads on ``(data=1, model=2)``: the ranks take heads
+    ``[0, 1)`` and ``[1, 3)``, ``wq``/``bq``/``wo`` (split inside the
+    second head) gathered whole and cut, ``wk``/``wv`` gathered inside
+    their heads (3, or one MQA head); held as the divisible cases."""
+    outs = [o["cases"][name, fsdp, mb] for o in ranks("model2")]
+    _check_step(outs, name, fsdp, mb)
+    _check_bytes(outs, fsdp, 2, 1)
+
+
+@pytest.mark.parametrize("name, fsdp, mb", MODEL3_CASES)
+def test_tp_step_with_heads_and_ffn_whole_on_model(ranks, name, fsdp, mb):
+    """``(data=1, model=3)``: deepseek-7b's 4 query heads, ffn of 256 and
+    vocabulary of 512 whole on every ``model`` rank (the rules' fallback);
+    each rank computes 1, 1 or 2 heads and 85, 85 or 86 ffn columns cut
+    from them, and their partial gradients are summed over ``model``.
+    Held as the divisible cases; each rank's local bytes are what the
+    placements give it."""
+    outs = [o["cases"][name, fsdp, mb] for o in ranks("model3")]
+    _check_step(outs, name, fsdp, mb)
+    for o in outs:
+        loc, full = o["bytes"]
+        assert o["placed"] and loc == o["placed_bytes"], (loc, full)
+    print(f"model3: local over full parameter bytes {loc / full:.4f}")
+
+
+def test_reduce_grads_sums_whole_heads_and_ffn_over_model3(ranks):
+    """On ``(data=1, model=3)`` a ``wq`` and a ``w_up`` whole on ``model``
+    (their widths 128 and 256) are partial there: ``_reduce_grads`` sums
+    their gradients over every rank; a norm gain's and a whole
+    vocabulary's, the same on the ``model`` ranks, are not summed over
+    ``model``; ``global_norm`` counts each whole leaf once."""
+    outs = [o["hand"] for o in ranks("model3")]
+    want_norm = tadam.global_norm(outs[0]["whole"]).item()
+    for o in outs:
+        assert o["partial"] == [("w_up",), ("wq",)], o["partial"]
+        assert abs(o["norm"].item() - want_norm) <= TOL_NORM * want_norm
+    for k in HAND3:
+        picked = outs if k in ("wq", "w_up") else outs[:1]
+        want = sum(np.float64(o["grads_in"][k].numpy()) for o in picked)
+        for o in outs:
+            got = o["reduced"][k].numpy()
+            assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), k
+
+
+def _whole_paths(blocks: dict) -> set:
+    return {(*pre, blk, k) for pre, blk_keys in blocks.items()
+            for blk, ks in blk_keys.items() for k in ks}
+
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_MLP = ("w_up", "w_gate", "w_down")
+
+
+@pytest.mark.parametrize("arch, smoke, shape, want", [
+    ("deepseek_7b", True, (1, 3),
+     _whole_paths({("layers",): {"attn": _ATTN, "mlp": _MLP}})),
+    ("starcoder2_3b", True, (1, 3),
+     _whole_paths({("layers",): {"attn": _ATTN + ("bq", "bk", "bv"),
+                                 "mlp": ("w_up", "w_down")}})),
+    ("granite_moe_1b_a400m", True, (1, 3),
+     _whole_paths({("layers",): {"attn": _ATTN}})),
+    ("zamba2_2_7b", True, (1, 3),
+     _whole_paths({(): {"shared_attn": _ATTN, "shared_mlp": _MLP}})),
+    ("rwkv6_7b", True, (1, 2), set()),
+    ("deepseek_7b", True, (1, 2), set()),
+    ("starcoder2_3b", False, (16, 16), set()),
+    ("qwen1_5_32b", False, (16, 16), set()),
+    ("musicgen_medium", False, (2, 16, 16), set())])
+def test_partial_over_model_marks_leaves_whole_on_model(arch, smoke, shape,
+                                                        want):
+    """``_partial_over_model`` marks exactly the attention's and the dense
+    MLP's ``heads``/``kv_heads``/``mlp`` leaves whole on ``model``: none
+    on a divisible axis or on the production meshes (where starcoder2-3b,
+    qwen1.5-32b and musicgen-medium split ``wq`` inside a head), never an
+    expert, RWKV6, Mamba2, vocabulary or norm leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                       "model")
+    mesh = AbstractMesh(shape, names)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    specs = tmodel.model_specs(cfg)
+    psh = tsh.param_shardings(specs, mesh, tsh.rules_for(mesh, RunConfig(
+        fsdp=True)))
+    assert set(ttrain._partial_over_model(specs, psh, mesh)) == want
+
+
+def test_unit_range_tiles_units_and_keeps_even_slices(monkeypatch):
+    """``unit_range`` outside a ``model`` group is ``[0, u)``; inside one
+    of ``n`` ranks the ranges tile ``[0, u)`` in rank order, each of
+    ``⌊u/n⌋`` or ``⌈u/n⌉`` units, and equal the even slice
+    ``[r·u/n, (r+1)·u/n)`` wherever ``n`` divides ``u``."""
+    assert tlayers.unit_range(24) == (0, 24)
+    for n in range(2, 17):
+        for u in range(n, 70):
+            got = []
+            for r in range(n):
+                monkeypatch.setattr(tlayers, "model_rank", lambda r=r: (r, n))
+                got.append(tlayers.unit_range(u))
+            assert got[0][0] == 0 and got[-1][1] == u
+            assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+            assert {hi - lo for lo, hi in got} <= {u // n, -(-u // n)}
+            if u % n == 0:
+                assert got == [(r * u // n, (r + 1) * u // n)
+                               for r in range(n)]
+    monkeypatch.undo()
+    assert tlayers.unit_range(24) == (0, 24)
+
+
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_vocab_split_lookup_is_exact(ranks, mesh_name):
     """The vocab-split embedding lookup (rows outside the rank's slice
@@ -586,11 +759,11 @@ def test_unsupported_model_axis_raises_before_any_collective(tmp_path,
                                                              monkeypatch):
     """On a ``model`` axis of 2 (an ``AbstractMesh``: no process group,
     so any collective would fail otherwise) an MoE whose experts the axis
-    does not divide, RWKV6 with 3 heads and the hybrid with 3 Mamba2
-    heads, ``seq_shard``, Adafactor and a split inside a query head raise
-    naming 2.6b-4b (its sub-items 2.6b-4b-3 to 4b-5); the compressed step and its state 2.6b-4d;
-    ``train_loop`` 2.6b-4c before any checkpoint is read or any state is
-    made."""
+    does not divide, RWKV6 with 3 heads, the hybrid with 3 Mamba2 heads
+    and an axis wider than the query heads (one head) raise naming
+    2.6b-4b-3b, ``seq_shard`` 2.6b-4b-4 and Adafactor 2.6b-4b-5; the
+    compressed step and its state 2.6b-4d; ``train_loop`` 2.6b-4c before
+    any checkpoint is read or any state is made."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.optim.adafactor import AdafactorConfig
@@ -598,18 +771,20 @@ def test_unsupported_model_axis_raises_before_any_collective(tmp_path,
     for shape, names in (MESHES["model2"], MESHES["data2_model2"], POD_MESH):
         mesh = AbstractMesh(shape, names)
         dense, run = _cfg("deepseek_7b"), _run(False, 1)
-        for cfg, r, opt in (
+        for cfg, r, opt, item in (
                 (replace(_cfg("granite_moe_1b_a400m"), n_experts=3), run,
-                 _opt()),
-                (replace(_cfg("rwkv6_7b"), d_model=96), run, _opt()),
+                 _opt(), "3b"),
+                (replace(_cfg("rwkv6_7b"), d_model=96), run, _opt(), "3b"),
                 (replace(_cfg("zamba2_2_7b"), d_model=96, ssm_head=64), run,
-                 _opt()),
-                (dense, replace(run, seq_shard=True), _opt()),
+                 _opt(), "3b"),
+                (dense, replace(run, seq_shard=True), _opt(), "4"),
                 (dense, replace(run, optimizer="adafactor"),
-                 AdafactorConfig()),
-                (replace(dense, n_heads=3, n_kv_heads=3), run, _opt())):
-            with pytest.raises(ValueError, match="2.6b-4b"):
+                 AdafactorConfig(), "5"),
+                (replace(dense, n_heads=1, n_kv_heads=1), run, _opt(),
+                 "3b")):
+            with pytest.raises(ValueError, match="2.6b-4b") as err:
                 ttrain.make_train_step(cfg, r, opt, mesh=mesh)
+            assert f"ROADMAP item 2.6b-4b-{item}" in str(err.value), err
         with pytest.raises(ValueError, match="2.6b-4d"):
             ttrain.make_train_step_compressed(dense, run, opt_cfg=_opt(),
                                               mesh=mesh)
